@@ -1,0 +1,72 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+One ``torch.utils.cpp_extension.load`` call builds every source at first
+use into ``build/torch_kernels/`` at the root of the checkout (ninja
+rebuilds what changed): the kernels (``pileup.cu``, ``insertion.cu``,
+plain CUDA, no PyTorch headers) and ``binding.cpp``, the one file that
+includes ``torch/extension.h`` and exposes a typed tensor entry point per
+kernel.  ``kernels.h`` states the entry points' parameters once for both
+sides.  A failed build raises: nothing here degrades to the plain PyTorch
+versions.
+
+:class:`Kernel` is one entry point and its launch count.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("binding.cpp", "pileup.cu", "insertion.cu")
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+_EXTENSION = None
+
+
+def extension():
+    """The built extension module (built, or loaded, on the first call)."""
+    global _EXTENSION
+    if _EXTENSION is None:
+        from torch.utils.cpp_extension import load
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)   # load does not
+        _EXTENSION = load(
+            "s2c_torch_kernels", [str(CSRC / s) for s in SOURCES],
+            extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
+            build_directory=str(BUILD_DIR))
+    return _EXTENSION
+
+
+class Kernel:
+    """One typed entry point of the extension (``csrc/binding.cpp``).
+
+    :meth:`launch` calls it with the wrapper's tensors and ints (the entry
+    point checks them and raises on a refused launch) and is the only place
+    ``launches`` grows.
+    """
+
+    def __init__(self, name: str, source: str):
+        self.name = name          # the entry point in binding.cpp
+        self.source = source      # the kernel's file in csrc/
+        self.launches = 0
+
+    def function(self):
+        return getattr(extension(), self.name)
+
+    def launch(self, *args) -> None:
+        self.function()(*args)
+        self.launches += 1
+
+
+def all_kernels() -> List[Kernel]:
+    """Every kernel of the package, in path order (K1, K2, K3)."""
+    from ..ops import insertion_kernel, pileup_kernel
+
+    return [pileup_kernel.K1, insertion_kernel.K2, insertion_kernel.K3]
+
+
+def reset_launches(kernels: Optional[Sequence[Kernel]] = None) -> None:
+    for k in kernels if kernels is not None else all_kernels():
+        k.launches = 0
