@@ -43,8 +43,8 @@ class Kernel:
     """One typed entry point of the extension (``csrc/binding.cpp``).
 
     :meth:`launch` calls it with the wrapper's tensors and ints (the entry
-    point checks them and raises on a refused launch) and is the only place
-    ``launches`` grows.
+    point checks them, raises on a refused launch and returns the number of
+    kernel launches it made) and is the only place ``launches`` grows.
     """
 
     def __init__(self, name: str, source: str):
@@ -56,8 +56,7 @@ class Kernel:
         return getattr(extension(), self.name)
 
     def launch(self, *args) -> None:
-        self.function()(*args)
-        self.launches += 1
+        self.launches += self.function()(*args)
 
 
 def all_kernels() -> List[Kernel]:

@@ -8,9 +8,10 @@ device-to-host copy:
       | dash counts T*C*4 (device epilogue only) ]
 
 byte-identical to the JAX functions for the same inputs
-(``tests/test_torch_ops.py``).  The insertion vote runs in K2 when the
-padded column count ``cp`` is at most ``FUSED_VOTE_MAX_CP``, else K3 and
-the torch vote (the JAX split at ``ops/fused.py:333-342``).
+(``tests/test_torch_ops.py``).  The insertion vote runs in K2, straight
+from the events, when the padded column count ``cp`` is at most
+``FUSED_VOTE_MAX_CP``; else in K3 (after ``plan_events``) and the torch
+vote (the JAX split at ``ops/fused.py:333-342``).
 """
 
 from __future__ import annotations
@@ -122,11 +123,12 @@ def vote_packed(counts: torch.Tensor, thresholds: Sequence[float],
     column count; events key into ``[0, Kp)``."""
     syms, cov = vote_block(counts, thresholds, min_depth, "ascii", fill_code)
     contig_sums, site_cov = _tail_stats(cov, offsets, site_keys)
-    plan = plan_events(ev_key, ev_col, ev_code, site_keys.shape[0], cp)
     if cp <= FUSED_VOTE_MAX_CP:
-        ins_syms = vote_insertions_fused(plan, site_cov, n_cols, thresholds)
+        ins_syms = vote_insertions_fused(ev_key, ev_col, ev_code, site_cov,
+                                         n_cols, cp, thresholds)
     else:
-        table = build_insertion_table_kernel(plan)
+        table = build_insertion_table_kernel(
+            plan_events(ev_key, ev_col, ev_code, site_keys.shape[0], cp))
         ins_syms = vote_insertions(table, site_cov, n_cols, thresholds)
     return torch.cat([syms.reshape(-1), ins_syms.reshape(-1),
                       _bytes_of_i32(contig_sums), _bytes_of_i32(site_cov)]

@@ -1,17 +1,18 @@
 """K2 and K3 launch wrappers: the insertion kernels (``csrc/insertion.cu``).
 
-Replaces ``sam2consensus_tpu/ops/pallas_insertion.py``.  The plan keeps
-``plan_events``' logic (events sorted by site key, a CSR event range per
-key) re-parameterised for the card's blocking: one CUDA block per
-(key, chunk of ``COL_CHUNK`` columns) instead of 128 keys x all columns
-per TPU block.
+Replaces ``sam2consensus_tpu/ops/pallas_insertion.py``.
 
-* K2, :func:`vote_insertions_fused`: the fused table + vote, returning
-  uint8 ``[T, kp, cp]`` in the contract of the JAX
-  ``vote_insertions_fused`` (FILL_SENTINEL for ``-`` calls and for columns
-  past ``n_cols``);
+* K2, :func:`vote_insertions_fused`: the fused table + vote from the tail's
+  events as they come, unsorted: no plan, no host synchronisation and no
+  host-to-device copy (the thresholds and the IUPAC LUT travel in the
+  launch's parameters).  Returns uint8 ``[T, kp, cp]`` in the contract of
+  the JAX ``vote_insertions_fused`` (FILL_SENTINEL for ``-`` calls and for
+  columns past ``n_cols``);
 * K3, :func:`build_insertion_table_kernel`: the table only, int32
-  ``[kp, cp, 6]`` in the contract of ``build_insertion_table_pallas``.
+  ``[kp, cp, 6]`` in the contract of ``build_insertion_table_pallas``,
+  from :func:`plan_events` (``plan_events``' logic: events sorted by site
+  key, a CSR event range per key; one CUDA block per (key, chunk of
+  ``COL_CHUNK`` columns) instead of 128 keys x all columns per TPU block).
 
 On CPU tensors both run their plain versions from ``ops/insertions.py``.
 """
@@ -26,7 +27,7 @@ from ..constants import IUPAC_MASK_LUT, NUM_SYMBOLS
 from ..kernels.build import Kernel
 from .insertions import build_insertion_table, vote_insertions
 
-#: columns per CUDA block: a [512, 6] int32 shared table is 12 KiB
+#: columns per K3 block: a [512, 6] int32 shared table is 12 KiB
 COL_CHUNK = 512
 
 #: copy of ``pallas_insertion.FUSED_VOTE_MAX_CP``: the fused vote serves
@@ -79,37 +80,39 @@ def build_insertion_table_kernel(plan: EventPlan) -> torch.Tensor:
     return out
 
 
-_LUTS = {}
+#: the IUPAC LUT as the K2 entry point takes it (by value)
+_LUT = IUPAC_MASK_LUT.astype("uint8").tobytes()
 
 
-def _lut(device) -> torch.Tensor:
-    lut = _LUTS.get(device)
-    if lut is None:
-        lut = torch.as_tensor(IUPAC_MASK_LUT, dtype=torch.uint8).to(device)
-        _LUTS[device] = lut
-    return lut
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
 
 
-def vote_insertions_fused(plan: EventPlan, site_cov: torch.Tensor,
-                          n_cols: torch.Tensor,
+def vote_insertions_fused(ev_key: torch.Tensor, ev_col: torch.Tensor,
+                          ev_code: torch.Tensor, site_cov: torch.Tensor,
+                          n_cols: torch.Tensor, cp: int,
                           thresholds: Sequence[float]) -> torch.Tensor:
-    """K2: table + vote in one kernel; uint8 ``[T, kp, cp]``.
+    """K2: table + vote of unsorted events; uint8 ``[T, kp, cp]``.
 
-    ``site_cov`` and ``n_cols`` are int32 ``[kp]`` on the plan's device."""
-    dev = plan.key.device
+    ``ev_*`` are ``[E]`` (site key in ``[0, kp)``, column in ``[0, cp)``,
+    code in ``[0, 6)``); ``site_cov`` and ``n_cols`` are ``[kp]``, all on one
+    device.  Integer tensors of another type are converted on the device."""
+    kp = site_cov.shape[0]
+    dev = site_cov.device
     if dev.type == "cpu":
-        return vote_insertions(_plain_table(plan), site_cov, n_cols,
-                               thresholds)
-    site_cov = site_cov.to(torch.int32).contiguous()
-    n_cols = n_cols.to(torch.int32).contiguous()
-    if site_cov.shape != (plan.kp,) or n_cols.shape != (plan.kp,) \
-            or site_cov.device != dev or n_cols.device != dev:
-        raise ValueError(f"site_cov and n_cols must be [{plan.kp}] on {dev}")
-    thr = torch.tensor([float(t) for t in thresholds], dtype=torch.float64,
-                       device=dev)
-    out = torch.empty((len(thr), plan.kp, plan.cp), dtype=torch.uint8,
+        table = build_insertion_table(kp, cp, ev_key, ev_col, ev_code)
+        return vote_insertions(table, site_cov, n_cols, thresholds)
+    ev = [_int32(t) for t in (ev_key, ev_col, ev_code)]
+    site_cov, n_cols = _int32(site_cov), _int32(n_cols)
+    if n_cols.shape != (kp,) or any(t.device != dev for t in ev + [n_cols]):
+        raise ValueError(f"n_cols must be [{kp}] and every input on {dev}")
+    out = torch.empty((len(thresholds), kp, cp), dtype=torch.uint8,
                       device=dev)
-    if plan.kp and plan.cp and len(thr):
-        K2.launch(plan.key_ptr, plan.cc, site_cov, n_cols, thr, _lut(dev),
-                  min(COL_CHUNK, plan.cp), out)
+    if out.numel():
+        table = torch.empty((kp, cp, NUM_SYMBOLS), dtype=torch.int32,
+                            device=dev)
+        K2.launch(*ev, site_cov, n_cols, [float(t) for t in thresholds],
+                  _LUT, table, out)
     return out

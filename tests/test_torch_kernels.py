@@ -1,7 +1,8 @@
 """The plain versions of the port's three CUDA kernels against the JAX
 package's Pallas kernels (run as the JAX tests run them: ``interpret=True``),
-plus the kernels' host-visible logic: the launch plans, and a numpy
-emulation of each kernel's block decomposition driven by those plans.
+plus the kernels' host-visible logic: K1's launch plan, and a numpy
+emulation of each kernel's block decomposition driven by the route's real
+inputs (K1's sorted plan, K2's unsorted events, K3's CSR plan).
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
 them against these plain versions there.  Integer data: exact equality.
@@ -29,31 +30,92 @@ def _k1_plain(total_len, starts, codes):
     return counts.numpy()
 
 
-def _emulate_k1(n_pos, starts, codes, tile, item_bytes):
-    """numpy model of csrc/pileup.cu: per work item a shared [tile, 6]
-    histogram, cells past the tile straight to counts, then a flush."""
+def _define(source, name):
+    """An integer ``#define`` of one of the kernels' sources."""
+    import re
+
+    from sam2consensus_torch.kernels import build
+
+    text = (build.CSRC / source).read_text()
+    return int(re.search(rf"#define {name} (\d+)", text).group(1))
+
+
+def _k1_grid(n, wb, slots, stage):
+    """K1's grid as ``s2c_pileup_rows`` sizes it: (rows a stage holds,
+    rows a block, blocks) for ``n`` rows of ``wb`` bytes and ``slots``
+    resident blocks."""
+    pw = min(wb, stage)
+    cap = min(stage // pw, stage // 16)
+    rb = min(_define("pileup.cu", "K1_MAX_ROWS"), max(cap, -(-n // slots)))
+    return cap, rb, -(-n // rb)
+
+
+def _emulate_k1(n_pos, starts, codes, win, stage, slots):
+    """numpy model of csrc/pileup.cu driven by the route's real plan
+    (``plan_rows``) and the entry point's grid: per block a run of sorted
+    rows and a sliding window of ``win`` positions; rows that fit whole are
+    staged (at most ``stage`` bytes) and counted in the window, the first
+    row that does not fit flushes and rebases it, a row wider than the
+    window is counted alone at its base with the cells past the window
+    straight to counts.  Checks the design's invariants as it goes: a 16-bit
+    counter never passes 65535, the staged bytes fit, and a flush's plain
+    read-modify-write only lands on positions no other block touches."""
     st = torch.from_numpy(starts.astype(np.int32))
     packed = torch.from_numpy(pack_nibbles(codes))
-    plan = t_pk.plan_rows(st, packed.shape[1], n_pos, tile, item_bytes)
-    order = plan.order.numpy()
-    st_s = starts[order].astype(np.int64)
-    codes_s = unpack_nibbles(packed[plan.order]).numpy()
+    n, wb = packed.shape
+    plan = t_pk.plan_rows(st)
+    s = plan.starts.numpy().astype(np.int64)
+    rows = unpack_nibbles(packed[plan.order]).numpy()
+    w = 2 * wb
+    cap, rb, n_blocks = _k1_grid(n, wb, slots, stage)
+    pw = min(wb, stage)
     counts = np.zeros((n_pos, 6), np.int64)
-    for it, lo, hi in zip(plan.item_tile.numpy(), plan.item_lo.numpy(),
-                          plan.item_hi.numpy()):
-        base = int(it) * tile
-        hist = np.zeros((tile, 6), np.int64)
-        for r in range(lo, hi):
-            cols = np.nonzero(codes_s[r] < 6)[0]
-            pos = st_s[r] + cols
-            local = pos - base
-            inside = (local >= 0) & (local < tile)
-            np.add.at(hist, (local[inside], codes_s[r, cols[inside]]), 1)
-            out = ~inside & (pos >= 0) & (pos < n_pos)
-            np.add.at(counts, (pos[out], codes_s[r, cols[out]]), 1)
-        end = min(n_pos, base + tile)
-        if end > base:
-            counts[base:end] += hist[: end - base]
+    touched = np.zeros(n_pos, np.int64)       # blocks that touch a position
+    plain_rmw = []
+    for b in range(n_blocks):
+        lo, hi = b * rb, min(n, (b + 1) * rb)
+        ex_lo = s[lo - 1] + w if b else -np.inf
+        ex_hi = s[hi] if hi < n else np.inf
+        hist = np.zeros((win, 6), np.int64)
+        mine = np.zeros(n_pos, bool)
+        base = end = s[lo]
+
+        def flush():
+            ext = max(0, end - base)
+            pos = base + np.nonzero(hist[:ext].any(axis=1))[0]
+            counts[pos] += hist[pos - base]
+            plain_rmw.append((b, pos[(pos >= ex_lo) & (pos < ex_hi)]))
+            hist[:] = 0
+
+        i = lo
+        while i < hi:
+            if s[i] + w <= base + win:
+                top = min(hi, i + cap)
+                j = i + 1 + int(np.searchsorted(s[i + 1:top], base + win - w,
+                                                side="right"))
+            elif s[i] == base:
+                j = i + 1                       # wider than the window
+            else:
+                flush()
+                base = end = s[i]
+                continue
+            assert (j - i) * pw <= stage
+            r, c = np.nonzero(rows[i:j] < 6)
+            pos = s[i + r] + c
+            code = rows[i:j][r, c]
+            keep = (pos >= 0) & (pos < n_pos)
+            pos, code = pos[keep], code[keep]
+            mine[pos] = True
+            inside = pos - base < win
+            np.add.at(hist, (pos[inside] - base, code[inside]), 1)
+            np.add.at(counts, (pos[~inside], code[~inside]), 1)
+            assert hist.max() <= min(rb, 65535)
+            end = max(end, min(base + win, n_pos, s[j - 1] + w))
+            i = j
+        flush()
+        touched += mine
+    for _b, pos in plain_rmw:
+        assert np.all(touched[pos] == 1)
     return counts
 
 
@@ -81,10 +143,12 @@ def test_k1_plain_vs_pallas(w, tile):
                                    interpret=True)
     got = _k1_plain(total_len, starts, codes)
     assert np.array_equal(got, want)
-    # the kernel's decomposition, with tiles and items small enough that
-    # rows straddle tiles and deep tiles split over several items
-    emu = _emulate_k1(total_len, starts, codes, tile=512, item_bytes=256)
-    assert np.array_equal(emu, want)
+    # the kernel's decomposition, with windows, stages and block counts
+    # small enough that rows straddle windows and blocks, deep piles split
+    # over blocks and blocks walk several windows
+    for win, stage, slots in ((512, 256, 7), (64, 32, 3), (1024, 8192, 1)):
+        emu = _emulate_k1(total_len, starts, codes, win, stage, slots)
+        assert np.array_equal(emu, want)
 
 
 def test_k1_tile_boundaries():
@@ -101,9 +165,9 @@ def test_k1_tile_boundaries():
                                    interpret=True)
     assert np.array_equal(want, _numpy_pileup(total_len, starts, codes))
     assert np.array_equal(_k1_plain(total_len, starts, codes), want)
-    for emu_tile in (2048, 128, 32):         # rows wider than the tile too
+    for win in (2048, 128, 32):              # rows wider than the window too
         assert np.array_equal(
-            _emulate_k1(total_len, starts, codes, emu_tile, 64), want)
+            _emulate_k1(total_len, starts, codes, win, 64, 4), want)
 
 
 def test_k1_duplicate_positions():
@@ -113,7 +177,8 @@ def test_k1_duplicate_positions():
     want = r_pp.pileup_pallas_host(tile, starts, codes, tile=tile,
                                    interpret=True)
     assert np.array_equal(_k1_plain(tile, starts, codes), want)
-    assert np.array_equal(_emulate_k1(tile, starts, codes, 256, 160), want)
+    assert np.array_equal(_emulate_k1(tile, starts, codes, 256, 160, 5),
+                          want)
 
 
 def test_accumulator_matches_pallas_strategy():
@@ -156,20 +221,31 @@ def test_plan_rows_invariants():
     starts = np.concatenate([rng.integers(0, 40000, 700),
                              np.full(300, 9000)]).astype(np.int32)
     wb = 64
-    plan = t_pk.plan_rows(torch.from_numpy(starts), wb, 40960, 8192, 4096)
+    plan = t_pk.plan_rows(torch.from_numpy(starts))
     order = plan.order.numpy()
+    assert plan.order.dtype == torch.int64
     assert sorted(order.tolist()) == list(range(len(starts)))
-    tiles = starts[order] // 8192
-    assert np.all(np.diff(tiles) >= 0)
-    lo, hi, it = (plan.item_lo.numpy(), plan.item_hi.numpy(),
-                  plan.item_tile.numpy())
-    covered = np.zeros(len(starts), int)
-    for t, a, b in zip(it, lo, hi):
-        assert 0 < b - a <= 4096 // wb
-        assert np.all(tiles[a:b] == t)
-        covered[a:b] += 1
-    assert np.all(covered == 1)
-    assert plan.n_tiles == 5
+    assert np.array_equal(plan.starts.numpy(), starts[order])
+    assert np.all(np.diff(plan.starts.numpy()) >= 0)
+    # the kernel's geometry, stated once in its source, holds together:
+    # 16-bit counters, static shared memory under 48 KiB, and the blocks
+    # per SM that its launch bounds ask for fit an SM's 228 KiB
+    win = _define("pileup.cu", "K1_WINDOW")
+    stage = _define("pileup.cu", "K1_STAGE")
+    per_sm = _define("pileup.cu", "K1_BLOCKS_PER_SM")
+    assert _define("pileup.cu", "K1_MAX_ROWS") == 65535
+    assert win % 32 == 0 and stage % 16 == 0
+    smem = 12 * win + stage + 4 * (stage // 16)
+    assert smem <= 48 * 1024 and per_sm * (smem + 1024) <= 228 * 1024
+    # the grid is a function of N alone: 7 slots share 1000 rows
+    cap, rb, n_blocks = _k1_grid(len(starts), wb, 7, stage)
+    assert (cap, rb, n_blocks) == (stage // wb, 143, 7)
+    assert (n_blocks - 1) * rb < len(starts) <= n_blocks * rb
+    # a block gets at least one stage of rows, never more rows than its
+    # 16-bit counters allow
+    assert _k1_grid(10, wb, 132 * 6, stage)[1] == stage // wb
+    assert _k1_grid(10, 1 << 20, 132 * 6, stage)[1] == 1
+    assert _k1_grid(10 ** 9, wb, 132 * 6, stage)[1] == 65535
 
 
 def _plan(ev, k, cp):
@@ -231,17 +307,17 @@ def test_k2_plain_vs_pallas(k, c, e, hot, thresholds):
     want = np.asarray(r_pi.vote_insertions_pallas(
         eplan, sc, nc, encode_thresholds(thresholds), c,
         interpret=True))[:, :k]
-    got = t_ik.vote_insertions_fused(_plan(ev, k, c),
+    got = t_ik.vote_insertions_fused(*map(torch.from_numpy, ev),
                                      torch.from_numpy(site_cov),
-                                     torch.from_numpy(n_cols), thresholds)
+                                     torch.from_numpy(n_cols), c, thresholds)
     assert got.dtype == torch.uint8
     assert np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("cp,chunk", [(8, 512), (1300, 512), (1024, 100)])
 def test_insertion_kernel_chunked_emulation(cp, chunk):
-    """numpy model of csrc/insertion.cu's blocking: one block per (key,
-    column chunk) scanning the key's CSR event range from the plan."""
+    """numpy model of K3's blocking (csrc/insertion.cu): one block per
+    (key, column chunk) scanning the key's CSR event range from the plan."""
     k, e = 9, 3000
     ev = _events(cp, k, cp, e)
     ev[1][:50] = min(chunk, cp) - 1
@@ -265,6 +341,93 @@ def test_insertion_kernel_chunked_emulation(cp, chunk):
     assert np.array_equal(out, want)
     assert np.array_equal(t_ik.build_insertion_table_kernel(plan).numpy(),
                           want)
+
+
+
+def _emulate_k2(ev, site_cov, n_cols, kp, cp, thresholds):
+    """numpy model of K2 (csrc/insertion.cu): the events in launch order,
+    each warp of 32 adding one atomic per distinct valid cell (the
+    __match_any_sync groups), then one thread per (key, column) voting the
+    thresholds in launches of K2_MAX_T.  Returns (calls, atomics)."""
+    from sam2consensus_torch.constants import IUPAC_MASK_LUT
+
+    key, col, code = (np.asarray(a, np.int64) for a in ev)
+    valid = ((key >= 0) & (key < kp) & (col >= 0) & (col < cp)
+             & (code >= 0) & (code < 6))
+    cell = np.where(valid, (key * cp + col) * 6 + code, -1)
+    table = np.zeros(kp * cp * 6, np.int64)
+    atomics = 0
+    for w0 in range(0, len(cell), 32):
+        warp = cell[w0:w0 + 32]
+        uniq, size = np.unique(warp[warp >= 0], return_counts=True)
+        table[uniq] += size
+        atomics += len(uniq)
+    table = table.reshape(kp, cp, 6)
+    cov = np.asarray(site_cov, np.int64)
+    p = table.copy()
+    p[..., 0] = cov[:, None] - table.sum(axis=-1)
+    sgs = (p[..., None, :] * (p[..., None, :] > p[..., :, None])).sum(-1)
+    past = np.arange(cp)[None, :] >= np.asarray(n_cols)[:, None]
+    out = np.zeros((len(thresholds), kp, cp), np.uint8)
+    max_t = _define("insertion.cu", "K2_MAX_T")
+    for t0 in range(0, len(thresholds), max_t):
+        for t in range(t0, min(len(thresholds), t0 + max_t)):
+            cut = np.clip(np.ceil(np.float64(thresholds[t]) * cov), 0,
+                          2 ** 31 - 1).astype(np.int64)
+            called = (p != 0) & (sgs < cut[:, None, None])
+            mask = (called * (1 << np.arange(6))).sum(-1)
+            sym = IUPAC_MASK_LUT[mask]
+            out[t] = np.where((sym == ord("-")) | past, 0, sym)
+    return out, atomics
+
+
+K2_MODEL_CASES = [  # (k, cp, events, hot key, thresholds)
+    (300, 8, 5000, None, [0.25]),
+    (64, 2, 4000, 17, [0.25, 0.5, 0.75]),           # one key, 12 cells
+    (9, 1300, 3000, None, [0.1, 0.9]),              # wider than 512 columns
+    (40, 4, 800, None, [i / 20 for i in range(1, 20)]),  # two launches
+]
+
+
+@pytest.mark.parametrize("k,cp,e,hot,thresholds", K2_MODEL_CASES)
+def test_k2_event_grid_emulation(k, cp, e, hot, thresholds):
+    rng = np.random.default_rng(k + cp + e)
+    ev = _events(e, k, cp, e, hot)
+    if hot is not None:
+        ev[0][: e // 4] = rng.integers(0, k, e // 4)
+    table = np.zeros((k, cp, 6), np.int64)
+    np.add.at(table, ev, 1)
+    site_cov = (table.sum(axis=(1, 2)) * rng.choice([0, 1, 3], k)
+                // 2).astype(np.int32)
+    n_cols = rng.integers(0, cp + 1, k).astype(np.int32)
+    emu, atomics = _emulate_k2(ev, site_cov, n_cols, k, cp, thresholds)
+    got = t_ik.vote_insertions_fused(*map(torch.from_numpy, ev),
+                                     torch.from_numpy(site_cov),
+                                     torch.from_numpy(n_cols), cp, thresholds)
+    assert np.array_equal(emu, got.numpy())
+    if hot is not None:   # the hot key's warps merge into <= 12 atomics
+        assert atomics <= e // 4 + 12 * (-(-e // 32))
+
+
+def test_k2_emulation_drops_out_of_range_events():
+    """The kernel drops an event outside the table, as the JAX scatter
+    does; the calls equal those of the in-range events alone."""
+    k, cp = 16, 4
+    ev = _events(3, k, cp, 2000)
+    bad = [a.copy() for a in ev]
+    bad[0][:10] = k                   # key past the table
+    bad[1][10:20] = -1                # negative column
+    bad[2][20:30] = 6                 # code past the symbols
+    keep = np.ones(2000, bool)
+    keep[:30] = False
+    site_cov = np.full(k, 200, np.int32)
+    n_cols = np.full(k, cp, np.int32)
+    emu, _ = _emulate_k2(bad, site_cov, n_cols, k, cp, [0.25, 0.75])
+    want = t_ik.vote_insertions_fused(
+        *(torch.from_numpy(a[keep]) for a in ev),
+        torch.from_numpy(site_cov), torch.from_numpy(n_cols), cp,
+        [0.25, 0.75])
+    assert np.array_equal(emu, want.numpy())
 
 
 
@@ -297,5 +460,5 @@ def test_entry_points_are_declared_once_in_the_header():
         text = (build.CSRC / source).read_text()
         assert '#include "kernels.h"' in text
         defined |= set(re.findall(r"^cudaError_t (s2c_\w+)\(", text, re.M))
-    assert declared == defined == {"s2c_pileup_tiles", "s2c_insertion_table",
+    assert declared == defined == {"s2c_pileup_rows", "s2c_insertion_table",
                                    "s2c_insertion_vote"}
