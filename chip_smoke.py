@@ -8,14 +8,17 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. the card's name and power limit (``nvidia-smi``); no CUDA -> exit 1;
 2. build the CUDA kernels (``csrc/``, one ``torch.utils.cpp_extension.load``)
    and, started beside it, one ``nvcc -Xptxas=-v`` per kernel source, whose
-   report of each kernel's registers, shared memory and spills is printed;
+   report of each kernel's registers, shared memory and spills is printed,
+   and the native SAM decoder (``native/decoder.cpp``, g++ on a thread);
 3-5. every kernel against its plain PyTorch version on the card, exact
    equality (integer data, tolerance 0): K1 pileup histogram, K2 fused
    insertion table + vote (and its time on one hot key), K3 insertion
    table (dropped out-of-range events, a hot key, a ragged tail; and its
    time at 50 keys x 1300 columns);
-6-7. the main path through ``cli.main`` on CUDA, with the launch counts
-   set to 0 just before and read just after: the ``formats_*`` fixtures
+6-7. the main path through ``cli.main`` on CUDA with ``--decoder native``
+   (every run must report ``decoder=native``: no fallback may hide the
+   decoder), with the launch counts set to 0 just before and read just
+   after: the ``formats_*`` fixtures
    (``.sam``/``.sam.gz``, byte-identical to ``*.expected.fasta``), a small
    wide-insertion input (1024 padded columns), ``longread_sv`` (10 kb
    reads over a 120 kb contig that carries a shared 6,000-base insertion:
@@ -23,13 +26,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    and two of ``bench.py``'s configurations at full size — ``ecoli_scale``
    (4.6 Mbp, 150,000 x 100 bp reads) and ``amplicon_deep`` (400 bp,
    100,000 x 80 bp reads, deep insertions) — each byte-identical to the
-   port's CPU run, with the pileup phase split into its host steps.  Every
-   kernel must have launched in that window;
+   port's CPU run under ``--decoder py`` (so across decoder and device at
+   once), with both runs' decode seconds side by side and the pileup phase
+   split into its host steps.  Every kernel must have launched in that
+   window;
 8. under ``torch.cuda.set_sync_debug_mode("error")``, once each: the K1,
    K2 and K3 routes at the largest main-path shapes, and the whole tail
    (``fused.vote_packed``) on the arguments ``longread_sv`` (K3 and the
    torch vote) and ``amplicon_deep`` (K2) gave it.  A host synchronisation
-   in any of them is fatal.
+   in any of them is fatal;
+9. the C++ decoder (``NativeReadEncoder``) against the Python
+   ``ReadEncoder`` on ``ecoli_scale`` and ``longread_sv`` at full size:
+   pileup counts of the batches, reads, skipped, events, lines and every
+   array of ``group_insertions`` equal; a difference is fatal.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -497,7 +506,16 @@ def longread_sv(seed: int = 11, glen: int = 120_000, rlen: int = 10_000,
     return sam_text([("sv", glen)], reads)
 
 
-def main_path(tmp: str, card: str, cap: Capture) -> None:
+def decoder_of(cap: Capture, want: str) -> str:
+    """The decoder the latest run reported; anything but ``want`` is fatal."""
+    got = cap.stats[-1].extra.get("decoder")
+    if got != want:
+        fail(f"the run took decoder={got}, not {want}")
+    return got
+
+
+def main_path(tmp: str, card: str, cap: Capture) -> dict:
+    """Phases 6-7; returns the paths of phase 7's inputs by name."""
     from sam2consensus_torch.kernels.build import all_kernels
     from sam2consensus_torch.utils.simulate import (SimSpec, sam_text,
                                                     simulate, write_sam)
@@ -510,9 +528,11 @@ def main_path(tmp: str, card: str, cap: Capture) -> None:
         for ext in (".sam", ".sam.gz"):
             out = os.path.join(tmp, f"fmt_{fam}{ext}")
             sec = run_cli(["-i", os.path.join(DATA, f"formats_{fam}{ext}"),
-                           "-o", out, "-p", "fixture"], None)
+                           "-o", out, "-p", "fixture", "--decoder", "native"],
+                          None)
             same = read_dir(out) == expected
-            print(f"  formats_{fam}{ext}: byte-identical={same} "
+            print(f"  formats_{fam}{ext}: decoder="
+                  f"{decoder_of(cap, 'native')} byte-identical={same} "
                   f"wall={sec:.3f}s")
             if not same:
                 fail(f"formats_{fam}{ext} differs from its expected FASTA")
@@ -541,11 +561,12 @@ def main_path(tmp: str, card: str, cap: Capture) -> None:
                                  del_read_rate=0.2, seed=303,
                                  contig_prefix="amplicon"),
     }
+    paths = {}
     for name, text, flags in inputs:
         t0 = time.perf_counter()
         if text is None:
             text = simulate(specs[name])
-        path = write_sam(text, os.path.join(tmp, f"{name}.sam"))
+        path = paths[name] = write_sam(text, os.path.join(tmp, f"{name}.sam"))
         print(f"  {name}: input {len(text) / 1e6:.1f} MB made in "
               f"{time.perf_counter() - t0:.1f}s")
         before = {k.name: k.launches for k in kernels}
@@ -554,17 +575,24 @@ def main_path(tmp: str, card: str, cap: Capture) -> None:
         cap.input = name
         with launch_events(kernels) as events, pileup_split() as split:
             wall = run_cli(["-i", path, "-o",
-                            os.path.join(tmp, name + "_cuda"), *flags], None)
+                            os.path.join(tmp, name + "_cuda"), *flags,
+                            "--decoder", "native"], None)
         st = cap.stats[n_stats]
+        decoder_of(cap, "native")
         cap.input = None
         ev = {n: sum(s.elapsed_time(e) for s, e in pairs)
               for n, pairs in events.items()}
         launched = {k.name: k.launches - before[k.name] for k in kernels}
         mem = torch.cuda.max_memory_allocated() / 2**20
         cpu_wall = run_cli(["-i", path, "-o", os.path.join(tmp, name + "_cpu"),
-                            *flags], "cpu")
+                            *flags, "--decoder", "py"], "cpu")
+        decoder_of(cap, "py")
+        cpu_decode = cap.stats[-1].extra["decode_sec"]
         same = read_dir(os.path.join(tmp, name + "_cuda")) == \
             read_dir(os.path.join(tmp, name + "_cpu"))
+        print(f"  {name} [{card}]: decoder=native on cuda, py on cpu: "
+              f"decode native={st.extra['decode_sec']:.3f}s "
+              f"py={cpu_decode:.3f}s")
         print(f"  {name} [{card}]: cuda wall={wall:.3f}s cpu wall="
               f"{cpu_wall:.3f}s byte-identical={same} reads="
               f"{st.reads_mapped} aligned_bases={st.aligned_bases} "
@@ -589,6 +617,7 @@ def main_path(tmp: str, card: str, cap: Capture) -> None:
               f"sync_wait={split['sync']:.4f}s")
         if not same:
             fail(f"{name}: CUDA output differs from the CPU run")
+    return paths
 
 
 # -- phase 8: no host synchronisation in the routes and the tails ----------
@@ -620,6 +649,71 @@ def sync_free(cap: Capture) -> None:
         torch.cuda.synchronize()
         print(f"  {what} under set_sync_debug_mode('error'): "
               f"no host synchronisation")
+
+
+# -- phase 9: the C++ decoder against the Python encoder --------------------
+def drain(encoder, batches, total_len: int):
+    """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
+    spent inside the encoder (the counting is not timed)."""
+    counts = np.zeros((total_len + 1) * 6, np.int64)
+    n_events, sec = 0, 0.0
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        sec += time.perf_counter() - t0
+        if batch is None:
+            break
+        n_events += batch.n_events
+        for starts, codes in batch.buckets.values():
+            rows, cols = np.nonzero(codes != 255)
+            counts += np.bincount((starts[rows].astype(np.int64) + cols) * 6
+                                  + codes[rows, cols], minlength=len(counts))
+    return counts.reshape(-1, 6)[:-1], n_events, sec
+
+
+def encoder_parity(paths: dict, card: str) -> None:
+    from sam2consensus_torch.encoder.events import (GenomeLayout, ReadEncoder,
+                                                    group_insertions,
+                                                    resolve_segment_width)
+    from sam2consensus_torch.encoder.native_encoder import NativeReadEncoder
+    from sam2consensus_torch.io.sam import ReadStream, opener, read_header
+
+    seg_w = resolve_segment_width(0)
+    for name in ("ecoli_scale", "longread_sv"):
+        got = {}
+        for kind in ("native", "py"):
+            with opener(paths[name], binary=True) as handle:
+                contigs, _n, first = read_header(handle)
+                stream = ReadStream(handle, first)
+                body = stream.body_bytes_total()
+                layout = GenomeLayout(contigs)
+                if kind == "native":
+                    enc = NativeReadEncoder(
+                        layout, on_lines=stream.add_lines,
+                        on_bytes=stream.add_bytes, segment_width=seg_w)
+                    batches = enc.encode_blocks_from(stream)
+                else:
+                    enc = ReadEncoder(layout, segment_width=seg_w)
+                    batches = enc.encode_segments(stream.records())
+                counts, n_events, sec = drain(enc, batches, layout.total_len)
+            got[kind] = (counts, enc.n_reads, enc.n_skipped, n_events,
+                         stream.n_lines,
+                         group_insertions(enc.insertions, layout))
+            print(f"  {name} {kind} [{card}]: decode={sec:.3f}s "
+                  f"({body / sec / 1e6:.1f} MB/s of {body} B) reads="
+                  f"{enc.n_reads} skipped={enc.n_skipped} events={n_events} "
+                  f"lines={stream.n_lines} insertion events="
+                  f"{len(enc.insertions)}")
+        (c1, *rest1, g1), (c2, *rest2, g2) = got["native"], got["py"]
+        same = np.array_equal(c1, c2) and rest1 == rest2 and (
+            g1 is None and g2 is None or g1 is not None and g2 is not None
+            and sorted(g1) == sorted(g2)
+            and all(np.array_equal(g1[k], g2[k]) for k in g1))
+        print(f"  {name}: native == py (counts {int(c1.sum())} cells, "
+              f"reads, skipped, events, lines, insertion groups): {same}")
+        if not same:
+            fail(f"{name}: NativeReadEncoder differs from ReadEncoder")
 
 
 def compare(kid: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -742,6 +836,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA "
              "card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sam2consensus_torch import native
     from sam2consensus_torch.kernels import build
     from sam2consensus_torch.ops import fused, pileup_kernel
     from sam2consensus_torch.backends.torch_backend import TorchBackend
@@ -755,12 +852,25 @@ def main() -> int:
 
     print("phase 2: build")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(1) as pool:
         reports = ptxas_reports(tmp)
+
+        def build_decoder():
+            lib = native.load()
+            return lib, time.perf_counter() - t0
+
+        decoder = pool.submit(build_decoder)
         try:
             ext = build.extension()
             print(f"  built {ext.__name__} from {list(build.SOURCES)} in "
                   f"{time.perf_counter() - t0:.1f}s")
+            lib, sec = decoder.result(timeout=900)
+            if lib is None:
+                fail(f"the native decoder did not build: "
+                     f"{native.load_error()}")
+            print(f"  built {os.path.relpath(lib._name, REPO)} from "
+                  f"{os.path.relpath(native.SRC, REPO)} in {sec:.1f}s")
             for src, proc in reports:
                 out, _ = proc.communicate(timeout=900)
                 if proc.returncode != 0:
@@ -810,16 +920,20 @@ def main() -> int:
     kernels = build.all_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         build.reset_launches(kernels)
-        main_path(tmp, card, cap)
+        paths = main_path(tmp, card, cap)
         launches = {k.name: k.launches for k in kernels}
-    print(f"main-path launches: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        print(f"main-path launches: {launches}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            fail(f"kernels never launched on the main path: {missing}")
 
-    print("phase 8: the K1, K2 and K3 routes and both tails make no host "
-          "synchronisation")
-    sync_free(cap)
+        print("phase 8: the K1, K2 and K3 routes and both tails make no "
+              "host synchronisation")
+        sync_free(cap)
+
+        print(f"phase 9: NativeReadEncoder vs ReadEncoder at full size "
+              f"[{card}]")
+        encoder_parity(paths, card)
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

@@ -1,23 +1,33 @@
 """The PyTorch backend: one-shot, single-device SAM records -> FASTA records.
 
 Port of the single-device route of ``sam2consensus_tpu/backends/
-jax_backend.py`` (``_run``, the device branch of ``_tail_attempt``,
-``_unpack_tail``'s dense branch and ``_assemble``):
+jax_backend.py`` (``_run``, the serial branch of ``_make_encoder``, the
+decode prefetch thread ``_Prefetcher``, the device branch of
+``_tail_attempt``, ``_unpack_tail``'s dense branch and ``_assemble``):
 
-1. host decode: ``ReadEncoder.encode_segments`` into segment rows;
-2. device pileup: ``PileupAccumulator.add`` (K1 on CUDA);
+1. host decode into segment rows: the C++ decoder
+   (``encoder.native_encoder.NativeReadEncoder``) over a ``ReadStream``'s
+   raw blocks when its library loads and ``cfg.decoder`` is not ``py``,
+   else the Python ``ReadEncoder``; either runs on a prefetch thread, a
+   bounded queue ahead of the pileup;
+2. device pileup: ``PileupAccumulator.add`` (K1 on CUDA), on the calling
+   thread;
 3. one fused tail (``ops.fused.vote_packed*``; K2 or K3 on CUDA) into one
    packed uint8 buffer, fetched with one device-to-host copy;
 4. host unpack, insertion splice and FASTA render.
 
 The output is byte-identical to ``--backend jax`` and ``--backend cpu`` of
 the JAX package.  Phase wall times land in ``stats.extra`` (``decode_sec``,
-``pileup_sec``, ``tail_sec``, ``assemble_sec``); on CUDA the pileup phase
-ends with a synchronize, so its time includes the device work.
+billed on the prefetch thread, so it overlaps ``pileup_sec``; ``tail_sec``,
+``assemble_sec``), with ``stats.extra["decoder"]`` naming the decoder that
+ran (``native`` or ``py``); on CUDA the pileup phase ends with a
+synchronize, so its time includes the device work.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from typing import Dict, Iterable, List
 
@@ -26,6 +36,8 @@ import torch
 
 from ..config import RunConfig
 from ..device import resolve_device
+from .. import native
+from ..encoder import native_encoder
 from ..encoder.events import (GenomeLayout, ReadEncoder, group_insertions,
                               resolve_segment_width)
 from ..io.fasta import FastaRecord
@@ -38,19 +50,79 @@ from .base import BackendResult, BackendStats, format_header
 INT32_MAX = (1 << 31) - 1
 
 
-def _timed(it, stats: BackendStats, key: str):
-    """Yield from ``it``, adding the time spent producing items to
-    ``stats.extra[key]``."""
-    it = iter(it)
-    while True:
-        t0 = time.perf_counter()
+class _Prefetcher:
+    """Bounded background decode: overlap host decode with pileup work.
+
+    Copy of the JAX backend's ``_Prefetcher`` without its device staging.
+    The producer thread drains the encoder generator into a depth-2 queue,
+    adding the time it spends in the generator to
+    ``stats.extra["decode_sec"]``; the consumer iterates batches as they
+    land.  The producer only decodes (numpy and ctypes, which releases the
+    GIL for the C++ call); every torch call stays on the consumer.
+    Exceptions, strict decode errors included, are re-raised in the
+    consumer at the point of consumption with their type and message
+    unchanged.  ``close()`` stops the producer when the consumer leaves
+    early.
+    """
+
+    _DONE = object()
+
+    def __init__(self, gen, stats: BackendStats, depth: int = 2):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._exc = None
+        self._stats = stats
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._work, args=(gen,), name="decode-prefetch",
+            daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Bounded put that aborts when the consumer called close()."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _work(self, gen) -> None:
         try:
-            item = next(it)
-        except StopIteration:
-            stats.extra[key] += time.perf_counter() - t0
-            return
-        stats.extra[key] += time.perf_counter() - t0
-        yield item
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(gen)
+                except StopIteration:
+                    break
+                finally:
+                    self._stats.extra["decode_sec"] += \
+                        time.perf_counter() - t0
+                if not self._put(batch):
+                    return                 # consumer gone; drop the rest
+        except BaseException as exc:  # re-raised on the consumer side
+            self._exc = exc
+        self._put(self._DONE)
+
+    def close(self) -> None:
+        """Unblock and join the producer (consumer exited early)."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                self._thread.join(timeout=0.05)
+        self._thread.join()
+
+    def __iter__(self):
+        while True:
+            batch = self._q.get()
+            if batch is self._DONE:
+                self._thread.join()
+                if self._exc is not None:
+                    raise self._exc
+                return
+            yield batch
 
 
 class TorchBackend:
@@ -68,18 +140,19 @@ class TorchBackend:
         if layout.total_len == 0:
             return BackendResult(fastas={}, stats=stats)
 
-        encoder = ReadEncoder(
-            layout, maxdel=cfg.maxdel, strict=cfg.strict,
-            segment_width=resolve_segment_width(cfg.segment_width))
-        source = records.records() if isinstance(records, ReadStream) \
-            else records
+        encoder, batches = self._make_encoder(layout, records, cfg, stats)
         acc = PileupAccumulator(layout.total_len, self.device)
-        for batch in _timed(encoder.encode_segments(source, cfg.chunk_reads),
-                            stats, "decode_sec"):
-            t0 = time.perf_counter()
-            acc.add(batch)
-            stats.extra["pileup_sec"] += time.perf_counter() - t0
-            stats.aligned_bases += batch.n_events
+        prefetch = _Prefetcher(batches, stats)
+        try:
+            for batch in prefetch:
+                t0 = time.perf_counter()
+                acc.add(batch)
+                stats.extra["pileup_sec"] += time.perf_counter() - t0
+                stats.aligned_bases += batch.n_events
+        finally:
+            # a consumer-side failure must not leave the decode thread
+            # blocked on a full queue holding the input stream open
+            prefetch.close()
         t0 = time.perf_counter()
         acc.sync()
         stats.extra["pileup_sec"] += time.perf_counter() - t0
@@ -96,6 +169,31 @@ class TorchBackend:
                                 site_cov, cfg, stats, dash_counts=dash_counts)
         stats.extra["assemble_sec"] = time.perf_counter() - t0
         return BackendResult(fastas=fastas, stats=stats)
+
+    @staticmethod
+    def _make_encoder(layout, records, cfg: RunConfig, stats: BackendStats):
+        """Pick the host decode path (the JAX backend's serial branch);
+        returns ``(encoder, batch iterator)`` and records the choice in
+        ``stats.extra["decoder"]``."""
+        seg_w = resolve_segment_width(cfg.segment_width)
+        if isinstance(records, ReadStream) and cfg.decoder != "py":
+            if native_encoder.available():
+                stats.extra["decoder"] = "native"
+                enc = native_encoder.NativeReadEncoder(
+                    layout, maxdel=cfg.maxdel, strict=cfg.strict,
+                    on_lines=records.add_lines, on_bytes=records.add_bytes,
+                    segment_width=seg_w)
+                return enc, enc.encode_blocks_from(records)
+            if cfg.decoder == "native":
+                raise RuntimeError("--decoder native requested but the C++ "
+                                   f"decoder is unavailable: "
+                                   f"{native.load_error()}")
+        stats.extra["decoder"] = "py"
+        enc = ReadEncoder(layout, maxdel=cfg.maxdel, strict=cfg.strict,
+                          segment_width=seg_w)
+        source = records.records() if isinstance(records, ReadStream) \
+            else records
+        return enc, enc.encode_segments(source, cfg.chunk_reads)
 
     def _tail(self, acc, cfg: RunConfig, layout, encoder, stats):
         """The fused tail in one device call and one device-to-host copy.

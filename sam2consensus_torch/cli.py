@@ -3,9 +3,10 @@
 Drop-in compatible with the reference CLI (reference
 ``sam2consensus.py:87-104``): the eight flags ``-i -c -n -o -p -m -f -d``
 keep their names, defaults and post-processing (``:108-138``), plus
-``--py2-compat``; the progress messages match.  Input is SAM or gzip SAM
-(``.gz`` suffix).  The run goes to CUDA and raises without it; ``main``'s
-``device`` argument is the only way to choose another device.
+``--py2-compat`` and ``--decoder``; the progress messages match.  Input is
+SAM or gzip SAM (``.gz`` suffix), read as bytes.  The run goes to CUDA and
+raises without it; ``main``'s ``device`` argument is the only way to
+choose another device.
 
     python -m sam2consensus_torch.cli -i reads.sam -o out
 """
@@ -50,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--py2-compat", action="store_true",
                    help="reproduce the reference's Python-2 maxdel quirk: any "
                         "explicit -d value disables deletion filtering")
+    p.add_argument("--decoder", choices=["auto", "native", "py"],
+                   default="auto",
+                   help="host SAM decode path: the C++ decoder when "
+                        "available (auto), required (native), or pure "
+                        "python (py)")
     return p
 
 
@@ -85,6 +91,7 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         outfolder=normalize_outfolder(args.outfolder),
         backend="torch",
         py2_compat=args.py2_compat,
+        decoder=args.decoder,
     )
 
 
@@ -108,7 +115,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             echo(str(k * 500000) + " reads processed.")
         progress[0] = total
 
-    with opener(args.filename) as handle:
+    # a bytes handle: the native decoder parses raw bytes (no str decode
+    # and re-encode of the body on the hot path)
+    with opener(args.filename, binary=True) as handle:
         contigs, _n_header, first = read_header(handle)
         echo("SAM header processed, " + str(len(contigs))
              + " references found.\n")

@@ -1,7 +1,9 @@
 """Read -> tensor encoder: host-side CIGAR decode into scatter-ready segments.
 
 Copy of the Python encoder of ``sam2consensus_tpu/encoder/events.py``
-(pinned equal by ``tests/test_torch_copies.py``).  Each read becomes one
+(pinned equal by ``tests/test_torch_copies.py``); the native decoder
+(``encoder/native_encoder.py``) shares its batch and insertion stores and
+replays the lines it cannot take through it.  Each read becomes one
 contiguous reference-coordinate segment: a flat-genome start plus a uint8
 code row (read bases for M/=/X, GAP for D/N/P runs, PAD_CODE for gap bases
 dropped by the maxdel gate).  Semantics follow the reference CIGAR walker
@@ -81,23 +83,45 @@ class SegmentBatch:
 
 @dataclass
 class InsertionEvents:
-    """Raw insertion observations, grouped later by (contig, local position)."""
+    """Raw insertion observations, grouped later by (contig, local position).
+
+    Two storage forms coexist: per-read Python lists (the Python encoder
+    appends one entry per I op) and bulk array chunks
+    ``(contig int32, local int32, motif_len int32, motif_chars uint8)``
+    appended by the native decoder.  ``to_arrays`` merges both; ordering
+    between forms is irrelevant (grouping sorts by site key).
+    """
     contig_ids: List[int] = field(default_factory=list)
     local_pos: List[int] = field(default_factory=list)
     motifs: List[str] = field(default_factory=list)
+    array_chunks: List[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+                       ] = field(default_factory=list)
+
+    def extend(self, other: "InsertionEvents") -> None:
+        self.contig_ids.extend(other.contig_ids)
+        self.local_pos.extend(other.local_pos)
+        self.motifs.extend(other.motifs)
+        self.array_chunks.extend(other.array_chunks)
 
     def __len__(self) -> int:
-        return len(self.motifs)
+        return len(self.motifs) + sum(len(c[0]) for c in self.array_chunks)
 
     def to_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
                                  np.ndarray]:
-        """``(contig i64, local i64, motif_lens i64, motif_chars u8)`` —
-        motif_chars is raw ASCII, one motif after another."""
-        return (np.asarray(self.contig_ids, dtype=np.int64),
-                np.asarray(self.local_pos, dtype=np.int64),
-                np.array([len(m) for m in self.motifs], dtype=np.int64),
-                np.frombuffer("".join(self.motifs).encode("ascii"),
-                              dtype=np.uint8))
+        """Merged ``(contig i64, local i64, motif_lens i64, motif_chars u8)``
+        — motif_chars is raw ASCII, one motif after another."""
+        contigs = [np.asarray(self.contig_ids, dtype=np.int64)]
+        locals_ = [np.asarray(self.local_pos, dtype=np.int64)]
+        mlens = [np.array([len(m) for m in self.motifs], dtype=np.int64)]
+        chars = [np.frombuffer("".join(self.motifs).encode("ascii"),
+                               dtype=np.uint8)]
+        for c, l, ml, ch in self.array_chunks:
+            contigs.append(c.astype(np.int64))
+            locals_.append(l.astype(np.int64))
+            mlens.append(ml.astype(np.int64))
+            chars.append(ch)
+        return (np.concatenate(contigs), np.concatenate(locals_),
+                np.concatenate(mlens), np.concatenate(chars))
 
 
 class EncodeError(ValueError):

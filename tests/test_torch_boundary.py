@@ -2,7 +2,9 @@
 
 * every module of ``sam2consensus_torch`` and ``chip_smoke`` imports in a
   fresh interpreter whose import system refuses ``jax*`` and
-  ``sam2consensus_tpu*``;
+  ``sam2consensus_tpu*``, the host decode path among them (the C++
+  decoder's loader, which also builds and loads the library there, the
+  native encoder and the strict-error helpers);
 * no import statement of the port names either;
 * ``resolve_device()`` (and so ``TorchBackend()`` and ``cli.main``) raises
   when CUDA is unavailable; the CPU is used only when asked for.
@@ -10,6 +12,7 @@
 
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -32,8 +35,13 @@ sys.path.insert(0, REPO)
 import sam2consensus_torch
 names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
     sam2consensus_torch.__path__, "sam2consensus_torch.")]
+missing = sorted(set(REQUIRED) - set(names))
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
+if BUILD:
+    from sam2consensus_torch import native
+    assert native.load() is not None, native.load_error()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "sam2consensus_tpu"))
 assert not leaked, leaked
@@ -41,13 +49,23 @@ print(len(names))
 """
 
 
+#: modules of the host decode path, named so that the walk cannot miss them
+REQUIRED = ["sam2consensus_torch.native",
+            "sam2consensus_torch.ingest.badrecords",
+            "sam2consensus_torch.encoder.native_encoder",
+            "sam2consensus_torch.io.sam",
+            "sam2consensus_torch.backends.torch_backend"]
+
+
 def test_port_imports_without_jax():
-    code = BLOCKED_IMPORT.replace("REPO", repr(REPO))
+    code = BLOCKED_IMPORT.replace("REPO", repr(REPO)).replace(
+        "REQUIRED", repr(REQUIRED)).replace(
+        "BUILD", repr(shutil.which("g++") is not None))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 31
 
 
 def _sources():

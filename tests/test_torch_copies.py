@@ -122,6 +122,70 @@ def test_read_stream_counts_lines(path):
     assert counts[0] == counts[1]
 
 
+def _blocks(sam, path, max_bytes):
+    handle = sam.opener(os.path.join(DATA, path), binary=True)
+    try:
+        contigs, _n, first = sam.read_header(handle)
+        stream = sam.ReadStream(handle, first)
+        total = stream.body_bytes_total()
+        blocks = [(bytes(b), stream.block_offset)
+                  for b in stream.blocks(max_bytes=max_bytes)]
+    finally:
+        handle.close()
+    return [dataclasses.astuple(c) for c in contigs], total, blocks
+
+
+@pytest.mark.parametrize("path", FIXTURES)
+def test_read_stream_blocks(path):
+    """Binary handles: the same header, body size and body bytes as the
+    reference reader, in blocks of whole lines whose offsets chain; on a
+    plain file the very same blocks (mmap windows)."""
+    got = _blocks(t_sam, path, 4096)
+    want = _blocks(r_sam, path, 4096)
+    assert got[:2] == want[:2]
+    blocks = got[2]
+    body = b"".join(b for b, _ in blocks)
+    assert len(blocks) > 1
+    assert body == b"".join(b for b, _ in want[2])
+    assert all(b.endswith(b"\n") for b, _ in blocks[:-1])
+    offsets = [off for _, off in blocks]
+    assert offsets == [offsets[0] + sum(len(b) for b, _ in blocks[:i])
+                       for i in range(len(blocks))]
+    if path.endswith(".sam"):
+        assert got == want and got[1] == len(body)
+
+
+@pytest.mark.parametrize("path", FIXTURES[:3])
+def test_read_stream_records_from_bytes(path):
+    out = []
+    for sam in (t_sam, r_sam):
+        handle = sam.opener(os.path.join(DATA, path), binary=True)
+        _c, _n, first = sam.read_header(handle)
+        stream = sam.ReadStream(handle, first)
+        recs = [dataclasses.astuple(r) for r in stream.records()]
+        out.append((stream.n_lines, stream.n_bytes, recs))
+        handle.close()
+    assert out[0] == out[1]
+    assert out[0][2] == _records(t_sam, path)[2]
+
+
+def test_insertion_events_merge():
+    """Python-list and array-chunk insertions merge like the reference's."""
+    stores = []
+    for ev in (t_events, r_events):
+        a = ev.InsertionEvents([0, 1], [5, -2], ["AC", "G"])
+        b = ev.InsertionEvents([2], [7], ["TTT"])
+        b.array_chunks.append((np.array([1, 0], np.int32),
+                               np.array([3, 9], np.int32),
+                               np.array([2, 1], np.int32),
+                               np.frombuffer(b"GAT", np.uint8).copy()))
+        a.extend(b)
+        stores.append((len(a), a.to_arrays()))
+    assert stores[0][0] == stores[1][0] == 5
+    for x, y in zip(stores[0][1], stores[1][1]):
+        _same(x, y)
+
+
 def test_fasta_render_and_write(tmp_path):
     recs_t = [t_fasta.FastaRecord(">a|c25", "ACGT-" * 7),
               t_fasta.FastaRecord(">a|c75", "N" * 11)]
