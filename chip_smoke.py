@@ -18,8 +18,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 6-7. the main path through ``cli.main`` on CUDA with ``--decoder native``
    (every run must report ``decoder=native``: no fallback may hide the
    decoder), with the launch counts set to 0 just before and read just
-   after: the ``formats_*`` fixtures
-   (``.sam``/``.sam.gz``, byte-identical to ``*.expected.fasta``), a small
+   after: the ``formats_*`` fixtures (``.sam``, BGZF ``.sam.gz`` and
+   ``.bam`` under ``--format auto``, byte-identical to
+   ``*.expected.fasta``; each BAM run must launch K1), a small
    wide-insertion input (1024 padded columns), ``longread_sv`` (10 kb
    reads over a 120 kb contig that carries a shared 6,000-base insertion:
    512 sites x 8192 padded columns, ~1.2 M insertion events, the K3 route)
@@ -27,11 +28,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    (4.6 Mbp, 150,000 x 100 bp reads) and ``amplicon_deep`` (400 bp,
    100,000 x 80 bp reads, deep insertions) — each byte-identical to the
    port's CPU run under ``--decoder py`` (so across decoder and device at
-   once), with both runs' decode seconds side by side and the pileup phase
-   split into its host steps.  Every kernel must have launched in that
-   window;
+   once), with both runs' decode seconds side by side and the pileup
+   split by the thread that runs each step: the producer's trim, pinned
+   slot wait and copy and host-to-device enqueue, the consumer's event
+   wait, device pack and K1 route, and the stager's ``stage_sec``,
+   ``overlap_sec`` and ``backpressure_sec`` (fatal if the trim or a copy
+   ran on the consumer, or numpy packed anything).  ``ecoli_scale`` is
+   also written as BAM by the port's writer and run on CUDA at
+   ``--decode-threads`` 1 and 0 and on the CPU under ``--decoder py``:
+   all byte-identical to the SAM run, decode seconds and MB/s printed.
+   Every kernel must have launched in that window;
 8. under ``torch.cuda.set_sync_debug_mode("error")``, once each: the K1,
-   K2 and K3 routes at the largest main-path shapes, and the whole tail
+   K2 and K3 routes at the largest main-path shapes, the staged K1 route
+   (``PileupAccumulator.add`` of a batch staged as the prefetch thread
+   stages it: event wait, device pack, K1), and the whole tail
    (``fused.vote_packed``) on the arguments ``longread_sv`` (K3 and the
    torch vote) and ``amplicon_deep`` (K2) gave it.  A host synchronisation
    in any of them is fatal;
@@ -415,41 +425,84 @@ def read_dir(path: str) -> str:
 
 @contextlib.contextmanager
 def pileup_split():
-    """Host-clock seconds of the pileup phase's steps while the block runs:
-    ``real_rows`` and ``pack_nibbles`` (numpy on the host), the K1 route
-    (``accumulate_rows``: the device sort and the launch, enqueued), the
-    rest of ``PileupAccumulator.add`` (mostly its two pageable
-    host-to-device copies, which also wait for the work queued before
-    them), and ``sync`` (the wait for the last kernel).  Yields the sums
-    and the bytes the copies moved."""
+    """Host-clock seconds of the pileup's steps while the block runs, on
+    the thread that runs each.  The producer (the decode prefetch
+    thread): ``real_rows``, the wait for a pinned slot's last copy
+    (``slot_wait``), the copy into the slot (``slot_copy``), and the
+    enqueue of the host-to-device copies and their event on the copy
+    stream (``h2d_enqueue``).  The consumer: ``PileupAccumulator.add``
+    (``add``), of which the device pack (``pack``) and the K1 route
+    (``accumulate_rows``: the device sort and the launch, enqueued); the
+    rest of ``add`` is the device-side event wait and ``record_stream``.
+    ``sync`` is the wait for the last kernel.  Also counts the calls of
+    ``real_rows`` and ``pack_nibbles`` per thread, and the bytes the
+    staged copies moved.  Yields the sums."""
+    import threading
+
     from sam2consensus_torch.ops import pileup, pileup_kernel
 
-    sec = dict.fromkeys(("add", "real_rows", "pack_nibbles", "route", "sync",
+    sec = dict.fromkeys(("real_rows", "slot_wait", "slot_copy",
+                         "h2d_enqueue", "add", "pack", "route", "sync",
                          "h2d_bytes"), 0)
+    calls = {}
     saved = []
     for obj, attr, key in ((pileup, "real_rows", "real_rows"),
                            (pileup, "pack_nibbles", "pack_nibbles"),
+                           (pileup._PinnedSlot, "wait", "slot_wait"),
+                           (pileup._PinnedSlot, "fill", "slot_copy"),
+                           (pileup.PileupAccumulator, "_ship",
+                            "h2d_enqueue"),
+                           (pileup, "pack_codes", "pack"),
                            (pileup_kernel, "accumulate_rows", "route"),
                            (pileup.PileupAccumulator, "add", "add"),
                            (pileup.PileupAccumulator, "sync", "sync")):
         orig = getattr(obj, attr)
 
         def timed(*args, _orig=orig, _key=key):
-            if _key == "route":
-                sec["h2d_bytes"] += args[1].nbytes + args[2].nbytes
+            thread = threading.current_thread().name
+            calls[(_key, thread)] = calls.get((_key, thread), 0) + 1
+            if _key == "h2d_enqueue":
+                sec["h2d_bytes"] += args[2].nbytes + args[3].nbytes
             t0 = time.perf_counter()
             try:
                 return _orig(*args)
             finally:
-                sec[_key] += time.perf_counter() - t0
+                sec[_key] = sec.get(_key, 0) + time.perf_counter() - t0
 
         saved.append((obj, attr, orig))
         setattr(obj, attr, timed)
     try:
-        yield sec
+        yield sec, calls
     finally:
         for obj, attr, orig in saved:
             setattr(obj, attr, orig)
+
+
+def print_split(sec: dict, calls: dict, st) -> None:
+    """Prints the pileup split of one CUDA run; fails unless the trim,
+    the slot copy and the host-to-device copies ran on the producer and
+    no numpy packing ran at all."""
+    on = {}
+    for (key, thread), n in calls.items():
+        on.setdefault(key, {})[thread] = n
+    print(f"    pileup split, producer: real_rows={sec['real_rows']:.4f}s "
+          f"slot_wait={sec['slot_wait']:.4f}s "
+          f"slot_copy={sec['slot_copy']:.4f}s "
+          f"h2d_enqueue={sec['h2d_enqueue']:.4f}s ({sec['h2d_bytes']} B); "
+          f"stage_sec={st.extra['stage_sec']:.4f}s "
+          f"overlap_sec={st.extra['overlap_sec']:.4f}s "
+          f"backpressure_sec={st.extra['backpressure_sec']:.4f}s")
+    wait = sec["add"] - sec["pack"] - sec["route"]
+    print(f"    pileup split, consumer: add={sec['add']:.4f}s = "
+          f"event_wait+record_stream={wait:.4f}s "
+          f"device_pack={sec['pack']:.4f}s "
+          f"k1_route_enqueue={sec['route']:.4f}s; "
+          f"sync_wait={sec['sync']:.4f}s; calls by thread: {on}")
+    for key in ("real_rows", "slot_copy", "h2d_enqueue"):
+        if set(on.get(key, {})) - {"decode-prefetch"}:
+            fail(f"{key} ran off the producer thread: {on[key]}")
+    if "pack_nibbles" in on:
+        fail(f"numpy pack_nibbles ran in a CUDA run: {on['pack_nibbles']}")
 
 
 def longread_sv(seed: int = 11, glen: int = 120_000, rlen: int = 10_000,
@@ -520,22 +573,28 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
     from sam2consensus_torch.utils.simulate import (SimSpec, sam_text,
                                                     simulate, write_sam)
 
+    from sam2consensus_torch.ops.pileup_kernel import K1
+
     kernels = all_kernels()
-    print("phase 6: formats fixtures through cli.main on CUDA")
+    print("phase 6: formats fixtures (SAM, BGZF SAM, BAM) through cli.main "
+          "on CUDA, --format auto")
     for fam in ("short", "longread", "adversarial"):
         with open(os.path.join(DATA, f"formats_{fam}.expected.fasta")) as fh:
             expected = fh.read()
-        for ext in (".sam", ".sam.gz"):
+        for ext in (".sam", ".sam.gz", ".bam"):
             out = os.path.join(tmp, f"fmt_{fam}{ext}")
+            k1_before = K1.launches
             sec = run_cli(["-i", os.path.join(DATA, f"formats_{fam}{ext}"),
-                           "-o", out, "-p", "fixture", "--decoder", "native"],
-                          None)
+                           "-o", out, "-p", "fixture", "--format", "auto",
+                           "--decoder", "native"], None)
             same = read_dir(out) == expected
             print(f"  formats_{fam}{ext}: decoder="
                   f"{decoder_of(cap, 'native')} byte-identical={same} "
-                  f"wall={sec:.3f}s")
+                  f"K1 launches={K1.launches - k1_before} wall={sec:.3f}s")
             if not same:
                 fail(f"formats_{fam}{ext} differs from its expected FASTA")
+            if K1.launches == k1_before:
+                fail(f"formats_{fam}{ext}: the run launched no K1")
 
     print(f"phase 7: full-size inputs, CUDA vs the port on CPU [{card}]")
     rng = np.random.RandomState(7)
@@ -573,7 +632,8 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         torch.cuda.reset_peak_memory_stats()
         n_stats = len(cap.stats)
         cap.input = name
-        with launch_events(kernels) as events, pileup_split() as split:
+        with launch_events(kernels) as events, \
+                pileup_split() as (split, calls):
             wall = run_cli(["-i", path, "-o",
                             os.path.join(tmp, name + "_cuda"), *flags,
                             "--decoder", "native"], None)
@@ -608,16 +668,56 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
                             for n in names) or "no kernel"
             print(f"    {phase}: wall={st.extra[phase + '_sec']:.3f}s "
                   f"{kern}")
-        copies = split["add"] - split["real_rows"] - split["pack_nibbles"] \
-            - split["route"]
-        print(f"    pileup split: real_rows={split['real_rows']:.4f}s "
-              f"pack_nibbles={split['pack_nibbles']:.4f}s "
-              f"h2d_copies={copies:.4f}s ({split['h2d_bytes']} B) "
-              f"k1_route_enqueue={split['route']:.4f}s "
-              f"sync_wait={split['sync']:.4f}s")
+        print_split(split, calls, st)
         if not same:
             fail(f"{name}: CUDA output differs from the CPU run")
+        if name == "ecoli_scale":
+            bam_runs(tmp, card, cap, text, path, flags)
     return paths
+
+
+def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
+             flags: list) -> None:
+    """Phase 7's BAM input: ``ecoli_scale`` written as BAM by the port's
+    writer, run on CUDA (``--decoder native`` at ``--decode-threads`` 1
+    and 0) and on the CPU (``--decoder py``); every output must equal the
+    others and the SAM run's."""
+    from sam2consensus_torch.formats.bam import sam_text_to_bam
+    from sam2consensus_torch.formats.bgzf import BgzfReader
+    from sam2consensus_torch.ops.pileup_kernel import K1
+
+    t0 = time.perf_counter()
+    bam = sam_text_to_bam(text, os.path.join(tmp, "ecoli_scale.bam"))
+    with BgzfReader(bam) as reader:
+        inflated = len(reader.read())
+    print(f"  ecoli_scale.bam: {os.path.getsize(bam)} B on disk, {inflated} "
+          f"B inflated, written in {time.perf_counter() - t0:.1f}s")
+    want = read_dir(os.path.join(tmp, "ecoli_scale_cuda"))
+    for device, threads, decoder in ((None, "1", "native"),
+                                     (None, "0", "native"),
+                                     ("cpu", "1", "py")):
+        out = os.path.join(tmp, f"ecoli_bam_{device}_{threads}")
+        k1_before = K1.launches
+        wall = run_cli(["-i", bam, "-o", out, *flags, "--decode-threads",
+                        threads, "--decoder", decoder], device)
+        decoder_of(cap, decoder)
+        st = cap.stats[-1]
+        dec = st.extra["decode_sec"]
+        same = read_dir(out) == want
+        print(f"  ecoli_scale.bam [{card}] on {device or 'cuda'} "
+              f"--decode-threads {threads} --decoder {decoder}: decode="
+              f"{dec:.3f}s ({inflated / dec / 1e6:.1f} MB/s inflated, "
+              f"{os.path.getsize(bam) / dec / 1e6:.1f} MB/s on disk) "
+              f"wall={wall:.3f}s pileup={st.extra['pileup_sec']:.3f}s "
+              f"stage_sec={st.extra['stage_sec']:.4f}s "
+              f"overlap_sec={st.extra['overlap_sec']:.4f}s "
+              f"backpressure_sec={st.extra['backpressure_sec']:.4f}s "
+              f"byte-identical to the SAM run={same}")
+        if not same:
+            fail(f"ecoli_scale.bam on {device or 'cuda'} (threads "
+                 f"{threads}) differs from the SAM run")
+        if device is None and K1.launches == k1_before:
+            fail("ecoli_scale.bam: the CUDA run launched no K1")
 
 
 # -- phase 8: no host synchronisation in the routes and the tails ----------
@@ -629,9 +729,17 @@ def sync_free(cap: Capture) -> None:
     _, (counts, starts, packed), _ = cap.calls["K1"]
     k2_args, k3_args = cap.calls["K2"][1], cap.calls["K3"][1]
     scratch = torch.zeros_like(counts)
+    # the staged route: the same rows as a batch of raw codes, staged as
+    # the prefetch thread stages them (outside the check: the producer
+    # may wait on the host); the consumer's add (event wait, device pack,
+    # K1 route) runs under it
+    acc, batch = staged_batch(counts, starts, packed)
+    acc.stage(batch)
     torch.cuda.synchronize()
     for what, route in (
             ("K1 route", lambda: pk.accumulate_rows(scratch, starts, packed)),
+            ("staged K1 route (PileupAccumulator.add: event wait, device "
+             "pack, K1)", lambda: acc.add(batch)),
             ("K2 route", lambda: ik.vote_insertions_fused(*k2_args)),
             ("K3 route", lambda: ik.build_insertion_table_kernel(*k3_args)),
             *((f"vote_packed on {name}'s tail (cols="
@@ -649,6 +757,27 @@ def sync_free(cap: Capture) -> None:
         torch.cuda.synchronize()
         print(f"  {what} under set_sync_debug_mode('error'): "
               f"no host synchronisation")
+    err = max_err(acc.counts, scratch[:acc.total_len])
+    print(f"  staged route counts vs the K1 route on the same rows: "
+          f"max_abs_err={err}")
+    if err:
+        fail("the staged route's counts differ from the K1 route's")
+
+
+def staged_batch(counts, starts, packed):
+    """A CUDA ``PileupAccumulator`` over ``counts``' positions and a
+    ``SegmentBatch`` holding the rows ``(starts, packed)`` as raw codes
+    (PAD 255), as the decoder hands them over."""
+    from sam2consensus_torch.encoder.events import SegmentBatch
+    from sam2consensus_torch.ops.pileup import (PileupAccumulator,
+                                                unpack_nibbles)
+
+    codes = unpack_nibbles(packed).cpu().numpy()
+    codes[codes == 15] = 255
+    acc = PileupAccumulator(counts.shape[0] - 1, counts.device)
+    batch = SegmentBatch(buckets={codes.shape[1]: (
+        starts.cpu().numpy(), codes)}, n_reads=len(codes))
+    return acc, batch
 
 
 # -- phase 9: the C++ decoder against the Python encoder --------------------

@@ -1,27 +1,33 @@
-"""The PyTorch backend: one-shot, single-device SAM records -> FASTA records.
+"""The PyTorch backend: one-shot, single-device SAM/BAM records -> FASTA.
 
 Port of the single-device route of ``sam2consensus_tpu/backends/
 jax_backend.py`` (``_run``, the serial branch of ``_make_encoder``, the
-decode prefetch thread ``_Prefetcher``, the device branch of
-``_tail_attempt``, ``_unpack_tail``'s dense branch and ``_assemble``):
+decode prefetch thread ``_Prefetcher`` with its stager, the device branch
+of ``_tail_attempt``, ``_unpack_tail``'s dense branch and ``_assemble``):
 
-1. host decode into segment rows: the C++ decoder
+1. host decode into segment rows: a BAM stream's own encoder
+   (``formats.bam``), or for SAM the C++ decoder
    (``encoder.native_encoder.NativeReadEncoder``) over a ``ReadStream``'s
    raw blocks when its library loads and ``cfg.decoder`` is not ``py``,
    else the Python ``ReadEncoder``; either runs on a prefetch thread, a
-   bounded queue ahead of the pileup;
-2. device pileup: ``PileupAccumulator.add`` (K1 on CUDA), on the calling
-   thread;
+   bounded queue ahead of the pileup, which on CUDA also stages each
+   batch's rows to the card (``PileupAccumulator.stage`` through
+   ``wire.pipeline.StageSlots``);
+2. device pileup: ``PileupAccumulator.add`` (the device pack and K1 on
+   CUDA), on the calling thread;
 3. one fused tail (``ops.fused.vote_packed*``; K2 or K3 on CUDA) into one
    packed uint8 buffer, fetched with one device-to-host copy;
 4. host unpack, insertion splice and FASTA render.
 
 The output is byte-identical to ``--backend jax`` and ``--backend cpu`` of
-the JAX package.  Phase wall times land in ``stats.extra`` (``decode_sec``,
-billed on the prefetch thread, so it overlaps ``pileup_sec``; ``tail_sec``,
-``assemble_sec``), with ``stats.extra["decoder"]`` naming the decoder that
-ran (``native`` or ``py``); on CUDA the pileup phase ends with a
-synchronize, so its time includes the device work.
+the JAX package.  Phase wall times land in ``stats.extra`` (``decode_sec``
+and ``stage_sec``, billed on the prefetch thread, so they overlap
+``pileup_sec``; ``overlap_sec``, the staging seconds that ran while the
+consumer was in ``add``; ``backpressure_sec``, the producer's waits for a
+free staging slot; ``tail_sec``, ``assemble_sec``), with
+``stats.extra["decoder"]`` naming the decoder that ran (``native`` or
+``py``); on CUDA the pileup phase ends with a synchronize, so its time
+includes the device work.
 """
 
 from __future__ import annotations
@@ -45,32 +51,38 @@ from ..io.sam import Contig, ReadStream, SamRecord
 from ..ops import fused
 from ..ops.pileup import PileupAccumulator
 from ..ops.vote import device_fill_code
+from ..wire.pipeline import StageSlots
 from .base import BackendResult, BackendStats, format_header
 
 INT32_MAX = (1 << 31) - 1
 
 
 class _Prefetcher:
-    """Bounded background decode: overlap host decode with pileup work.
+    """Bounded background decode and staging, ahead of the pileup.
 
-    Copy of the JAX backend's ``_Prefetcher`` without its device staging.
-    The producer thread drains the encoder generator into a depth-2 queue,
-    adding the time it spends in the generator to
-    ``stats.extra["decode_sec"]``; the consumer iterates batches as they
-    land.  The producer only decodes (numpy and ctypes, which releases the
-    GIL for the C++ call); every torch call stays on the consumer.
-    Exceptions, strict decode errors included, are re-raised in the
+    Copy of the JAX backend's ``_Prefetcher``.  The producer thread drains
+    the encoder generator into a depth-2 queue, adding the time it spends
+    in the generator to ``stats.extra["decode_sec"]``.  With a ``stager``
+    (``wire.pipeline.StageSlots`` around ``PileupAccumulator.stage``) it
+    then claims a staging slot for the batch (outside the stage clock:
+    that wait is backpressure) and stages it: on CUDA the pinned copy, the
+    host-to-device copy on a side stream and its event run here, on the
+    producer.  Every other torch call stays on the consumer.  Exceptions,
+    strict decode errors and staging failures alike, are re-raised in the
     consumer at the point of consumption with their type and message
-    unchanged.  ``close()`` stops the producer when the consumer leaves
-    early.
+    unchanged; unlike the reference, a batch whose staging failed is
+    never delivered unstaged.  ``close()`` stops the producer when the
+    consumer leaves early.
     """
 
     _DONE = object()
 
-    def __init__(self, gen, stats: BackendStats, depth: int = 2):
+    def __init__(self, gen, stats: BackendStats, depth: int = 2,
+                 stager=None):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._exc = None
         self._stats = stats
+        self._stager = stager
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._work, args=(gen,), name="decode-prefetch",
@@ -98,6 +110,10 @@ class _Prefetcher:
                 finally:
                     self._stats.extra["decode_sec"] += \
                         time.perf_counter() - t0
+                if self._stager is not None:
+                    if not self._stager.acquire(batch):
+                        return             # consumer gone; drop the rest
+                    self._stager.run(batch)
                 if not self._put(batch):
                     return                 # consumer gone; drop the rest
         except BaseException as exc:  # re-raised on the consumer side
@@ -134,7 +150,8 @@ class TorchBackend:
     def run(self, contigs: List[Contig], records: Iterable[SamRecord],
             cfg: RunConfig) -> BackendResult:
         stats = BackendStats()
-        for key in ("decode_sec", "pileup_sec", "tail_sec", "assemble_sec"):
+        for key in ("decode_sec", "pileup_sec", "tail_sec", "assemble_sec",
+                    "stage_sec", "overlap_sec", "backpressure_sec"):
             stats.extra[key] = 0.0
         layout = GenomeLayout(contigs)
         if layout.total_len == 0:
@@ -142,17 +159,32 @@ class TorchBackend:
 
         encoder, batches = self._make_encoder(layout, records, cfg, stats)
         acc = PileupAccumulator(layout.total_len, self.device)
-        prefetch = _Prefetcher(batches, stats)
+        # staging is for the card: the CPU consumer ships its own rows
+        stager = StageSlots(acc.stage) if self.device.type == "cuda" \
+            else None
+        prefetch = _Prefetcher(batches, stats, stager=stager)
         try:
             for batch in prefetch:
                 t0 = time.perf_counter()
                 acc.add(batch)
-                stats.extra["pileup_sec"] += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                stats.extra["pileup_sec"] += t1 - t0
+                if stager is not None:
+                    # K1's route is enqueued: release the batch's slot
+                    stager.note_consume(t0, t1)
+                    stager.consumed(batch)
                 stats.aligned_bases += batch.n_events
         finally:
             # a consumer-side failure must not leave the decode thread
-            # blocked on a full queue holding the input stream open
+            # blocked on a full queue (or a backpressured staging slot)
+            # holding the input stream open
+            if stager is not None:
+                stager.close()
             prefetch.close()
+        if stager is not None:
+            stats.extra["stage_sec"] = stager.stage_sec()
+            stats.extra["overlap_sec"] = stager.overlap_sec()
+            stats.extra["backpressure_sec"] = stager.backpressure_sec
         t0 = time.perf_counter()
         acc.sync()
         stats.extra["pileup_sec"] += time.perf_counter() - t0
@@ -172,9 +204,16 @@ class TorchBackend:
 
     @staticmethod
     def _make_encoder(layout, records, cfg: RunConfig, stats: BackendStats):
-        """Pick the host decode path (the JAX backend's serial branch);
-        returns ``(encoder, batch iterator)`` and records the choice in
+        """Pick the host decode path (the JAX backend's ``_make_encoder``:
+        a BAM stream's own encoder, else the serial branch); returns ``(encoder, batch iterator)`` and records the choice in
         ``stats.extra["decoder"]``."""
+        if hasattr(records, "make_encoder"):
+            # binary formats (formats/bam.BamReadStream): the stream owns
+            # its record decode and hands back the same surface
+            enc, batches = records.make_encoder(layout, cfg)
+            stats.extra["decoder"] = "native" if isinstance(
+                enc, native_encoder.NativeReadEncoder) else "py"
+            return enc, batches
         seg_w = resolve_segment_width(cfg.segment_width)
         if isinstance(records, ReadStream) and cfg.decoder != "py":
             if native_encoder.available():

@@ -3,12 +3,13 @@
 Drop-in compatible with the reference CLI (reference
 ``sam2consensus.py:87-104``): the eight flags ``-i -c -n -o -p -m -f -d``
 keep their names, defaults and post-processing (``:108-138``), plus
-``--py2-compat`` and ``--decoder``; the progress messages match.  Input is
-SAM or gzip SAM (``.gz`` suffix), read as bytes.  The run goes to CUDA and
-raises without it; ``main``'s ``device`` argument is the only way to
-choose another device.
+``--py2-compat``, ``--format``, ``--decode-threads`` and ``--decoder``;
+the progress messages match.  Input is SAM, gzip or BGZF SAM, or BAM,
+sniffed by magic bytes (``formats.open_alignment_input``).  The run goes
+to CUDA and raises without it; ``main``'s ``device`` argument is the only
+way to choose another device.
 
-    python -m sam2consensus_torch.cli -i reads.sam -o out
+    python -m sam2consensus_torch.cli -i reads.bam -o out
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-i", "--input", dest="filename", required=True,
-                   help="SAM file, optionally gzip-compressed (.gz)")
+                   help="alignment file: SAM (optionally gzip/BGZF-"
+                        "compressed) or BAM; need not be sorted "
+                        "(format sniffed by magic bytes, see --format)")
     p.add_argument("-c", "--consensus-thresholds", dest="thresholds",
                    type=str, default="0.25",
                    help="comma-separated consensus threshold(s), e.g. 0.25,0.75; default=0.25")
@@ -51,6 +54,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--py2-compat", action="store_true",
                    help="reproduce the reference's Python-2 maxdel quirk: any "
                         "explicit -d value disables deletion filtering")
+    # NOTE: long-form only — the reference already owns -f for --fill
+    p.add_argument("--format", dest="input_format",
+                   choices=["auto", "sam", "sam.gz", "bam"],
+                   default="auto",
+                   help="input format: auto (default) sniffs magic bytes "
+                        "— plain SAM, gzip SAM, BGZF SAM (htslib .sam.gz; "
+                        "inflated block-parallel on --decode-threads "
+                        "workers) or BAM (block-parallel BGZF + binary "
+                        "record decode, no SAM text materialized)")
+    p.add_argument("--decode-threads", dest="decode_threads", type=int,
+                   default=1,
+                   help="host worker threads for the BGZF block inflate "
+                        "(0 = auto: all cores)")
     p.add_argument("--decoder", choices=["auto", "native", "py"],
                    default="auto",
                    help="host SAM decode path: the C++ decoder when "
@@ -91,7 +107,9 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         outfolder=normalize_outfolder(args.outfolder),
         backend="torch",
         py2_compat=args.py2_compat,
+        input_format=args.input_format,
         decoder=args.decoder,
+        decode_threads=args.decode_threads,
     )
 
 
@@ -99,7 +117,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Run the CLI; ``device`` as in ``device.resolve_device`` (None = CUDA,
     raising without it)."""
     from .backends.torch_backend import TorchBackend
-    from .io.sam import ReadStream, opener, read_header
+    from .config import resolve_decode_threads
+    from .formats import open_alignment_input
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -115,14 +134,19 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             echo(str(k * 500000) + " reads processed.")
         progress[0] = total
 
-    # a bytes handle: the native decoder parses raw bytes (no str decode
-    # and re-encode of the body on the hot path)
-    with opener(args.filename, binary=True) as handle:
-        contigs, _n_header, first = read_header(handle)
-        echo("SAM header processed, " + str(len(contigs))
+    # one open call for every container: format sniffed or forced, BGZF
+    # blocks inflated on the decode-threads pool, BAM records decoded
+    # binary; text SAM as bytes, which the native decoder parses raw
+    ai = open_alignment_input(args.filename, cfg.input_format,
+                              on_lines=on_lines,
+                              threads=resolve_decode_threads(cfg))
+    try:
+        echo("SAM header processed, " + str(len(ai.contigs))
              + " references found.\n")
-        stream = ReadStream(handle, first, on_lines=on_lines)
-        result = backend.run(contigs, stream, cfg)
+        stream = ai.stream
+        result = backend.run(ai.contigs, stream, cfg)
+    finally:
+        ai.close()
     echo("A total of " + str(stream.n_lines) + " reads were processed, out of "
          "which, " + str(result.stats.reads_mapped) + " reads were mapped.\n")
     write_outputs(result.fastas, cfg.outfolder, cfg.prefix, cfg.nchar,

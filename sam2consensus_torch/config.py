@@ -1,11 +1,12 @@
 """Run configuration.
 
-Copy of ``RunConfig``, ``default_prefix`` and ``normalize_outfolder`` from
-``sam2consensus_tpu/config.py`` (field names kept, pinned by
-``tests/test_torch_copies.py``).  This slice honours ``thresholds,
-min_depth, fill, maxdel, prefix, nchar, outfolder, strict, py2_compat,
-segment_width, chunk_reads``; the other fields exist so a config built for
-the reference reads the same here.
+Copy of ``RunConfig``, ``resolve_decode_threads``, ``default_prefix`` and
+``normalize_outfolder`` from ``sam2consensus_tpu/config.py`` (field names
+kept, pinned by ``tests/test_torch_copies.py``).  The port honours
+``thresholds, min_depth, fill, maxdel, prefix, nchar, outfolder, strict,
+py2_compat, input_format, segment_width, decoder, decode_threads,
+chunk_reads``; the other fields exist so a config built for the reference
+reads the same here.
 """
 
 from __future__ import annotations
@@ -68,6 +69,17 @@ class RunConfig:
     def threshold_labels(thresholds: List[float]) -> List[str]:
         """Percent labels, matching ``int(t*100)`` (sam2consensus.py:394)."""
         return [str(int(t * 100)) for t in thresholds]
+
+
+def resolve_decode_threads(cfg) -> int:
+    """``--decode-threads`` with 0 = auto (all cores): in the port it sizes
+    the BGZF inflate pool (``formats/bgzf.py`` on ``ingest.shared_pool``).
+    The reference's ``S2C_DECODE_THREADS_CAP`` environment cap is not
+    copied."""
+    threads = getattr(cfg, "decode_threads", 1)
+    if threads == 0:
+        threads = os.cpu_count() or 1
+    return max(1, threads)
 
 
 def default_prefix(filename: str) -> str:

@@ -79,6 +79,11 @@ class SegmentBatch:
     buckets: Dict[int, Tuple[np.ndarray, np.ndarray]]
     n_reads: int = 0
     n_events: int = 0          # countable (non-PAD) symbols in the batch
+    #: device-staged operands ``{w: ops.pileup.StagedRows or None}``
+    #: placed on the decode prefetch thread (``PileupAccumulator.stage``;
+    #: None for a bucket with no real row); empty on the CPU, where the
+    #: consumer ships the rows itself
+    staged: Dict[int, object] = field(default_factory=dict)
 
 
 @dataclass
@@ -225,7 +230,12 @@ class ReadEncoder:
         rc = 0
         out = 0
         claim = rec.pos
-        for length, op in split_ops(rec.cigar):
+        # pre-split ops ride with binary records (formats/bam.py), so the
+        # BAM path never rebuilds or re-regexes CIGAR text
+        ops = getattr(rec, "ops", None)
+        if ops is None:
+            ops = split_ops(rec.cigar)
+        for length, op in ops:
             if op in "M=X":
                 codes = seq_codes[rc:rc + length]
                 my_base.append((out, codes))

@@ -5,8 +5,8 @@ Copy of ``sam2consensus_tpu/native/__init__.py`` (the same flags and the
 same build-cache key, pinned by ``tests/test_torch_native.py``), with two
 differences: the shared object is built into ``build/torch_native/`` at
 the root of the checkout rather than next to the source, and only
-``s2c_decode`` is bound (the file's other exports serve paths the port
-does not have yet).  The boundary is a plain C ABI with NumPy-owned
+``s2c_decode`` (SAM text) and ``s2c_decode_bam`` (BAM records) are bound
+(the file's other exports serve paths the port does not have yet).  The boundary is a plain C ABI with NumPy-owned
 buffers; ctypes releases the GIL for the call, so a decode thread overlaps
 the consumer's work.  ``load()`` returns ``None`` when the library cannot
 be built or loaded, and ``load_error()`` says why.
@@ -103,6 +103,20 @@ def load() -> Optional[ctypes.CDLL]:
         u8p, i32p, ctypes.c_int64,             # fused pileup u8 shadow,
                                                #   +256 overflow bank, len
                                                #   (len 0: no fused counts)
+        ctypes.c_long,                         # direct int32 mode flag
+    ]
+    lib.s2c_decode_bam.restype = ctypes.c_long
+    lib.s2c_decode_bam.argtypes = [
+        u8p, ctypes.c_long,                    # inflated record bytes
+        i32p, i64p, i64p, ctypes.c_long,       # ref ci/offset/len, n_refs
+        ctypes.c_long, ctypes.c_long,          # maxdel, strict
+        ctypes.c_long,                         # width
+        i32p, u8p, ctypes.c_long,              # starts, codes, rows_cap
+        i32p, i32p, i32p, ctypes.c_long,       # ins contig/local/mlen, cap
+        u8p, ctypes.c_long,                    # ins_chars, cap
+        i64p, ctypes.c_long,                   # overflow_off, cap
+        i64p,                                  # out stats
+        u8p, i32p, ctypes.c_int64,             # fused pileup (as s2c_decode)
         ctypes.c_long,                         # direct int32 mode flag
     ]
     _lib = lib

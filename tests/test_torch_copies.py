@@ -327,3 +327,169 @@ def test_simulate(tmp_path):
     import gzip
 
     assert gzip.open(p1).read() == gzip.open(p2).read()
+
+
+# -- BAM and BGZF input, the stager ------------------------------------------
+BAMS = [f"formats_{fam}.bam" for fam in ("short", "longread", "adversarial")]
+
+
+def test_cigar_bam_helpers():
+    assert t_cigar.BAM_OPS == r_cigar.BAM_OPS
+    for ops in ((), ((5, "M"),), ((2, "S"), (3, "M"), (1, "I"), (0, "D"),
+                                  (7, "="), (1, "X"), (2, "H"))):
+        assert t_cigar.render_ops(ops) == r_cigar.render_ops(ops)
+
+
+def test_encoder_helpers():
+    assert t_events.MIN_BUCKET_W == r_events.MIN_BUCKET_W
+    for span in (1, 31, 32, 33, 100, 4096, 4097):
+        assert t_events._bucket_width(span) == r_events._bucket_width(span)
+    assert issubclass(t_events.EncodeError, ValueError)
+    assert t_events.EncodeError.__mro__[1:] == r_events.EncodeError.__mro__[1:]
+    for line in ("@SQ\tSN:chr1\tLN:100", "@SQ\tSN:a b\tLN: 7\n",
+                 "@SQ\tSN:x\tLN:0\tAS:y"):
+        assert dataclasses.astuple(t_sam.parse_sq_line(line)) == \
+            dataclasses.astuple(r_sam.parse_sq_line(line))
+
+
+def test_resolve_decode_threads(monkeypatch):
+    monkeypatch.delenv("S2C_DECODE_THREADS_CAP", raising=False)
+    for n in (0, 1, 3, -2):
+        cfg = t_config.RunConfig(decode_threads=n)
+        assert t_config.resolve_decode_threads(cfg) == \
+            r_config.resolve_decode_threads(cfg)
+
+
+def test_shared_pool():
+    from sam2consensus_torch import ingest as t_ingest
+
+    assert t_ingest.shared_pool(1) is None
+    pool = t_ingest.shared_pool(2)           # the process-wide pool, >= 2
+    n = t_ingest._pool_workers
+    assert t_ingest.shared_pool(2) is pool and t_ingest.shared_pool(n) is pool
+    assert t_ingest.pool_submit(n + 1, lambda a, b: a * b, 6, 7).result() \
+        == 42
+    assert t_ingest.shared_pool(2) is not pool        # grown, never shrunk
+    assert t_ingest._pool_workers == n + 1
+    with pytest.raises(ValueError):
+        t_ingest.pool_submit(1, print)
+
+
+@pytest.mark.parametrize("path", FIXTURES[1::3] + BAMS)
+def test_bgzf_blocks(path):
+    from sam2consensus_torch.formats import bgzf as t_bgzf
+    from sam2consensus_tpu.formats import bgzf as r_bgzf
+
+    full = os.path.join(DATA, path)
+    assert t_bgzf.is_bgzf(full) == r_bgzf.is_bgzf(full)
+    with open(full, "rb") as fh:
+        data = fh.read()
+    for head in (data[:64], data[:17], b"\x1f\x8b\x08\x04" + b"\x00" * 60):
+        assert t_bgzf.sniff_bgzf(head) == r_bgzf.sniff_bgzf(head)
+    blocks = t_bgzf.scan_blocks(io.BytesIO(data))
+    assert blocks == r_bgzf.scan_blocks(io.BytesIO(data))
+    for off, n in blocks[:3] + blocks[-1:]:
+        assert t_bgzf.inflate_block(data[off:off + n], off) == \
+            r_bgzf.inflate_block(data[off:off + n], off)
+    assert (t_bgzf.BGZF_EOF, t_bgzf.MAX_BLOCK_UDATA) == \
+        (r_bgzf.BGZF_EOF, r_bgzf.MAX_BLOCK_UDATA)
+
+
+def test_bgzf_writers(tmp_path):
+    from sam2consensus_torch.formats import bgzf as t_bgzf
+    from sam2consensus_tpu.formats import bgzf as r_bgzf
+
+    data = bytes(np.random.default_rng(5).integers(0, 4, 200_000)
+                 .astype(np.uint8) + 65)
+    for level in (1, 6):
+        assert t_bgzf.compress_block(data[:65280], level) == \
+            r_bgzf.compress_block(data[:65280], level)
+    p1 = t_bgzf.write_bgzf(data, str(tmp_path / "t.gz"), block_udata=9000)
+    p2 = r_bgzf.write_bgzf(data, str(tmp_path / "r.gz"), block_udata=9000)
+    assert open(p1, "rb").read() == open(p2, "rb").read()
+
+
+@pytest.mark.parametrize("path", BAMS)
+def test_bam_header_and_field_decoders(path):
+    from sam2consensus_torch.formats import bam as t_bam
+    from sam2consensus_torch.formats import bgzf as t_bgzf
+    from sam2consensus_tpu.formats import bam as r_bam
+
+    for name in ("BAM_MAGIC", "NIB_TO_CHAR", "NIB_TO_CODE", "CHAR_TO_NIB"):
+        got, want = getattr(t_bam, name), getattr(r_bam, name)
+        if isinstance(want, np.ndarray):
+            _same(got, want)
+        else:
+            assert got == want
+    reader = t_bgzf.BgzfReader(os.path.join(DATA, path))
+    try:
+        data = reader.read()
+    finally:
+        reader.close()
+    hdr = io.BytesIO(data)
+    contigs, text = t_bam.read_bam_header(hdr)
+    hdr2 = io.BytesIO(data)
+    r_contigs, r_text = r_bam.read_bam_header(hdr2)
+    assert [dataclasses.astuple(c) for c in contigs] == \
+        [dataclasses.astuple(c) for c in r_contigs] and text == r_text
+    buf = np.frombuffer(data, np.uint8)
+    t_idx = t_bam._RecordIndex(buf[hdr.tell():], 0)
+    r_idx = r_bam._RecordIndex(buf[hdr2.tell():], 0)
+    for name in ("off", "refid", "pos", "l_rn", "n_cig", "l_seq"):
+        _same(getattr(t_idx, name), getattr(r_idx, name))
+    assert (t_idx.n, t_idx.consumed) == (r_idx.n, r_idx.consumed)
+    body = buf[hdr.tell():]
+    for k in range(0, t_idx.n, max(1, t_idx.n // 25)):
+        cig = int(t_idx.off[k] + 36 + t_idx.l_rn[k])
+        seq = cig + 4 * int(t_idx.n_cig[k])
+        assert t_bam.decode_ops(body, cig, int(t_idx.n_cig[k])) == \
+            r_bam.decode_ops(body, cig, int(r_idx.n_cig[k]))
+        assert t_bam.decode_seq(body, seq, int(t_idx.l_seq[k])) == \
+            r_bam.decode_seq(body, seq, int(r_idx.l_seq[k]))
+
+
+@pytest.mark.parametrize("path", FIXTURES[::3])
+def test_bam_writers(path, tmp_path):
+    from sam2consensus_torch.formats import bam as t_bam
+    from sam2consensus_tpu.formats import bam as r_bam
+
+    with open(os.path.join(DATA, path)) as fh:
+        text = fh.read()
+    got, want = t_bam.sam_text_to_records(text), \
+        r_bam.sam_text_to_records(text)
+    assert got[1] == want[1]
+    assert [dataclasses.astuple(c) for c in got[0]] == \
+        [dataclasses.astuple(c) for c in want[0]]
+    assert t_bam.bam_payload(*got) == r_bam.bam_payload(*want)
+    assert t_bam.encode_bam_record(2, 9, "3S4M1I2D", "ACGTNAC=") == \
+        r_bam.encode_bam_record(2, 9, "3S4M1I2D", "ACGTNAC=")
+    p1 = t_bam.sam_text_to_bam(text, str(tmp_path / "t.bam"))
+    p2 = r_bam.sam_text_to_bam(text, str(tmp_path / "r.bam"))
+    assert open(p1, "rb").read() == open(p2, "rb").read()
+    codes = np.random.default_rng(2).integers(0, 6, (9, 150)).astype(np.uint8)
+    starts = np.arange(9, dtype=np.int64) * 1000
+    for a, b in zip(t_bam._segment_matrix(starts, codes, 64),
+                    r_bam._segment_matrix(starts, codes, 64)):
+        _same(a, b)
+
+
+def test_formats_helpers(tmp_path):
+    from sam2consensus_torch import formats as t_formats
+    from sam2consensus_tpu import formats as r_formats
+
+    assert t_formats.FORMATS == r_formats.FORMATS
+    for name in ("x.bam", "x.sam.gz", "x.sam", "y.sam.bgzf", "z.gz"):
+        (tmp_path / name).write_bytes(b"")
+    for name in ("x.bam", "x.sam.gz", "y.sam.bgzf.gz", "z.gz", "w.bam",
+                 "x.sam"):
+        p = str(tmp_path / name)
+        assert t_formats.sibling_sam(p) == r_formats.sibling_sam(p)
+
+
+def test_stage_slots_defaults():
+    from sam2consensus_torch.wire import pipeline as t_pipe
+    from sam2consensus_tpu.wire import pipeline as r_pipe
+
+    assert t_pipe.DEFAULT_SLOTS == r_pipe.DEFAULT_SLOTS
+    assert [n for n in dir(t_pipe.StageSlots) if not n.startswith("__")] \
+        == [n for n in dir(r_pipe.StageSlots) if not n.startswith("__")]
