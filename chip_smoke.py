@@ -17,8 +17,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    time at 50 keys x 1300 columns);
 6-7. the main path through ``cli.main`` on CUDA with ``--decoder native``
    (every run must report ``decoder=native``: no fallback may hide the
-   decoder), with the launch counts set to 0 just before and read just
-   after: the ``formats_*`` fixtures (``.sam``, BGZF ``.sam.gz`` and
+   decoder) and ``--pileup pallas`` unless said otherwise, with the
+   launch counts set to 0 just before and read just after: the
+   ``formats_*`` fixtures (``.sam``, BGZF ``.sam.gz`` and
    ``.bam`` under ``--format auto``, byte-identical to
    ``*.expected.fasta``; each BAM run must launch K1), a small
    wide-insertion input (1024 padded columns), ``longread_sv`` (10 kb
@@ -37,14 +38,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    also written as BAM by the port's writer and run on CUDA at
    ``--decode-threads`` 1 and 0 and on the CPU under ``--decoder py``:
    all byte-identical to the SAM run, decode seconds and MB/s printed.
-   Every kernel must have launched in that window;
+   Each full-size input (and the BAM) also runs under ``--pileup host``
+   (no K1, the fused C++ count; when the tail goes to the card one counts
+   upload and the insertion kernels the ``pallas`` run's tail launched,
+   when it stays on the host no upload and no K2 or K3) and ``--pileup
+   auto`` (the gate's bounds, the input's bytes and the reason, and the
+   tail placement with its inputs printed), byte-identical to the CPU
+   run; ``ecoli_scale`` at ``--decode-threads`` 1, 4 and 0 under
+   ``pallas`` and ``host`` (the sharded rung with more than one shard
+   when threads > 1; decode, worker seconds and shards printed);
+   ``longread_sv`` at ``--segment-width -1`` beside the default (no line
+   may replay in Python at -1).  Every kernel must have launched in that
+   window.  Then the link probe's round trip and H2D / D2H rates, and the
+   native vote's ns a position at ``ecoli_scale``'s L for T = 1 and 2;
 8. under ``torch.cuda.set_sync_debug_mode("error")``, once each: the K1,
    K2 and K3 routes at the largest main-path shapes, the staged K1 route
    (``PileupAccumulator.add`` of a batch staged as the prefetch thread
    stages it: event wait, device pack, K1), and the whole tail
    (``fused.vote_packed``) on the arguments ``longread_sv`` (K3 and the
-   torch vote) and ``amplicon_deep`` (K2) gave it.  A host synchronisation
-   in any of them is fatal;
+   torch vote) and ``amplicon_deep`` (K2) gave it, and the host-count
+   route on both (the narrowed counts' pinned upload and the tail; its
+   output must equal the int32 tail's).  A host synchronisation in any of
+   them is fatal;
 9. the C++ decoder (``NativeReadEncoder``) against the Python
    ``ReadEncoder`` on ``ecoli_scale`` and ``longread_sv`` at full size:
    pileup counts of the batches, reads, skipped, events, lines and every
@@ -56,7 +71,9 @@ is fatal) and timed there with CUDA events: the kernel alone (and its
 device time from ``torch.profiler``, which holds no host time, divided by
 the launches the profiler recorded), its route (what the main path pays:
 plan, if any, and wrapper), its plain version,
-one PyTorch library call where one computes the same function, and its
+one PyTorch library call where one computes the same function (K1: one
+``torch.bincount`` of the flat cell index, also timed with the
+expansion; K3: ``index_put_``), and its
 bound (bytes over the HBM rate or operations over the CUDA-core rate, the
 larger).  The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": ...}``.
@@ -80,6 +97,8 @@ DATA = os.path.join(REPO, "tests", "data")
 #: 32-bit rate (67 TFLOP/s float32) taken for the kernels' integer work
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+#: ``ecoli_scale``'s genome length (``bench.py:178-181``)
+ECOLI_LEN = 4_600_000
 
 
 def fail(msg: str) -> None:
@@ -382,10 +401,11 @@ def index_put_table(k, cp, key, col, code) -> torch.Tensor:
 
 # -- phases 6-7: the main path ----------------------------------------------
 class Capture:
-    """Records, per kernel wrapper, the call with the largest input the main
-    path made (and the input it came from), so the kernel can be timed
-    afterwards at those shapes.  ``key`` may name ``{input}``: one record
-    per input of phase 7."""
+    """Records, per kernel wrapper, the call with the largest input that
+    phase 7's runs of its inputs at their defaults made (and the input it
+    came from), so the kernel can be timed afterwards at those shapes; the
+    variant runs (``--pileup``, ``--decode-threads``, ``--segment-width``)
+    record nothing.  ``key`` may name ``{input}``: one record per input."""
 
     def __init__(self):
         self.calls = {}
@@ -396,10 +416,11 @@ class Capture:
         orig = getattr(module, attr)
 
         def wrapper(*args):
-            size = size_of(*args)
-            at = key.format(input=self.input)
-            if size > self.calls.get(at, (-1, None, None))[0]:
-                self.calls[at] = (size, args, self.input)
+            if self.input is not None:
+                size = size_of(*args)
+                at = key.format(input=self.input)
+                if size > self.calls.get(at, (-1, None, None))[0]:
+                    self.calls[at] = (size, args, self.input)
             return orig(*args)
 
         setattr(module, attr, wrapper)
@@ -586,7 +607,8 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
             k1_before = K1.launches
             sec = run_cli(["-i", os.path.join(DATA, f"formats_{fam}{ext}"),
                            "-o", out, "-p", "fixture", "--format", "auto",
-                           "--decoder", "native"], None)
+                           "--decoder", "native", "--pileup", "pallas"],
+                          None)
             same = read_dir(out) == expected
             print(f"  formats_{fam}{ext}: decoder="
                   f"{decoder_of(cap, 'native')} byte-identical={same} "
@@ -611,7 +633,7 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         ("amplicon_deep", None, ["-c", "0.25", "-m", "10"]),
     ]
     specs = {
-        "ecoli_scale": SimSpec(n_contigs=1, contig_len=4_600_000,
+        "ecoli_scale": SimSpec(n_contigs=1, contig_len=ECOLI_LEN,
                                n_reads=150000, read_len=100,
                                contig_len_jitter=0.0, seed=404,
                                contig_prefix="ecoli"),
@@ -636,7 +658,8 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
                 pileup_split() as (split, calls):
             wall = run_cli(["-i", path, "-o",
                             os.path.join(tmp, name + "_cuda"), *flags,
-                            "--decoder", "native"], None)
+                            "--decoder", "native", "--pileup", "pallas"],
+                           None)
         st = cap.stats[n_stats]
         decoder_of(cap, "native")
         cap.input = None
@@ -645,7 +668,8 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         launched = {k.name: k.launches - before[k.name] for k in kernels}
         mem = torch.cuda.max_memory_allocated() / 2**20
         cpu_wall = run_cli(["-i", path, "-o", os.path.join(tmp, name + "_cpu"),
-                            *flags, "--decoder", "py"], "cpu")
+                            *flags, "--decoder", "py", "--pileup", "pallas"],
+                           "cpu")
         decoder_of(cap, "py")
         cpu_decode = cap.stats[-1].extra["decode_sec"]
         same = read_dir(os.path.join(tmp, name + "_cuda")) == \
@@ -671,13 +695,197 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         print_split(split, calls, st)
         if not same:
             fail(f"{name}: CUDA output differs from the CPU run")
+        want = read_dir(os.path.join(tmp, name + "_cpu"))
+        tail_kernels = {n for n in ("insertion_vote", "insertion_table")
+                        if launched[n]}
+        strategy_runs(tmp, card, cap, name, path, flags, want, tail_kernels)
         if name == "ecoli_scale":
-            bam_runs(tmp, card, cap, text, path, flags)
+            bam_runs(tmp, card, cap, text, path, flags, tail_kernels)
+            thread_runs(tmp, card, cap, path, flags, want)
+        if name == "longread_sv":
+            width_runs(tmp, card, cap, path, flags, want)
     return paths
 
 
+def placement_of(extra: dict) -> str:
+    """The tail placement of a run, with the model's inputs."""
+    place = extra.get("tail_placement", {})
+    keys = ("cpu_sec", "chip_sec", "rt_sec", "link_bps", "upload_bytes")
+    inputs = " ".join(f"{k}={place[k]:.6g}" for k in keys if k in place)
+    other = {k: v for k, v in place.items()
+             if k not in keys and k not in ("chosen", "total_len",
+                                            "n_thresholds")}
+    return (f"tail_device={extra.get('tail_device')} native_tail="
+            f"{extra.get('tail_native')} placement={place.get('chosen')} "
+            f"{inputs} {other}")
+
+
+def strategy_runs(tmp: str, card: str, cap: Capture, name: str, path: str,
+                  flags: list, want: str, tail_kernels: set) -> None:
+    """Phase 7's ``--pileup host`` and ``--pileup auto`` runs of one input
+    on CUDA: byte-identical to the CPU run; a host-counts run launches no
+    K1, counts in the C++ decode pass (``counts_fused``) and uploads its
+    counts once exactly when its tail runs on the card, and its tail
+    launches the insertion kernels the device run's tail launched
+    (``tail_kernels``, as the insertion width selects them) when it runs
+    on the card and none when it runs on the host; the gate's and the
+    placement's decisions are printed with their inputs."""
+    from sam2consensus_torch.kernels.build import all_kernels
+
+    kernels = {k.name: k for k in all_kernels()}
+    for pileup in ("host", "auto"):
+        out = os.path.join(tmp, f"{name}_{pileup}")
+        before = {n: k.launches for n, k in kernels.items()}
+        wall = run_cli(["-i", path, "-o", out, *flags, "--decoder",
+                        "native", "--pileup", pileup], None)
+        decoder_of(cap, "native")
+        e = cap.stats[-1].extra
+        host = e["pileup_path"] == "host"
+        same = read_dir(out) == want
+        ran = {n: k.launches - before[n] for n, k in kernels.items()}
+        gate = (f"bound={e['host_bound']} bytes_bound="
+                f"{e['host_bytes_bound']} input_bytes={e['input_bytes']} "
+                f"reason={e['host_bound_reason']} "
+                if pileup == "auto" else "")
+        print(f"  {name} --pileup {pileup} [{card}]: path={e['pileup_path']} "
+              f"{gate}launches={ran} counts_fused={e['counts_fused']} "
+              f"pileup={e.get('pileup')} uploads={e.get('counts_uploads')} "
+              f"({e.get('counts_h2d_bytes')} B) decode={e['decode_sec']:.3f}s "
+              f"tail={e['tail_sec']:.3f}s wall={wall:.3f}s "
+              f"byte-identical={same}")
+        print(f"    {placement_of(e)}")
+        if not same:
+            fail(f"{name} --pileup {pileup}: output differs from the CPU run")
+        if pileup == "host" and not host:
+            fail(f"{name}: --pileup host took the device path")
+        if host:
+            card_tail = e["tail_device"] == "cuda"
+            k1 = ran["pileup_rows"]
+            if k1 or not e["counts_fused"] \
+                    or e["counts_uploads"] != int(card_tail):
+                fail(f"{name} --pileup {pileup}: host counts launched "
+                     f"{k1} K1, counts_fused={e['counts_fused']}, "
+                     f"{e['counts_uploads']} uploads for a "
+                     f"{e['tail_device']} tail")
+            tail_ran = {n for n in ("insertion_vote", "insertion_table")
+                        if ran[n]}
+            if tail_ran != (tail_kernels if card_tail else set()):
+                fail(f"{name} --pileup {pileup}: a {e['tail_device']} "
+                     f"tail launched {sorted(tail_ran)}, the device run's "
+                     f"{sorted(tail_kernels)}")
+        elif not ran["pileup_rows"]:
+            fail(f"{name} --pileup auto took the device path and launched "
+                 f"no K1")
+
+
+def thread_runs(tmp: str, card: str, cap: Capture, path: str, flags: list,
+                want: str) -> None:
+    """``ecoli_scale`` at ``--decode-threads`` 1, 4 and 0 under ``--pileup
+    pallas`` (slab mode, on the stager) and ``--pileup host`` (fused mode):
+    byte-identical, and the sharded rung with more than one shard whenever
+    threads > 1."""
+    for pileup in ("pallas", "host"):
+        for threads in ("1", "4", "0"):
+            out = os.path.join(tmp, f"ecoli_t{threads}_{pileup}")
+            wall = run_cli(["-i", path, "-o", out, *flags, "--decoder",
+                            "native", "--pileup", pileup, "--decode-threads",
+                            threads], None)
+            e = cap.stats[-1].extra
+            mode = e.get("ingest_mode", {})
+            shards = e.get("ingest_shards", 0)
+            same = read_dir(out) == want
+            print(f"  ecoli_scale --pileup {pileup} --decode-threads "
+                  f"{threads} [{card}]: threads={e['decode_threads']} "
+                  f"rung={mode.get('rung', 'serial')} shards={shards} "
+                  f"decode_sec={e['decode_sec']:.4f}s worker_sec="
+                  f"{e.get('ingest_worker_sec', 0.0):.4f}s "
+                  f"pileup={e['pileup_sec']:.4f}s wall={wall:.3f}s "
+                  f"byte-identical={same}")
+            if not same:
+                fail(f"ecoli_scale --decode-threads {threads} --pileup "
+                     f"{pileup}: output differs")
+            if threads != "1" and (mode.get("rung") != "shards"
+                                   or shards <= 1):
+                fail(f"ecoli_scale --decode-threads {threads}: not the "
+                     f"sharded rung with more than one shard ({mode})")
+
+
+def width_runs(tmp: str, card: str, cap: Capture, path: str, flags: list,
+               want: str) -> None:
+    """``longread_sv`` at ``--segment-width -1`` beside the default: the
+    lines replayed through the Python encoder (none may at -1) and those
+    the C decoder took one by one, and both runs' decode seconds."""
+    from sam2consensus_torch.encoder.native_encoder import NativeReadEncoder
+
+    seen = {"replayed": 0, "native": 0}
+    replay = NativeReadEncoder._fallback_line
+    single = NativeReadEncoder._native_line
+
+    def counted_replay(self, *args, **kwargs):
+        seen["replayed"] += 1
+        return replay(self, *args, **kwargs)
+
+    def counted_single(self, *args, **kwargs):
+        took = single(self, *args, **kwargs)
+        seen["native"] += bool(took)
+        return took
+
+    NativeReadEncoder._fallback_line = counted_replay
+    NativeReadEncoder._native_line = counted_single
+    try:
+        for width in ("0", "-1"):
+            seen.update(replayed=0, native=0)
+            out = os.path.join(tmp, f"longread_w{width}")
+            wall = run_cli(["-i", path, "-o", out, *flags, "--decoder",
+                            "native", "--pileup", "pallas",
+                            "--segment-width", width], None)
+            e = cap.stats[-1].extra
+            same = read_dir(out) == want
+            print(f"  longread_sv --segment-width {width} [{card}]: lines "
+                  f"replayed in python={seen['replayed']} decoded natively "
+                  f"one by one={seen['native']} decode_sec="
+                  f"{e['decode_sec']:.4f}s pileup={e['pileup_sec']:.4f}s "
+                  f"wall={wall:.3f}s byte-identical={same}")
+            if not same:
+                fail(f"longread_sv --segment-width {width}: output differs")
+            if width == "-1" and seen["replayed"]:
+                fail("longread_sv --segment-width -1 replayed lines in "
+                     "python")
+    finally:
+        NativeReadEncoder._fallback_line = replay
+        NativeReadEncoder._native_line = single
+
+
+def host_rates(cap: Capture, card: str) -> None:
+    """The link probe's numbers and the native vote's ns a position at
+    ``ecoli_scale``'s L (the counts of its run) for T = 1 and T = 2, one
+    thread (``--decode-threads 1``), best of 3."""
+    from sam2consensus_torch.ops.vote import vote_positions_native
+    from sam2consensus_torch.utils.linkprobe import probe_link
+
+    p = probe_link()
+    print(f"  link probe [{card}]: round trip {p.rt_sec * 1e3:.4f} ms, "
+          f"H2D {p.h2d_bps / 1e9:.3f} GB/s, D2H {p.d2h_bps / 1e9:.3f} GB/s "
+          f"(pinned 1 MiB; the model bills {p.bps / 1e9:.3f} GB/s)")
+    _, (counts, _s, _p), src = cap.calls["K1"]
+    host = np.ascontiguousarray(counts[:ECOLI_LEN].cpu().numpy())
+    length = len(host)
+    for thresholds in ([0.25], [0.25, 0.75]):
+        best = min(_host_sec(lambda: vote_positions_native(
+            host, thresholds, 1, threads=1)) for _ in range(3))
+        print(f"  native vote [{card}]: {src} L={length} "
+              f"T={len(thresholds)}: {best * 1e3:.3f} ms, "
+              f"{best / length * 1e9:.3f} ns a position")
+
+
+def _host_sec(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
-             flags: list) -> None:
+             flags: list, tail_kernels: set) -> None:
     """Phase 7's BAM input: ``ecoli_scale`` written as BAM by the port's
     writer, run on CUDA (``--decoder native`` at ``--decode-threads`` 1
     and 0) and on the CPU (``--decoder py``); every output must equal the
@@ -699,7 +907,8 @@ def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
         out = os.path.join(tmp, f"ecoli_bam_{device}_{threads}")
         k1_before = K1.launches
         wall = run_cli(["-i", bam, "-o", out, *flags, "--decode-threads",
-                        threads, "--decoder", decoder], device)
+                        threads, "--decoder", decoder, "--pileup", "pallas"],
+                       device)
         decoder_of(cap, decoder)
         st = cap.stats[-1]
         dec = st.extra["decode_sec"]
@@ -718,11 +927,14 @@ def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
                  f"{threads}) differs from the SAM run")
         if device is None and K1.launches == k1_before:
             fail("ecoli_scale.bam: the CUDA run launched no K1")
+    strategy_runs(tmp, card, cap, "ecoli_scale.bam", bam, flags, want,
+                  tail_kernels)
 
 
 # -- phase 8: no host synchronisation in the routes and the tails ----------
 def sync_free(cap: Capture) -> None:
     from sam2consensus_torch.ops import fused
+    from sam2consensus_torch.ops.pileup import HostPileupAccumulator
     from sam2consensus_torch.ops import insertion_kernel as ik
     from sam2consensus_torch.ops import pileup_kernel as pk
 
@@ -735,6 +947,13 @@ def sync_free(cap: Capture) -> None:
     # K1 route) runs under it
     acc, batch = staged_batch(counts, starts, packed)
     acc.stage(batch)
+    # the host-count route: counts as the fused decode leaves them on the
+    # host (set outside the check); the upload and the tail run under it
+    host_accs, host_tails = {}, {}
+    for name in ("amplicon_deep", "longread_sv"):
+        dense = cap.calls["tail:" + name][1][0]
+        host_accs[name] = HostPileupAccumulator(dense.shape[0])
+        host_accs[name].set_counts(dense.cpu().numpy())
     torch.cuda.synchronize()
     for what, route in (
             ("K1 route", lambda: pk.accumulate_rows(scratch, starts, packed)),
@@ -746,7 +965,15 @@ def sync_free(cap: Capture) -> None:
                f"{cap.calls['tail:' + name][1][9]})",
                lambda name=name: fused.vote_packed(
                    *cap.calls["tail:" + name][1]))
-              for name in ("longread_sv", "amplicon_deep"))):
+              for name in ("longread_sv", "amplicon_deep")),
+            *((f"host-count route on {name}'s tail (the narrowed counts' "
+               f"pinned upload, then vote_packed; "
+               f"{'K3' if name == 'longread_sv' else 'K2'})",
+               lambda name=name: host_tails.__setitem__(
+                   name, fused.vote_packed(
+                       host_accs[name].counts_on(counts.device),
+                       *cap.calls["tail:" + name][1][1:])))
+              for name in ("amplicon_deep", "longread_sv"))):
         torch.cuda.set_sync_debug_mode("error")
         try:
             route()
@@ -762,6 +989,15 @@ def sync_free(cap: Capture) -> None:
           f"max_abs_err={err}")
     if err:
         fail("the staged route's counts differ from the K1 route's")
+    for name, got in host_tails.items():
+        want = fused.vote_packed(*cap.calls["tail:" + name][1])
+        err = max_err(got, want)
+        print(f"  host-count route on {name}: upload dtype "
+              f"{host_accs[name].strategy_used['host_wire_dtype']} "
+              f"({host_accs[name].bytes_h2d} B), packed tail vs the int32 "
+              f"route's: max_abs_err={err}")
+        if err:
+            fail(f"the host-count route's tail differs on {name}")
 
 
 def staged_batch(counts, starts, packed):
@@ -862,7 +1098,9 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
     from sam2consensus_torch.ops import pileup_kernel as pk
     from sam2consensus_torch.ops.insertions import (build_insertion_table,
                                                     vote_insertions)
-    from sam2consensus_torch.ops.pileup import scatter_segments_packed
+    from sam2consensus_torch.ops.pileup import (expand_segment_positions,
+                                                scatter_segments_packed,
+                                                unpack_nibbles)
 
     rows = []
     # K1 at the largest slab; the timed calls accumulate into scratch
@@ -873,7 +1111,24 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
                                            packed), want)
     covered = int((want != 0).any(dim=1).sum())
     cells = int(want.sum())
-    del want
+    # the library call: one torch.bincount of the flat cell index, on the
+    # expanded operands alone and again with the expansion
+    pos, code = expand_segment_positions(starts, unpack_nibbles(packed))
+    flat = pos * 6 + code
+    size = counts.numel()
+    lib_err = compare("K1 (torch.bincount)", torch.bincount(
+        flat, minlength=size).view(counts.shape).to(torch.int32), want)
+    lib_ms = time_ms(lambda: torch.bincount(flat, minlength=size), 10)
+
+    def expanded_bincount():
+        p, c = expand_segment_positions(starts, unpack_nibbles(packed))
+        return torch.bincount(p * 6 + c, minlength=size)
+
+    lib_full_ms = time_ms(expanded_bincount, 10)
+    print(f"  K1 library: torch.bincount(pos * 6 + code) on the expanded "
+          f"operands ({flat.numel()} cells) {lib_ms:.4f} ms, with the "
+          f"expansion {lib_full_ms:.4f} ms, max_abs_err={lib_err}")
+    del want, pos, code, flat
     scratch = torch.zeros_like(counts)
     ms = kernel_ms(pk.K1, lambda: pk.accumulate_rows(scratch, starts, packed),
                    20)
@@ -887,7 +1142,7 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
     nbytes = n * (4 + wb) + 2 * covered * 6 * 4
     rows.append(("K1", pk.K1, "csrc/pileup.cu",
                  "sam2consensus_tpu/ops/pallas_pileup.py:86", err, ms, dev_ms,
-                 route, plain, None, nbytes, 10 * cells,
+                 route, plain, lib_ms, nbytes, 10 * cells,
                  f"{src_k1}: rows={n} width={2 * wb} L={counts.shape[0]} "
                  f"covered={covered} cells={cells}"))
 
@@ -1056,8 +1311,11 @@ def main() -> int:
         if missing:
             fail(f"kernels never launched on the main path: {missing}")
 
-        print("phase 8: the K1, K2 and K3 routes and both tails make no "
-              "host synchronisation")
+        print(f"host rates [{card}]")
+        host_rates(cap, card)
+
+        print("phase 8: the K1, K2 and K3 routes, both tails and the "
+              "host-count route make no host synchronisation")
         sync_free(cap)
 
         print(f"phase 9: NativeReadEncoder vs ReadEncoder at full size "

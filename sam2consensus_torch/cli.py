@@ -2,9 +2,11 @@
 
 Drop-in compatible with the reference CLI (reference
 ``sam2consensus.py:87-104``): the eight flags ``-i -c -n -o -p -m -f -d``
-keep their names, defaults and post-processing (``:108-138``), plus
-``--py2-compat``, ``--format``, ``--decode-threads`` and ``--decoder``;
-the progress messages match.  Input is SAM, gzip or BGZF SAM, or BAM,
+keep their names, defaults and post-processing (``:108-138``), plus the
+reference package's one-shot flags ``--py2-compat``, ``--permissive``,
+``--segment-width``, ``--quiet``, ``--format``, ``--pileup``,
+``--decode-threads``, ``--decoder`` and ``--chunk-reads``; the progress
+messages match.  Input is SAM, gzip or BGZF SAM, or BAM,
 sniffed by magic bytes (``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
 way to choose another device.
@@ -51,9 +53,23 @@ def build_parser() -> argparse.ArgumentParser:
     # config_from_args, so --py2-compat can detect an explicit -d
     p.add_argument("-d", "--maxdel", dest="maxdel", type=int, default=None,
                    help="ignore deletions longer than this; default=150")
+    p.add_argument("--segment-width", dest="segment_width", type=int,
+                   default=0,
+                   help="long-read segmented slab layout: reads whose "
+                        "reference span exceeds this split into "
+                        "W-wide segment rows (byte-exact; pileup "
+                        "addition commutes) instead of widening the "
+                        "slab bucket toward the span. 0 = auto "
+                        "(4096), negative = off, positive = explicit "
+                        "width (rounded up to a power of two)")
     p.add_argument("--py2-compat", action="store_true",
                    help="reproduce the reference's Python-2 maxdel quirk: any "
                         "explicit -d value disables deletion filtering")
+    p.add_argument("--permissive", action="store_true",
+                   help="skip-and-count malformed/out-of-contract records "
+                        "instead of erroring like the reference")
+    p.add_argument("--quiet", action="store_true",
+                   help="suppress progress output")
     # NOTE: long-form only — the reference already owns -f for --fill
     p.add_argument("--format", dest="input_format",
                    choices=["auto", "sam", "sam.gz", "bam"],
@@ -63,15 +79,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "inflated block-parallel on --decode-threads "
                         "workers) or BAM (block-parallel BGZF + binary "
                         "record decode, no SAM text materialized)")
+    p.add_argument("--pileup", choices=["auto", "pallas", "host"],
+                   default="auto",
+                   help="pileup strategy: pallas (the CUDA histogram "
+                        "kernel over the decoded rows), host (count in "
+                        "native code as the reads decode, ship the count "
+                        "tensor once; the tail then runs where the "
+                        "link-priced placement model says), or auto "
+                        "(default: host counts on genomes up to the "
+                        "bound measured on the card, else pallas; on "
+                        "the CPU device, with the native library, host "
+                        "counts at every genome size)")
     p.add_argument("--decode-threads", dest="decode_threads", type=int,
                    default=1,
-                   help="host worker threads for the BGZF block inflate "
-                        "(0 = auto: all cores)")
+                   help="host worker threads (multi-core hosts; 0 = auto, "
+                        "all cores): the shard-owned parallel SAM "
+                        "decode (fused host counts, or slabs for the "
+                        "device pileup), the BGZF block inflate AND the "
+                        "native C++ tail vote's position ranges")
     p.add_argument("--decoder", choices=["auto", "native", "py"],
                    default="auto",
                    help="host SAM decode path: the C++ decoder when "
                         "available (auto), required (native), or pure "
                         "python (py)")
+    p.add_argument("--chunk-reads", dest="chunk_reads", type=int,
+                   default=262144,
+                   help="reads per host->device batch of the python "
+                        "decoder")
     return p
 
 
@@ -106,10 +140,14 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         nchar=args.n,
         outfolder=normalize_outfolder(args.outfolder),
         backend="torch",
+        strict=not args.permissive,
         py2_compat=args.py2_compat,
         input_format=args.input_format,
+        segment_width=args.segment_width,
         decoder=args.decoder,
+        pileup=args.pileup,
         decode_threads=args.decode_threads,
+        chunk_reads=args.chunk_reads,
     )
 
 
@@ -124,7 +162,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     backend = TorchBackend(device)
-    echo = print
+    echo = (lambda *a, **k: None) if args.quiet else print
 
     echo("\nProcessing file " + args.filename + ":\n")
     progress = [0]

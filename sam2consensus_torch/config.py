@@ -4,9 +4,9 @@ Copy of ``RunConfig``, ``resolve_decode_threads``, ``default_prefix`` and
 ``normalize_outfolder`` from ``sam2consensus_tpu/config.py`` (field names
 kept, pinned by ``tests/test_torch_copies.py``).  The port honours
 ``thresholds, min_depth, fill, maxdel, prefix, nchar, outfolder, strict,
-py2_compat, input_format, segment_width, decoder, decode_threads,
-chunk_reads``; the other fields exist so a config built for the reference
-reads the same here.
+py2_compat, input_format, segment_width, decoder, pileup (auto, pallas or
+host), decode_threads, chunk_reads``; the other fields exist so a config
+built for the reference reads the same here.
 """
 
 from __future__ import annotations
@@ -72,8 +72,12 @@ class RunConfig:
 
 
 def resolve_decode_threads(cfg) -> int:
-    """``--decode-threads`` with 0 = auto (all cores): in the port it sizes
-    the BGZF inflate pool (``formats/bgzf.py`` on ``ingest.shared_pool``).
+    """``--decode-threads`` with 0 = auto (all cores): one policy shared by
+    the shard workers of the parallel SAM decoder
+    (``encoder/parallel_decode.py``), the native vote's position ranges
+    (``ops.vote.vote_positions_native``) and the BGZF inflate pool
+    (``formats/bgzf.py`` on ``ingest.shared_pool``).  The sharded
+    decoder's ``EXTRA_COUNTS_BUDGET`` clamps its workers on huge genomes.
     The reference's ``S2C_DECODE_THREADS_CAP`` environment cap is not
     copied."""
     threads = getattr(cfg, "decode_threads", 1)

@@ -79,6 +79,10 @@ class SegmentBatch:
     buckets: Dict[int, Tuple[np.ndarray, np.ndarray]]
     n_reads: int = 0
     n_events: int = 0          # countable (non-PAD) symbols in the batch
+    #: True when the fused decode path already counted this batch's cells
+    #: into the host count tensor (encoder/native_encoder.py): buckets are
+    #: empty and consumers must not count them again
+    accumulated: bool = False
     #: device-staged operands ``{w: ops.pileup.StagedRows or None}``
     #: placed on the decode prefetch thread (``PileupAccumulator.stage``;
     #: None for a bucket with no real row); empty on the CPU, where the

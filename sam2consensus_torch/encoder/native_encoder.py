@@ -1,15 +1,20 @@
 """Native-decode path: raw SAM text blocks -> SegmentBatch via the C++ core.
 
-Copy of the row path of ``sam2consensus_tpu/encoder/native_encoder.py``
-(``_line_end`` searches a growing window instead of a fixed 1 MiB one; it
-finds the same newline).  It wraps ``native/decoder.cpp`` (ctypes) with
-the orchestration the C side deliberately doesn't do:
+Copy of ``sam2consensus_tpu/encoder/native_encoder.py`` with two
+differences: ``_line_end`` searches a growing window instead of a fixed
+1 MiB one (it finds the same newline), and an overflow line that fits the
+width cap is decoded by the C decoder on its own, at a width that holds it
+(:meth:`NativeReadEncoder._native_line`), where the reference replays it
+in Python.  It wraps ``native/decoder.cpp`` (ctypes) with the
+orchestration the C side deliberately doesn't do:
 
 * buffer sizing/growth and resume-after-capacity (the C call commits whole
   lines and reports consumed bytes);
 * width adaptation: rows wider than the current bucket width W are reported
-  as overflow lines, fall back to the Python encoder for this block, and
-  double W for subsequent blocks when they stop being rare;
+  as overflow lines, decoded one by one (natively up to the width cap, the
+  segmented layout's W or 65,536 without it; past the cap by the Python
+  encoder, which segments them), and W doubles for subsequent blocks when
+  they stop being rare;
 * error parity: a line the C decoder flags is REPLAYED through the Python
   parser/encoder, so the exception type and message are identical to the
   pure-Python path (and if the replay disagrees and succeeds — e.g. exotic
@@ -17,13 +22,17 @@ the orchestration the C side deliberately doesn't do:
   fallback and decoding continues); a strict error carries the line's
   input offset (``ingest.badrecords.mark_offset``);
 * merging native row matrices with Python-fallback rows into one
-  power-of-two-padded SegmentBatch per slab.
+  power-of-two-padded SegmentBatch per slab;
+* the fused host count (``accumulate_into``, the host-counts pileup):
+  the C pass counts each committed row into a uint8 shadow with
+  saturation wraps banked as +256 in an int32 tensor, or, on genomes of
+  :func:`fused_direct_mode` size, straight into the int32 counts;
+  :meth:`NativeReadEncoder.merge_shadow` folds both (``s2c_merge_u8``).
+  Batches then carry only counters (``accumulated=True``).
 
-The reference's fused host-count mode (the C pass counting straight into a
-host pileup) is not ported: the port's pileup is on the device, so the C
-call always runs with fused counting off.  Equivalence with the Python
-encoder and with the reference's encoder is pinned by
-``tests/test_torch_native.py``.
+Equivalence with the Python encoder and with the reference's encoder is
+pinned by ``tests/test_torch_native.py`` and
+``tests/test_torch_hostcounts.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,31 @@ from .events import (EncodeError, GenomeLayout, MIN_BUCKET_W, ReadEncoder,
 
 def available() -> bool:
     return native.load() is not None
+
+
+def _count_row(lib, counts: np.ndarray, start: int, row: np.ndarray,
+               total_len: int) -> int:
+    """Count one replayed row into ``counts`` ([total_len, 6] int32) with
+    ``s2c_accumulate_rows`` (cells outside the genome skipped, as the
+    device pileup drops them); returns its countable cells."""
+    row = np.ascontiguousarray(row, dtype=np.uint8)
+    lib.s2c_accumulate_rows(np.array([start], dtype=np.int32), row, 1,
+                            len(row), counts.reshape(-1), total_len)
+    return int((row < 6).sum())
+
+
+#: genomes of at least this many positions count straight into the int32
+#: tensor (the reference's default; its ``S2C_FUSED_DIRECT_MIN_LEN``
+#: override is not copied)
+FUSED_DIRECT_MIN_LEN = 1 << 23
+
+
+def fused_direct_mode(total_len: int) -> bool:
+    """True when the fused count goes straight into the int32 tensor
+    (huge genomes: sparse per-line coverage, where the uint8 shadow's
+    L-proportional merge would dominate).  One definition shared by the
+    encoder and ``ParallelFusedDecoder``'s memory cap."""
+    return total_len >= FUSED_DIRECT_MIN_LEN
 
 
 def _line_end(data: np.ndarray, start: int) -> int:
@@ -72,7 +106,8 @@ class NativeReadEncoder:
 
     def __init__(self, layout: GenomeLayout, maxdel: Optional[int] = 150,
                  strict: bool = True, on_lines=None, on_bytes=None,
-                 segment_width: int = 0):
+                 accumulate_into: Optional[np.ndarray] = None,
+                 segment_width: int = 0, private_counts: bool = False):
         lib = native.load()
         if lib is None:  # pragma: no cover - callers check available()
             raise RuntimeError(f"native decoder unavailable: "
@@ -93,9 +128,62 @@ class NativeReadEncoder:
         self.width = min(self.FIRST_WIDTH, self._width_cap)
         self.on_lines = on_lines
         self.on_bytes = on_bytes
-        # fused host counting off: zero-length dummies for the C call
-        self._acc_u8 = np.zeros(6, dtype=np.uint8)
-        self._acc_ovf = np.zeros(6, dtype=np.int32)
+        # fused host count: the C decoder counts each committed row into
+        # a uint8 shadow (4x fewer cache lines than int32 on the random
+        # increments) with saturation wraps banked as +256 in an int32
+        # tensor; ``merge_shadow`` folds both into ``accumulate_into`` at
+        # stream end.  Rows become scratch and batches carry only
+        # counters.  Replayed (Python) reads count by
+        # ``s2c_accumulate_rows`` (:func:`_count_row`).
+        self._acc = accumulate_into
+        #: shard-worker mode (encoder/parallel_decode.py): counts stay in
+        #: this encoder's private shadow / bank until the coordinator
+        #: calls :meth:`merge_shadow` after the shard succeeded, so a
+        #: failed shard can be retried or the ingest demoted without the
+        #: shared tensor ever having been touched
+        self._private = bool(private_counts)
+        if accumulate_into is not None:
+            if accumulate_into.shape != (layout.total_len, 6) \
+                    or accumulate_into.dtype != np.int32 \
+                    or not accumulate_into.flags.c_contiguous:
+                raise ValueError("accumulate_into must be C-contiguous "
+                                 "int32 [total_len, 6]")
+            self._acc_flat = accumulate_into.reshape(-1)
+            self._acc_len = layout.total_len
+            # by genome size: the uint8 shadow wins at deep coverage but
+            # pays an L-proportional merge; huge genomes count straight
+            # into the int32 pileup (the C side's acc_ovf)
+            self._acc_direct = fused_direct_mode(layout.total_len)
+            if self._acc_direct:
+                self._acc_u8 = np.zeros(6, dtype=np.uint8)   # unused
+                # private direct mode: a full private int32 partition
+                # stands in for the shared tensor until merge time
+                self._acc_ovf = np.zeros(layout.total_len * 6,
+                                         dtype=np.int32) \
+                    if self._private else self._acc_flat
+            else:
+                # np.zeros -> calloc: the bank's pages only materialize
+                # where depth passes 255
+                self._acc_u8 = np.zeros(layout.total_len * 6,
+                                        dtype=np.uint8)
+                self._acc_ovf = np.zeros(layout.total_len * 6,
+                                         dtype=np.int32)
+            # where replayed lines count: the shared tensor, or the
+            # private int32 bank / partition in shard-worker mode
+            self._fb_acc = self._acc if not self._private \
+                else self._acc_ovf.reshape(layout.total_len, 6)
+        else:
+            # fused count off: zero-length dummies for the C call
+            self._acc_direct = False
+            self._acc_flat = np.zeros(6, dtype=np.int32)
+            self._acc_u8 = np.zeros(6, dtype=np.uint8)
+            self._acc_ovf = np.zeros(6, dtype=np.int32)
+            self._acc_len = 0
+            self._fb_acc = None
+        #: saturation wraps the C side banked into ``_acc_ovf`` since the
+        #: last merge: 0 means the bank is all zeros and its fold can be
+        #: skipped
+        self._banked = 0
         # python twin for overflow/error-replay fallback; shares counters
         # and the insertion store so fallback reads land in the same place
         self._py = ReadEncoder(layout, maxdel=maxdel, strict=strict,
@@ -110,6 +198,12 @@ class NativeReadEncoder:
         self._name_off = name_off
         self._ctg_offset = layout.offsets[:-1].astype(np.int64).copy()
         self._ctg_len = layout.lengths.astype(np.int64).copy()
+
+    @property
+    def counts_fused(self) -> bool:
+        """True when counting rides the decode pass: batches are
+        counters-only and the backend's consumer loop is stats-only."""
+        return self._acc is not None
 
     @property
     def n_reads(self) -> int:
@@ -179,13 +273,18 @@ class NativeReadEncoder:
                     ich, chars_cap,
                     ovf, ovf_cap,
                     out,
-                    self._acc_u8, self._acc_ovf, 0, 0)
+                    self._acc_u8, self._acc_ovf, self._acc_len,
+                    1 if self._acc_direct else 0)
 
                 (n_rows, n_reads, n_skipped, consumed, n_ins, n_chars,
                  status, _err_off, n_events, n_lines, n_overflow,
                  _max_span) = out[:12]
+                self._banked += int(out[12])
 
-                self._fill = fill + int(n_rows)
+                # fused count: the rows were counted inside the C pass; the
+                # slab is scratch, reused from the top
+                self._fill = 0 if self._acc is not None \
+                    else fill + int(n_rows)
                 if n_ins:
                     self.insertions.array_chunks.append(
                         (ic[:n_ins].copy(), il[:n_ins].copy(),
@@ -196,8 +295,20 @@ class NativeReadEncoder:
                 self._batch_events += int(n_events)
                 self._count_lines(int(n_lines))
 
-                # overflow lines (span > width): python fallback, whole read
+                # overflow lines (span > width): decoded natively one by
+                # one at a width that holds them when the width cap allows
+                # it, else through the python fallback, whole read.  After
+                # the first line the C decoder does not take, the rest of
+                # the call's lines go straight to the fallback (under the
+                # segmented layout a long read never fits the cap)
+                wide = min(self._width_cap,
+                           _bucket_width(max(1, int(_max_span))))
+                native_lines = wide > self._slab_w
                 for k in range(int(n_overflow)):
+                    if native_lines:
+                        if self._native_line(chunk, int(ovf[k]), wide):
+                            continue
+                        native_lines = False
                     self._fallback_line(
                         chunk, int(ovf[k]),
                         abs_off=None if base is None
@@ -243,10 +354,96 @@ class NativeReadEncoder:
                         ovf_cap *= 2
                     # else: per-call insertion buffers were the constraint;
                     # they were copied out above, so just keep going
+            if self._acc is not None and self._batch_reads:
+                # fused count: the slab never fills (it is scratch), so a
+                # counters-only batch per text block keeps stats ticking
+                batch = self._flush()
+                if batch is not None:
+                    yield batch
 
+        if not self._private:
+            # shard workers leave the merge to the coordinator (after
+            # every shard succeeded); everyone else folds at stream end
+            self.merge_shadow()
         batch = self._flush()
         if batch is not None:
             yield batch
+
+    def _native_line(self, data: np.ndarray, start: int, width: int) -> bool:
+        """Decode the one overflow line at ``start`` with the C decoder at
+        ``width`` into a two-row scratch slab whose rows join the pending
+        batch like the python fallback's (or, under the fused count, are
+        counted in the C pass).  The line was already counted as a line and
+        as bytes by the call that reported it.  Returns False, having
+        committed nothing, when the line does not fit ``width`` or the C
+        decoder flags it: the python fallback then replays it."""
+        line = data[start:min(_line_end(data, start) + 1, len(data))]
+        starts = np.zeros(2, dtype=np.int32)
+        codes = np.full((2, width), PAD_CODE, dtype=np.uint8)
+        out = np.zeros(16, dtype=np.int64)
+        ovf = np.empty(1, dtype=np.int64)
+        ins_cap, chars_cap = 1 << 12, 1 << 16
+        while True:
+            ic = np.empty(ins_cap, dtype=np.int32)
+            il = np.empty(ins_cap, dtype=np.int32)
+            im = np.empty(ins_cap, dtype=np.int32)
+            ich = np.empty(chars_cap, dtype=np.uint8)
+            self._lib.s2c_decode(
+                line, len(line),
+                self._names, self._name_off, len(self._ctg_len),
+                self._ctg_offset, self._ctg_len,
+                -1 if self.maxdel is None else self.maxdel,
+                self._c_strict, width, starts, codes, 2,
+                ic, il, im, ins_cap, ich, chars_cap, ovf, 1, out,
+                self._acc_u8, self._acc_ovf, self._acc_len,
+                1 if self._acc_direct else 0)
+            (n_rows, n_reads, n_skipped, consumed, n_ins, n_chars, status,
+             _err, n_events, _lines, n_overflow, _span) = out[:12]
+            if status == 1 and consumed == 0 and not n_overflow:
+                ins_cap *= 2          # the line's insertions overran
+                chars_cap *= 2
+                continue
+            break
+        if status == 2 or n_overflow or consumed == 0:
+            return False
+        self._banked += int(out[12])
+        if n_ins:
+            self.insertions.array_chunks.append(
+                (ic[:n_ins].copy(), il[:n_ins].copy(), im[:n_ins].copy(),
+                 ich[:n_chars].copy()))
+        self._py.n_reads += int(n_reads)
+        self._py.n_skipped += int(n_skipped)
+        self._batch_reads += int(n_reads)
+        self._batch_events += int(n_events)
+        if self._acc is None:
+            for r in range(int(n_rows)):
+                self._fallback_rows.append((int(starts[r]), codes[r]))
+        return True
+
+    def merge_shadow(self) -> None:
+        """Fold the C decoder's uint8 shadow counts and overflow bank into
+        the int32 pileup, then reset both (idempotent; exact: cell + bank
+        always equals the true count).  Direct-mode runs counted straight
+        into the pileup: nothing to merge, except a shard worker's private
+        partition.  The shadow fold is one C pass (``s2c_merge_u8``: SIMD
+        widen-add and clear, zero blocks skipped); the bank is folded only
+        when the decoder banked a saturation wrap."""
+        if self._acc is None:
+            return
+        if self._acc_direct:
+            if not self._private:
+                return          # counts went straight into the pileup
+            # private direct partition: one widen-add into the shared
+            # tensor (the coordinator serialises these across workers)
+            np.add(self._acc_flat, self._acc_ovf, out=self._acc_flat)
+            self._acc_ovf[:] = 0
+            return
+        self._lib.s2c_merge_u8(self._acc_flat, self._acc_u8,
+                               self._acc_len * 6)
+        if self._banked:
+            np.add(self._acc_flat, self._acc_ovf, out=self._acc_flat)
+            self._acc_ovf[:] = 0
+            self._banked = 0
 
     def encode_blocks_from(self, stream) -> Iterator[SegmentBatch]:
         """``encode_blocks`` over a ReadStream, tracking each block's
@@ -320,9 +517,22 @@ class NativeReadEncoder:
             self._py.n_reads += 1
             self._batch_reads += 1
             for start_flat, row in rows:
-                self._fallback_rows.append((start_flat, row))
-                self._batch_events += (len(row)
-                                       - int((row == PAD_CODE).sum()))
+                if self._acc is not None:
+                    # fused count: count the replayed row now, in C (into
+                    # the private bank in shard-worker mode, so the shared
+                    # tensor stays untouched until the merge; the bank is
+                    # exact, so marking it dirty folds it like a wrap).
+                    # The reference counts it with np.add.at, several
+                    # times slower on long reads.
+                    n_cols = _count_row(self._lib, self._fb_acc, start_flat,
+                                        row, self._acc_len)
+                    if self._private and not self._acc_direct and n_cols:
+                        self._banked += 1
+                    self._batch_events += n_cols
+                else:
+                    self._fallback_rows.append((start_flat, row))
+                    self._batch_events += (len(row)
+                                           - int((row == PAD_CODE).sum()))
 
     def _build_batch(self, native_parts, fallback_rows, n_reads, n_events
                      ) -> Optional[SegmentBatch]:
@@ -369,4 +579,5 @@ class NativeReadEncoder:
         if not buckets and n_reads == 0:
             return None
         return SegmentBatch(buckets=buckets, n_reads=n_reads,
-                            n_events=n_events)
+                            n_events=n_events,
+                            accumulated=self._acc is not None)

@@ -3,9 +3,8 @@
 Copy of ``sam2consensus_tpu/formats/bam.py`` (pinned by
 ``tests/test_torch_copies.py`` and ``tests/test_torch_formats.py``), strict
 decode only: the reference's tolerant hooks (``bad_sink``, ``on_bad``,
-``collect_bad``), its checkpoint-resume record skip (``skip_to``,
-``skip_lines``) and the fused host-count mode of the native lane are not
-ported.
+``collect_bad``) and its checkpoint-resume record skip (``skip_to``,
+``skip_lines``) are not ported.
 
 BAM (SAM spec §4) is the binary twin of SAM inside a BGZF container
 (``formats/bgzf.py``): records carry CIGAR as packed ``u32`` ops and SEQ as
@@ -16,7 +15,8 @@ with zero CIGAR ops is the binary form of ``CIGAR == "*"`` and is skipped
 the same way).  Two encoders:
 
 * :class:`NativeBamEncoder`: the C++ record decoder (``s2c_decode_bam``)
-  on the row path of ``encoder.native_encoder.NativeReadEncoder``;
+  on the row path of ``encoder.native_encoder.NativeReadEncoder``, or on
+  its fused host count under ``--pileup host``;
 * :class:`BamSegmentEncoder` (``--decoder py``): a vectorized numpy fast
   lane for single-op ``M`` reads, and every other record replayed through
   the Python :class:`~..encoder.events.ReadEncoder`, which owns
@@ -34,7 +34,7 @@ import numpy as np
 from ..constants import PAD_CODE
 from ..core.cigar import BAM_OPS as CIGAR_OPS
 from ..core.cigar import render_ops
-from ..encoder.native_encoder import NativeReadEncoder
+from ..encoder.native_encoder import NativeReadEncoder, _count_row
 from ..io.sam import Contig
 
 BAM_MAGIC = b"BAM\x01"
@@ -330,21 +330,26 @@ class BamReadStream:
         """Mapped records in file order."""
         yield from self._reader()
 
-    def make_encoder(self, layout, cfg):
+    def make_encoder(self, layout, cfg, acc=None):
         """``(encoder, batch iterator)`` for this stream: the C++ record
         decoder (:class:`NativeBamEncoder`) when the library loads and
-        ``cfg.decoder`` is not ``py``; ``--decoder native`` raises without
-        it; else the pure-Python :class:`BamSegmentEncoder`."""
+        ``cfg.decoder`` is not ``py``, counting straight into the host
+        counts when ``acc`` is a ``HostPileupAccumulator``; ``--decoder
+        native`` raises without it; else the pure-Python
+        :class:`BamSegmentEncoder`."""
         from .. import native as _native
         from ..encoder.events import resolve_segment_width
+        from ..ops.pileup import HostPileupAccumulator
 
         decoder = getattr(cfg, "decoder", "auto")
         lib = _native.load() if decoder != "py" else None
         if lib is not None and hasattr(lib, "s2c_decode_bam"):
+            fuse = isinstance(acc, HostPileupAccumulator)
             enc = NativeBamEncoder(
                 layout, self, maxdel=cfg.maxdel, strict=cfg.strict,
                 segment_width=resolve_segment_width(
-                    getattr(cfg, "segment_width", 0)))
+                    getattr(cfg, "segment_width", 0)),
+                accumulate_into=acc.counts_host() if fuse else None)
             return enc, enc.encode_batches()
         if decoder == "native":
             raise RuntimeError(
@@ -567,7 +572,8 @@ class NativeBamEncoder(NativeReadEncoder):
 
     A :class:`~..encoder.native_encoder.NativeReadEncoder` whose byte feed
     is whole BAM records instead of text lines: slab persistence, width
-    adaptation, the Python twin and batch assembly are inherited, with
+    adaptation, the fused host count, the Python twin and batch assembly
+    are inherited, with
     ``s2c_decode_bam`` doing the per-record work and three replay lanes
     handled here:
 
@@ -586,10 +592,11 @@ class NativeBamEncoder(NativeReadEncoder):
 
     def __init__(self, layout, stream: BamReadStream,
                  maxdel: Optional[int] = 150, strict: bool = True,
-                 segment_width: int = 0):
+                 segment_width: int = 0, accumulate_into=None):
         super().__init__(layout, maxdel=maxdel, strict=strict,
                          on_lines=stream.add_lines,
                          on_bytes=stream.add_bytes,
+                         accumulate_into=accumulate_into,
                          segment_width=segment_width)
         self.stream = stream
         ci = []
@@ -658,13 +665,16 @@ class NativeBamEncoder(NativeReadEncoder):
                     ich, chars_cap,
                     ovf, ovf_cap,
                     out,
-                    self._acc_u8, self._acc_ovf, 0, 0)
+                    self._acc_u8, self._acc_ovf, self._acc_len,
+                    1 if self._acc_direct else 0)
 
                 (n_rows, n_reads, n_skipped, consumed, n_ins, n_chars,
                  status, _err_off, n_events, n_lines, n_overflow,
                  _max_span) = out[:12]
+                self._banked += int(out[12])
 
-                self._fill = fill + int(n_rows)
+                self._fill = 0 if self._acc is not None \
+                    else fill + int(n_rows)
                 if n_ins:
                     self.insertions.array_chunks.append(
                         (ic[:n_ins].copy(), il[:n_ins].copy(),
@@ -746,7 +756,12 @@ class NativeBamEncoder(NativeReadEncoder):
                 raise BamParseError(
                     f"BAM stream ends mid-record at offset {stream_off} "
                     f"({len(pending)} dangling bytes)", stream_off)
+            if self._acc is not None and self._batch_reads:
+                batch = self._flush()
+                if batch is not None:
+                    yield batch
 
+        self.merge_shadow()
         batch = self._flush()
         if batch is not None:
             yield batch
@@ -804,8 +819,13 @@ class NativeBamEncoder(NativeReadEncoder):
         self._py.n_reads += 1
         self._batch_reads += 1
         for start_flat, row in rows:
-            self._fallback_rows.append((start_flat, row))
-            self._batch_events += (len(row) - int((row == PAD_CODE).sum()))
+            if self._acc is not None:
+                self._batch_events += _count_row(
+                    self._lib, self._acc, start_flat, row, self._acc_len)
+            else:
+                self._fallback_rows.append((start_flat, row))
+                self._batch_events += (len(row)
+                                       - int((row == PAD_CODE).sum()))
         return rec_len
 
 

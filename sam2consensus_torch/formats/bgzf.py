@@ -410,6 +410,25 @@ class BgzfReader(io.RawIOBase):
         super().close()
 
 
+def inflated_bytes(reader: BgzfReader, cap: Optional[int] = None) -> int:
+    """Decompressed bytes of ``reader``'s blocks, from each block's ISIZE
+    field (its last four bytes), without inflating any; the count stops
+    once it passes ``cap``.  Not in the reference: the port's host-counts
+    gate sizes its input with it."""
+    total = 0
+    for off, length in reader.blocks:
+        if reader._fd is not None:
+            tail = os.pread(reader._fd, 4, off + length - 4)
+        else:
+            with reader._read_lock:
+                reader._fh.seek(off + length - 4)
+                tail = reader._fh.read(4)
+        total += struct.unpack("<I", tail)[0]
+        if cap is not None and total > cap:
+            break
+    return total
+
+
 # -- writer (fixtures/tools; the reader is the hot path) -------------------
 def compress_block(udata: bytes, level: int = 6) -> bytes:
     """One complete BGZF block for ≤``MAX_BLOCK_UDATA`` bytes of input."""

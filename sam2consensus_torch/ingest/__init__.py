@@ -1,16 +1,119 @@
-"""The process-wide inflate pool of the BGZF readers.
+"""Sharded ingest: byte-range planning and the shared inflate pool.
 
-Copy of ``shared_pool`` and ``pool_submit`` from
-``sam2consensus_tpu/ingest/__init__.py`` (pinned by
-``tests/test_torch_copies.py``).  Every ``formats.bgzf.BgzfReader`` with
-``threads > 1`` inflates its stripes on this one pool, sized by the run's
-``--decode-threads`` (``config.resolve_decode_threads``).  The byte-shard
-planner of the reference's sharded decoder is not ported.
+Copy of ``sam2consensus_tpu/ingest/__init__.py`` (pinned by
+``tests/test_torch_copies.py`` and ``tests/test_torch_parallel_decode.py``):
+
+* :func:`plan_byte_shards` splits a record-oriented byte buffer into
+  line-snapped ranges, so N decode workers
+  (``encoder/parallel_decode.py``) own N disjoint ranges with no feed
+  thread and no line straddling two workers.  A line belongs to the shard
+  holding its first byte: an interior cut moves to one past the next
+  newline at or after ``cut - 1``;
+* :func:`shared_pool` is the process-wide inflate executor of the BGZF
+  readers, sized by the run's ``--decode-threads``
+  (``config.resolve_decode_threads``), the one thread budget shared by
+  the shard workers, the BGZF stripes and the native vote.
+
+The shard decoder's counters (``ingest_shards``, ``ingest_worker_sec``,
+``ingest_fallback``, ``ingest_shard_retries``, ``ingest_demoted``,
+``ingest_mode``) land in the run's ``stats.extra``.
 """
 
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass, field
+from typing import List, Tuple
+
+#: default floor on shard size: below this, per-shard fixed costs
+#: (encoder construction, thread spawn, final-slab padding) dominate and
+#: the serial path is faster anyway
+DEFAULT_MIN_SHARD_BYTES = 1 << 20
+
+
+def snap_line_start(data, pos: int, start: int, end: int) -> int:
+    """Advance ``pos`` to the nearest line start at or after it.
+
+    ``data`` is any buffer with ``find`` (mmap, bytes).  The probe looks
+    at ``pos - 1``: if that byte is a newline the cut already sits on a
+    line start and stays; otherwise it moves one past the newline ending
+    the line that holds ``pos``.  Returns ``end`` when no newline remains
+    (the tail is one unterminated line of the previous shard).
+    """
+    if pos <= start:
+        return start
+    if pos >= end:
+        return end
+    nl = data.find(b"\n", pos - 1, end)
+    return end if nl < 0 else nl + 1
+
+
+def plan_byte_shards(data, start: int, end: int, n_shards: int,
+                     min_bytes: int = DEFAULT_MIN_SHARD_BYTES
+                     ) -> List[Tuple[int, int]]:
+    """Line-snapped byte ranges ``[(lo, hi), ...]`` tiling
+    ``data[start:end]`` exactly.
+
+    At most ``n_shards`` ranges, each (before snapping) at least
+    ``min_bytes`` long.  Ranges are disjoint, ordered and non-empty, and
+    every line starts in exactly one range (a CRLF's ``\\r`` travels with
+    its line, an unterminated tail belongs to the last range).  A range
+    that snapping empties is dropped, so fewer ranges than asked for can
+    come back, and none for an empty body.
+    """
+    size = end - start
+    if size <= 0:
+        return []
+    n = max(1, min(int(n_shards), size // max(1, int(min_bytes)) or 1))
+    bounds = _snap_bounds(data, start, end, n)
+    ranges: List[Tuple[int, int]] = []
+    prev = start
+    for b in bounds[1:]:
+        if b > prev:
+            ranges.append((prev, b))
+            prev = b
+    return ranges
+
+
+def _snap_bounds(data, start: int, end: int, n: int) -> List[int]:
+    """All n+1 snapped boundaries, through the native one-pass snapper
+    (``s2c_snap_shards``) when the decoder library loads; the Python loop
+    below is its twin."""
+    from .. import native
+
+    lib = native.load()
+    if lib is not None:
+        import numpy as np
+
+        buf = np.frombuffer(data, dtype=np.uint8) \
+            if not isinstance(data, np.ndarray) else data
+        out = np.empty(n + 1, dtype=np.int64)
+        lib.s2c_snap_shards(buf, start, end, n, out)
+        return [int(b) for b in out]
+    bounds = [start]
+    for k in range(1, n):
+        bounds.append(snap_line_start(data, start + (end - start) * k // n,
+                                      start, end))
+    bounds.append(end)
+    return bounds
+
+
+@dataclass
+class ShardPlan:
+    """A byte-sharded input: the backing buffer (an ``mmap`` of the file)
+    and the line-snapped ranges the decode workers own; workers slice
+    ``memoryview`` windows off it, zero-copy down to the C decoder."""
+
+    data: object
+    ranges: List[Tuple[int, int]] = field(default_factory=list)
+    start: int = 0
+    end: int = 0
+    source: str = "mmap"
+
+    @property
+    def nbytes(self) -> int:
+        return max(0, self.end - self.start)
+
 
 _pool = None
 _pool_workers = 0

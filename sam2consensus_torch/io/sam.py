@@ -8,7 +8,9 @@
 * record pass keeping lines whose CIGAR is not ``"*"`` and using RNAME,
   0-based POS, CIGAR and SEQ (``sam2consensus.py:195-206``);
 * :class:`ReadStream`, one pass over the body as parsed records (the
-  Python encoder) or as raw blocks of whole lines (the native decoder).
+  Python encoder), as raw blocks of whole lines (the native decoder), or
+  as a byte-shard plan of an mmapped file (the sharded decoder).
+  ``skip_to`` and ``skip_lines`` (checkpoint resume) are not ported.
 """
 
 from __future__ import annotations
@@ -146,6 +148,43 @@ class ReadStream:
     def add_bytes(self, k: int) -> None:
         if k:
             self.n_bytes += k
+
+    def shard_plan(self, n_shards: int, min_bytes: Optional[int] = None):
+        """Byte-range shard plan over the remaining body, or None.
+
+        A plain uncompressed binary file is mmapped and split into
+        line-snapped ranges (``ingest.plan_byte_shards``) that the sharded
+        decoder's workers own outright.  Gzip streams (compressed bytes do
+        not split) and text or in-memory handles return None: the caller
+        takes the streaming rung.
+
+        A plan consumes the stream (the handle seeks to EOF and a buffered
+        first line is dropped: its bytes are read again from the map), so
+        plan once, and only when committing to the shard rung.  Lines and
+        bytes are still reported through ``add_lines`` / ``add_bytes`` by
+        the decoder.
+        """
+        if n_shards <= 1:
+            return None
+        mm = self._mmap_body()
+        if mm is None:
+            return None
+        from .. import ingest
+
+        if self.first:
+            if self._body_start is None:
+                return None       # cannot locate the buffered line
+            start = self._body_start
+            self.first = ""
+        else:
+            start = self.handle.tell()
+        kwargs = {} if min_bytes is None else {"min_bytes": min_bytes}
+        ranges = ingest.plan_byte_shards(mm, start, len(mm), n_shards,
+                                         **kwargs)
+        # leave the handle where the content ended, as read() would
+        self.handle.seek(len(mm))
+        return ingest.ShardPlan(data=mm, ranges=ranges, start=start,
+                                end=len(mm))
 
     def records(self) -> Iterator[SamRecord]:
         """Parsed mapped records, counting every body line."""

@@ -2,14 +2,19 @@
 through ctypes.
 
 Copy of ``sam2consensus_tpu/native/__init__.py`` (the same flags and the
-same build-cache key, pinned by ``tests/test_torch_native.py``), with two
-differences: the shared object is built into ``build/torch_native/`` at
-the root of the checkout rather than next to the source, and only
-``s2c_decode`` (SAM text) and ``s2c_decode_bam`` (BAM records) are bound
-(the file's other exports serve paths the port does not have yet).  The boundary is a plain C ABI with NumPy-owned
-buffers; ctypes releases the GIL for the call, so a decode thread overlaps
-the consumer's work.  ``load()`` returns ``None`` when the library cannot
-be built or loaded, and ``load_error()`` says why.
+same build-cache key, pinned by ``tests/test_torch_native.py``), with one
+difference: the shared object is built into ``build/torch_native/`` at
+the root of the checkout rather than next to the source.  Every export
+the port's paths call is bound: the decoders (``s2c_decode`` for SAM
+text, ``s2c_decode_bam`` for BAM records, both with the fused host
+count), the host-count helpers (``s2c_accumulate_rows``,
+``s2c_merge_u8``), the shard snapper (``s2c_snap_shards``) and the native
+tail (``s2c_vote``, ``s2c_cov_sums``, ``s2c_ins_table``,
+``s2c_ins_vote``, ``s2c_finalize``).  The boundary is a plain C ABI with
+NumPy-owned buffers; ctypes releases the GIL for the call, so decode
+threads overlap each other and the consumer's work.  ``load()`` returns
+``None`` when the library cannot be built or loaded, and
+``load_error()`` says why.
 """
 
 from __future__ import annotations
@@ -118,6 +123,52 @@ def load() -> Optional[ctypes.CDLL]:
         i64p,                                  # out stats
         u8p, i32p, ctypes.c_int64,             # fused pileup (as s2c_decode)
         ctypes.c_long,                         # direct int32 mode flag
+    ]
+    lib.s2c_accumulate_rows.restype = None
+    lib.s2c_accumulate_rows.argtypes = [
+        i32p, u8p,                             # starts, codes
+        ctypes.c_long, ctypes.c_long,          # n_rows, width
+        i32p, ctypes.c_long,                   # counts [L*6], total_len
+    ]
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.s2c_ins_table.restype = None
+    lib.s2c_ins_table.argtypes = [
+        i32p, i32p, i32p, ctypes.c_long,       # ev key/col/code, n_events
+        i32p, ctypes.c_long,                   # table [K*C*6], C
+    ]
+    lib.s2c_ins_vote.restype = None
+    lib.s2c_ins_vote.argtypes = [
+        i32p, ctypes.c_long, ctypes.c_long,    # table, K, C
+        i32p, i32p,                            # site_cov, n_cols
+        f64p, ctypes.c_long,                   # thresholds, T
+        u8p, u8p,                              # lut64, out [T*K*C]
+    ]
+    lib.s2c_merge_u8.restype = None
+    lib.s2c_merge_u8.argtypes = [
+        i32p, u8p, ctypes.c_int64,             # acc [n], u8 shadow [n], n
+    ]
+    lib.s2c_snap_shards.restype = None
+    lib.s2c_snap_shards.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64,   # text, start, end
+        ctypes.c_long, i64p,                   # n_shards, bounds [n+1]
+    ]
+    lib.s2c_cov_sums.restype = None
+    lib.s2c_cov_sums.argtypes = [
+        i32p, i64p,                            # cov [L], offsets [C+1]
+        ctypes.c_long, i64p,                   # n_contigs, out sums [C]
+    ]
+    lib.s2c_finalize.restype = ctypes.c_int64  # returns '-' count
+    lib.s2c_finalize.argtypes = [
+        u8p, ctypes.c_int64,                   # syms [n] (0 = fill), n
+        ctypes.c_long, u8p,                    # fill char, out ascii [n]
+    ]
+    lib.s2c_vote.restype = None
+    lib.s2c_vote.argtypes = [
+        i32p, ctypes.c_int64,                  # counts [L*6], L
+        f64p, ctypes.c_long, ctypes.c_long,    # thresholds, T, min_depth
+        u8p,                                   # 64-entry mask->byte LUT
+        u8p, i32p,                             # out syms [T*L], out cov [L]
+        ctypes.c_long,                         # worker threads
     ]
     _lib = lib
     return _lib

@@ -10,12 +10,16 @@ negative (quirk 4) — and the greedy vote runs with the SITE's cutoff
 :func:`build_insertion_table` is the plain version of the table kernel
 (K3, ``ops/insertion_kernel.py``); :func:`vote_insertions` after it is the
 plain version of the fused table + vote kernel (K2).
+:func:`insertion_tail_host` is the whole insertion tail on the host, for a
+tail placed there: the C++ ``s2c_ins_table`` and ``s2c_ins_vote``, or their
+numpy twins without the library.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .cutoff import exact_cutoff
@@ -64,3 +68,75 @@ def vote_insertions(table: torch.Tensor, site_cov: torch.Tensor,
         skip = (syms == ord("-")) | ~valid
         rows.append(torch.where(skip, FILL_SENTINEL, syms))
     return torch.stack(rows)
+
+
+def insertion_tail_host(kp: int, cp: int, ev_key: np.ndarray,
+                        ev_col: np.ndarray, ev_code: np.ndarray,
+                        site_cov: np.ndarray, n_cols: np.ndarray,
+                        thresholds, k_valid: int) -> np.ndarray:
+    """Copy: the whole insertion tail (table build and vote) on the host,
+    for a tail placed on the CPU with the native vote: the C++ twin when
+    the library loads, the numpy twins otherwise.  Returns uint8
+    ``[T, k_valid, cp]``."""
+    from .. import native
+
+    lib = native.load()
+    if lib is not None and k_valid > 0:
+        from ..constants import IUPAC_MASK_LUT
+
+        table = np.zeros(kp * cp * 6, dtype=np.int32)
+        lib.s2c_ins_table(
+            np.ascontiguousarray(ev_key, np.int32),
+            np.ascontiguousarray(ev_col, np.int32),
+            np.ascontiguousarray(ev_code, np.int32),
+            len(ev_key), table, cp)
+        out = np.empty(len(thresholds) * k_valid * cp, dtype=np.uint8)
+        lib.s2c_ins_vote(
+            table, k_valid, cp,
+            np.ascontiguousarray(site_cov[:k_valid], np.int32),
+            np.ascontiguousarray(n_cols[:k_valid], np.int32),
+            np.asarray(thresholds, np.float64), len(thresholds),
+            IUPAC_MASK_LUT, out)
+        return out.reshape(len(thresholds), k_valid, cp)
+    table = build_insertion_table_host(kp, cp, ev_key, ev_col, ev_code)
+    return vote_insertions_host(table[:k_valid], site_cov[:k_valid],
+                                n_cols[:k_valid], thresholds)
+
+
+def build_insertion_table_host(kp: int, cp: int, ev_key: np.ndarray,
+                               ev_col: np.ndarray,
+                               ev_code: np.ndarray) -> np.ndarray:
+    """Copy: numpy twin of :func:`build_insertion_table`, one bincount
+    over the flattened event indices."""
+    idx = (ev_key.astype(np.int64) * cp + ev_col) * 6 + ev_code
+    return np.bincount(idx, minlength=kp * cp * 6).astype(
+        np.int32).reshape(kp, cp, 6)
+
+
+def vote_insertions_host(table: np.ndarray, site_cov: np.ndarray,
+                         n_cols: np.ndarray, thresholds) -> np.ndarray:
+    """Copy: numpy twin of :func:`vote_insertions` (the same greedy
+    semantics; the host has float64, so ``ceil(t * cov)`` is computed
+    directly)."""
+    from ..constants import IUPAC_MASK_LUT as _lut
+
+    k, cp = table.shape[0], table.shape[1]
+    completed = table.copy()
+    completed[:, :, 0] = site_cov[:, None] - table.sum(axis=-1)  # quirk 4
+    sgs = np.zeros(completed.shape, dtype=np.int32)       # [K, C, 6]
+    for j in range(6):
+        cj = completed[:, :, j:j + 1]
+        sgs += cj * (cj > completed)
+    nonzero = completed != 0
+    bits = (1 << np.arange(6, dtype=np.int32))
+    valid = np.arange(cp, dtype=np.int32)[None, :] < n_cols[:, None]
+    out = np.empty((len(thresholds), k, cp), dtype=np.uint8)
+    cov64 = site_cov.astype(np.float64)
+    for ti, t in enumerate(thresholds):
+        cutoff = np.ceil(np.float64(t) * cov64)           # [K]
+        included = nonzero & (sgs < cutoff[:, None, None])
+        mask = (included * bits).sum(axis=-1)             # [K, C]
+        syms = _lut[mask]
+        skip = (syms == ord("-")) | ~valid
+        out[ti] = np.where(skip, np.uint8(FILL_SENTINEL), syms)
+    return out

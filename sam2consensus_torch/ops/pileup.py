@@ -10,10 +10,18 @@ and runs the histogram kernel (K1, ``ops/pileup_kernel.py``).  On the CPU
 ``add`` packs with numpy (:func:`pack_nibbles`) and runs K1's plain
 PyTorch version :func:`scatter_segments_packed`.  The count tensor is
 updated in place (no second ``[L, 6]`` buffer per slab).
+
+:class:`HostPileupAccumulator` is the other strategy (``--pileup host``):
+the counts accumulate on the host, in the C++ decode pass itself
+(``encoder.native_encoder``'s fused count) or by ``s2c_accumulate_rows``,
+and cross to the card once, narrowed to the smallest dtype that holds
+them.  :func:`host_pileup_bound` is the ``--pileup auto`` gate between
+the two.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -242,3 +250,165 @@ class PileupAccumulator:
     def counts(self) -> torch.Tensor:
         """Valid counts, ``[total_len, 6]`` (tile pad rows dropped)."""
         return self._counts[: self.total_len]
+
+
+# The gate's tables were measured by ``perf/host_gate_sweep.py`` on an
+# NVIDIA H100 80GB HBM3 at a 700 W power limit, with its 8-core host: 100
+# bp reads with qualities (2.32 bytes of SAM an aligned base), sorted and
+# random order, 400 bp to 4.6 Mbp at 10x-10000x, nine runs on nine
+# machines (``perf/host_gate_sweep_pr7_run{4..12}.log``, combined by the
+# script's ``--combine`` into ``perf/host_gate_sweep_pr7_combined.log``).
+# The host's count costs grow with the aligned bases and slow as the
+# genome outgrows the host's caches, while the device pileup's costs past
+# the decode are mostly fixed (5-10 ms): so the bound on the input's bytes
+# (a proxy for its aligned bases) depends on the genome's length.  An
+# entry is a length and the largest SAM body at which the median over the
+# runs of the host counts' wall less the device pileup's was below zero in
+# both read orders (below the smallest losing body, and no larger than the
+# bound of a shorter genome that lost somewhere).
+#: ``--pileup auto`` takes the host counts on a genome of at most
+#: ``length`` positions whose input holds at most ``bytes`` decompressed
+#: bytes, reading the first entry whose length covers the genome (a
+#: shorter genome's count is no slower): up to 1 kbp 23.2 MB (the largest
+#: measured; 400 bp won up to its largest, 9.28 MB, by 12-17 ms), 3 kbp
+#: 20.9 MB (lost at 69.6 MB), 30 kbp 6.96 MB (10 kbp lost at 23.2 MB, by
+#: +0.1 and +1.0 ms), 100 kbp 2.32 MB (lost at 23.2 MB); none past 100 kbp
+#: (lost at 300 kbp and 10x, by +0.6 ms in random order)
+HOST_PILEUP_NATIVE_BOUNDS = ((1_000, 23_200_000), (3_000, 20_880_000),
+                             (30_000, 6_960_000), (100_000, 2_320_000))
+#: the same without the native library (the Python decoder, the numpy
+#: count walk, the tail on the card): empty, because the host counts lost
+#: at every size measured (10-300 kbp at 10x and 100x, by 6 ms to 2.3 s;
+#: ``perf/host_gate_sweep_pr7_run4.log``)
+HOST_PILEUP_BOUNDS: tuple = ()
+
+
+def host_pileup_bound(total_len: int, native_tail: bool = False,
+                      link_free: bool = False):
+    """``(max_len, max_bytes, reason)`` of the auto gate for a genome of
+    ``total_len`` positions: ``--pileup auto`` takes the host counts when
+    the genome has at most ``max_len`` positions and its input at most
+    ``max_bytes`` decompressed bytes (``None``: no byte bound), and why.
+
+    Port of ``sam2consensus_tpu/ops/pileup.host_pileup_max_len`` with the
+    card's tables in place of its length bounds; the reason comes back
+    beside the bounds (the reference records it in its decision ledger).
+    ``native_tail`` (the backend's ``_native_tail_possible``) says the
+    native library loads; ``link_free`` that the device is the host's
+    CPU.  Reasons: ``env`` (``S2C_HOST_PILEUP_MAX_LEN``, a length bound
+    alone, as in the reference), ``link_free`` (no link to bill: no
+    bound), ``native_tail`` and ``default``.  Past a table's last length
+    the bound is that length, with no bytes.
+    """
+    env = os.environ.get("S2C_HOST_PILEUP_MAX_LEN")
+    if env:
+        try:
+            return int(env), None, "env"
+        except ValueError:
+            raise RuntimeError(
+                f"S2C_HOST_PILEUP_MAX_LEN={env!r}: expected a plain "
+                f"integer position count (e.g. 8388608)") from None
+    if native_tail and link_free:
+        return 1 << 62, None, "link_free"
+    table = HOST_PILEUP_NATIVE_BOUNDS if native_tail else HOST_PILEUP_BOUNDS
+    reason = "native_tail" if native_tail else "default"
+    for max_len, max_bytes in table:
+        if total_len <= max_len:
+            return max_len, max_bytes, reason
+    return (table[-1][0] if table else 0), 0, reason
+
+
+class HostPileupAccumulator:
+    """Host-side counts: ship the count tensor, not the reads.
+
+    Port of ``sam2consensus_tpu/ops/pileup.HostPileupAccumulator``.  The
+    ``[L, 6]`` int32 counts live in host memory.  The fused decode path
+    counts into them inside the C++ pass (batches arrive with
+    ``accumulated=True`` and nothing to walk); other batches are walked by
+    ``s2c_accumulate_rows`` (numpy without the library).  The tail reads
+    them in place (:meth:`counts_host`, the native vote) or on a device
+    (:meth:`counts_on`): on CUDA one pinned, ``non_blocking``
+    host-to-device copy of the counts narrowed to the smallest dtype that
+    holds ``max(counts)`` (uint8, uint16 or int32), which the tail widens
+    on the card.
+    """
+
+    def __init__(self, total_len: int):
+        from .. import native
+
+        self.total_len = total_len
+        self._counts = np.zeros((total_len, NUM_SYMBOLS), dtype=np.int32)
+        self._lib = native.load()              # None -> numpy walk
+        self._device_counts = None
+        self._wire_itemsize = None
+        self.strategy_used: dict = {"host": 0}
+        #: bytes of counts copied to a card, and the number of copies
+        self.bytes_h2d = 0
+        self.uploads = 0
+
+    def add(self, batch: SegmentBatch) -> None:
+        self._device_counts = None
+        self._wire_itemsize = None
+        if batch.accumulated:
+            # fused decode path: the C++ decoder already counted this
+            # batch's rows; record that the fused path ran
+            self.strategy_used["host_fused"] = (
+                self.strategy_used.get("host_fused", 0) + 1)
+            return
+        flat = self._counts.reshape(-1)
+        for w, (starts, codes) in sorted(batch.buckets.items()):
+            if self._lib is not None:
+                self._lib.s2c_accumulate_rows(
+                    np.ascontiguousarray(starts),
+                    np.ascontiguousarray(codes),
+                    len(starts), w, flat, self.total_len)
+            else:
+                rows, cols = np.nonzero(codes < NUM_SYMBOLS)
+                pos = starts[rows].astype(np.int64) + cols
+                ok = (pos >= 0) & (pos < self.total_len)
+                np.add.at(self._counts,
+                          (pos[ok], codes[rows[ok], cols[ok]]), 1)
+            self.strategy_used["host"] += 1
+
+    def wire_itemsize(self) -> int:
+        """Bytes a cell of the narrowed upload (a cached one-pass max):
+        the tail placement prices the upload before it happens."""
+        if self._wire_itemsize is None:
+            m = int(self._counts.max(initial=0))
+            self._wire_itemsize = 1 if m < (1 << 8) else \
+                2 if m < (1 << 16) else 4
+        return self._wire_itemsize
+
+    def counts_on(self, device: torch.device) -> torch.Tensor:
+        """The counts as a tensor on ``device``: the host buffer itself on
+        the CPU; on CUDA one narrowed copy, made once and cached (staged
+        through page-locked memory, copied ``non_blocking`` on the current
+        stream)."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return torch.from_numpy(self._counts)
+        if self._device_counts is None:
+            it = self.wire_itemsize()
+            dtype = {1: torch.uint8, 2: torch.uint16, 4: torch.int32}[it]
+            pinned = torch.empty(self._counts.shape, dtype=dtype,
+                                 pin_memory=True)
+            pinned.copy_(torch.from_numpy(self._counts))
+            with torch.cuda.device(device):
+                self._device_counts = pinned.to(device, non_blocking=True)
+            self.strategy_used["host_wire_dtype"] = str(dtype).replace(
+                "torch.", "")
+            self.bytes_h2d += pinned.nbytes
+            self.uploads += 1
+        return self._device_counts
+
+    def counts_host(self) -> np.ndarray:
+        return self._counts
+
+    def set_counts(self, counts) -> None:
+        # in place: the fused decode path holds this buffer by reference
+        self._counts[:] = np.asarray(counts, dtype=np.int32)
+        self._device_counts = None
+        self._wire_itemsize = None
+
+    def sync(self) -> None:
+        """Nothing to wait for: the counts are complete on the host."""

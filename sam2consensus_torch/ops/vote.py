@@ -1,7 +1,8 @@
 """The threshold consensus vote as a closed-form per-position reduction.
 
 Port of ``sam2consensus_tpu/ops/vote.py`` (XLA code there, plain torch ops
-here).  The reference's greedy caller (``sam2consensus.py:359-367``) has an
+here, and :func:`vote_positions_native`, the C++ vote of a tail placed on
+the host).  The reference's greedy caller (``sam2consensus.py:359-367``) has an
 exact per-lane closed form:
 
     lane i is included  <=>  c_i != 0  AND  S_i < t * cov,
@@ -134,3 +135,30 @@ def vote_block(counts: torch.Tensor, thresholds: Sequence[float],
         return (torch.empty((0, counts.shape[0]), dtype=torch.uint8,
                             device=counts.device), cov)
     return torch.stack(rows), cov
+
+
+def vote_positions_native(counts: np.ndarray, thresholds: Sequence[float],
+                          min_depth: int, threads: int = 1):
+    """Copy: the C++ vote over host-resident counts (``s2c_vote``), or None
+    when the native library is unavailable.
+
+    The same closed form and 64-entry mask LUT as :func:`vote_block`; the
+    float64 ``ceil(t * cov)`` cutoff is computed directly.  Position ranges
+    split across ``threads`` workers (below 1M positions the C side stays
+    serial).  Returns ``(syms uint8 [T, L] with FILL_SENTINEL, cov int32
+    [L])``.
+    """
+    from .. import native
+
+    lib = native.load()
+    if lib is None:
+        return None
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    length = counts.shape[0]
+    n_thr = len(thresholds)
+    syms = np.empty(n_thr * length, np.uint8)
+    cov = np.empty(length, np.int32)
+    lib.s2c_vote(counts.reshape(-1), length,
+                 np.asarray(thresholds, np.float64), n_thr, min_depth,
+                 IUPAC_MASK_LUT, syms, cov, max(1, threads))
+    return syms.reshape(n_thr, length), cov

@@ -49,8 +49,8 @@ print(len(names))
 """
 
 
-#: modules of the host decode and staging path, named so that the walk
-#: cannot miss them
+#: modules of the host decode, staging, host-count and placement paths,
+#: named so that the walk cannot miss them
 REQUIRED = ["sam2consensus_torch.native",
             "sam2consensus_torch.ingest",
             "sam2consensus_torch.ingest.badrecords",
@@ -60,6 +60,8 @@ REQUIRED = ["sam2consensus_torch.native",
             "sam2consensus_torch.formats.bam",
             "sam2consensus_torch.io.sam",
             "sam2consensus_torch.wire.pipeline",
+            "sam2consensus_torch.encoder.parallel_decode",
+            "sam2consensus_torch.utils.linkprobe",
             "sam2consensus_torch.backends.torch_backend"]
 
 
@@ -71,7 +73,7 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 36
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 38
 
 
 def _sources():

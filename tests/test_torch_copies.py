@@ -493,3 +493,56 @@ def test_stage_slots_defaults():
     assert t_pipe.DEFAULT_SLOTS == r_pipe.DEFAULT_SLOTS
     assert [n for n in dir(t_pipe.StageSlots) if not n.startswith("__")] \
         == [n for n in dir(r_pipe.StageSlots) if not n.startswith("__")]
+
+
+def test_segment_batch_fields():
+    """The batch carries the fused count's ``accumulated`` flag; ``staged``
+    holds the port's own staged operands."""
+    def spec(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert spec(t_events.SegmentBatch)[:4] == \
+        spec(r_events.SegmentBatch)[:4]
+    assert [f.name for f in dataclasses.fields(t_events.SegmentBatch)] == \
+        [f.name for f in dataclasses.fields(r_events.SegmentBatch)]
+
+
+@pytest.mark.parametrize("total_len,env", [(1000, None), ((1 << 23) - 1, None),
+                                           (1 << 23, None), (1000, "1"),
+                                           (1000, "1001")])
+def test_fused_direct_mode(monkeypatch, total_len, env):
+    from sam2consensus_torch.encoder import native_encoder as t_nat
+    from sam2consensus_tpu.encoder import native_encoder as r_nat
+
+    # the reference reads its threshold from the environment, the port
+    # from a module constant: pin both to the same number
+    if env is None:
+        monkeypatch.delenv("S2C_FUSED_DIRECT_MIN_LEN", raising=False)
+    else:
+        monkeypatch.setenv("S2C_FUSED_DIRECT_MIN_LEN", env)
+        monkeypatch.setattr(t_nat, "FUSED_DIRECT_MIN_LEN", int(env))
+    assert t_nat.fused_direct_mode(total_len) == \
+        r_nat.fused_direct_mode(total_len)
+
+
+@pytest.mark.parametrize("name", [
+    "s2c_decode", "s2c_decode_bam", "s2c_accumulate_rows", "s2c_ins_table",
+    "s2c_ins_vote", "s2c_merge_u8", "s2c_snap_shards", "s2c_cov_sums",
+    "s2c_finalize", "s2c_vote"])
+def test_native_bindings(name):
+    """Every export the port calls is bound with the reference's C
+    signature."""
+    from sam2consensus_torch import native as t_native
+    from sam2consensus_tpu import native as r_native
+
+    t_lib, r_lib = t_native.load(), r_native.load()
+    if t_lib is None or r_lib is None:
+        pytest.skip("the native library does not build here")
+
+    def sig(lib):
+        fn = getattr(lib, name)
+        return fn.restype, [(getattr(a, "_dtype_", None),
+                             getattr(a, "__name__", None))
+                            for a in fn.argtypes]
+
+    assert sig(t_lib) == sig(r_lib)

@@ -2,7 +2,14 @@
 decoder (``--decoder native`` and ``py``), byte-identical to the JAX
 package's CLI under ``--backend cpu`` (the golden oracle) and ``--backend
 jax``, on the single-device corpus of ``tests/test_differential.py``, and
-to the pinned ``formats_*`` FASTAs."""
+to the pinned ``formats_*`` FASTAs.
+
+The CPU device is link-free, so ``--pileup auto`` takes the host counts
+and the native tail there.  The tests that hold the plain versions of the
+kernels end to end therefore pin ``--pileup pallas``; the ``host`` and
+``auto`` cases run beside them, and the one-shot flags (``--permissive``,
+``--segment-width``, ``--chunk-reads``, ``--quiet``, ``--pileup``,
+``--decode-threads``) are held against the reference here too."""
 
 import contextlib
 import gc
@@ -41,13 +48,24 @@ HANDCRAFTED = _differential_corpus()
 DECODERS = ["native", "py"]
 
 
+#: reference CLI runs so far, and the tests whose only JAX-package work is
+#: a reference run through ``_references`` (cached per case)
+_REFERENCE_RUNS = [0]
+_CACHED_REFERENCES = {"test_cli_byte_identical",
+                      "test_cli_byte_identical_pileup"}
+
+
 @pytest.fixture(autouse=True)
-def _collect_jax_garbage():
-    """Collect after each test, outside any lock, so that no unreachable
-    JAX-package object built here is finalised later inside the JAX
-    metrics registry's lock (a deadlock in that package, not the port's)."""
+def _collect_jax_garbage(request):
+    """Collect after each test that built JAX-package objects, outside any
+    lock, so that none of them is finalised later inside the JAX metrics
+    registry's lock (a deadlock in that package, not the port's).  A test
+    that only ran the port against cached references built none."""
+    before = _REFERENCE_RUNS[0]
     yield
-    gc.collect()
+    if request.function.__name__ not in _CACHED_REFERENCES \
+            or _REFERENCE_RUNS[0] != before:
+        gc.collect()
 
 
 @pytest.fixture(scope="module")
@@ -171,16 +189,47 @@ def test_cli_byte_identical(tmp_path, references, decoder_ran, name, text,
     with open(path, "w") as fh:
         fh.write(text)
     got, log = _run(t_cli.main, path, str(tmp_path / "torch"),
-                    flags + ["--decoder", decoder], device="cpu")
+                    flags + ["--decoder", decoder, "--pileup", "pallas"],
+                    device="cpu")
     assert decoder_ran == [decoder]
+    want_cpu, want_jax, log_cpu = _references(references, tmp_path, name,
+                                              path, flags)
+    assert got == want_cpu
+    assert got == want_jax
+    assert log.replace(str(tmp_path / "torch"), "").replace(
+        str(tmp_path), "") == log_cpu
+
+
+def _references(references, tmp_path, name, path, flags):
+    """The reference CLIs' ``(cpu, jax, cpu log)`` for a case, made once."""
     if name not in references:
+        _REFERENCE_RUNS[0] += 1
         want_cpu, log_cpu = _run(r_cli.main, path, str(tmp_path / "cpu"),
                                  flags + ["--backend", "cpu"])
         want_jax, _ = _run(r_cli.main, path, str(tmp_path / "jax"),
                            flags + ["--backend", "jax"])
         references[name] = (want_cpu, want_jax, log_cpu.replace(
             str(tmp_path / "cpu"), "").replace(str(tmp_path), ""))
-    want_cpu, want_jax, log_cpu = references[name]
+    return references[name]
+
+
+@pytest.mark.parametrize("decoder", DECODERS)
+@pytest.mark.parametrize("pileup", ["host", "auto"])
+@pytest.mark.parametrize("name,text,flags", CASES, ids=[c[0] for c in CASES])
+def test_cli_byte_identical_pileup(tmp_path, references, decoder_ran, name,
+                                   text, flags, pileup, decoder):
+    """The same corpus under host counts (``host``, and ``auto``, which
+    takes them on the link-free CPU device): the native tail, or the
+    numpy walk of ``s2c_accumulate_rows`` under ``--decoder py``."""
+    path = str(tmp_path / f"{name}.sam")
+    with open(path, "w") as fh:
+        fh.write(text)
+    got, log = _run(t_cli.main, path, str(tmp_path / "torch"),
+                    flags + ["--decoder", decoder, "--pileup", pileup],
+                    device="cpu")
+    assert decoder_ran == [decoder]
+    want_cpu, want_jax, log_cpu = _references(references, tmp_path, name,
+                                              path, flags)
     assert got == want_cpu
     assert got == want_jax
     assert log.replace(str(tmp_path / "torch"), "").replace(
@@ -192,7 +241,8 @@ def test_cli_byte_identical(tmp_path, references, decoder_ran, name, text,
 @pytest.mark.parametrize("ext", [".sam", ".sam.gz", ".plain.sam.gz"])
 def test_formats_fixtures(tmp_path, decoder_ran, fam, ext, decoder):
     got, _ = _run(t_cli.main, os.path.join(DATA, f"formats_{fam}{ext}"),
-                  str(tmp_path / "o"), ["--decoder", decoder], device="cpu")
+                  str(tmp_path / "o"), ["--decoder", decoder, "--pileup",
+                                        "pallas"], device="cpu")
     assert decoder_ran == [decoder]
     with open(os.path.join(DATA, f"formats_{fam}.expected.fasta"),
               "rb") as fh:
@@ -214,7 +264,7 @@ def _rendered(backend, text, tcfg):
 ])
 def test_permissive_mode_identical(text):
     got = _rendered(TorchBackend("cpu"), text,
-                    TConfig(prefix="p", strict=False))
+                    TConfig(prefix="p", strict=False, pileup="pallas"))
     want = _rendered(CpuBackend(), text, RConfig(prefix="p", strict=False))
     assert got == want
 
@@ -228,7 +278,8 @@ def test_permissive_mode_identical(text):
 def test_strict_errors_match_oracle(record, exc):
     text = sam_text([("r", 6)], [record])
     with pytest.raises(exc) as e_torch:
-        _rendered(TorchBackend("cpu"), text, TConfig(prefix="p"))
+        _rendered(TorchBackend("cpu"), text, TConfig(prefix="p",
+                                                     pileup="pallas"))
     with pytest.raises(exc) as e_cpu:
         _rendered(CpuBackend(), text, RConfig(prefix="p"))
     assert str(e_torch.value) == str(e_cpu.value)
@@ -241,3 +292,189 @@ def test_bad_threshold_rejected_cleanly(tmp_path):
             t_cli.main(["-i", sam, "-o", str(tmp_path), "-c", bad],
                        device="cpu")
         assert "error:" in str(e.value.code)
+
+
+# -- the one-shot flags ------------------------------------------------------
+NEW_FLAGS = ("permissive", "segment_width", "chunk_reads", "quiet", "pileup",
+             "decode_threads")
+
+
+def test_new_flags_defaults_equal_the_reference():
+    t_args = t_cli.build_parser().parse_args(["-i", "x.sam"])
+    r_args = r_cli.build_parser().parse_args(["-i", "x.sam"])
+    for flag in NEW_FLAGS:
+        assert getattr(t_args, flag) == getattr(r_args, flag), flag
+    t_cfg = t_cli.config_from_args(t_args)
+    r_cfg = r_cli.config_from_args(r_args)
+    for field in ("strict", "segment_width", "chunk_reads", "pileup",
+                  "decode_threads"):
+        assert getattr(t_cfg, field) == getattr(r_cfg, field), field
+
+
+@pytest.mark.parametrize("argv", [
+    ["--segment-width", "wide"], ["--segment-width", "1.5"],
+    ["--chunk-reads", "many"], ["--decode-threads", "two"],
+    ["--quiet", "yes"], ["--permissive", "1"], ["--pileup"],
+])
+def test_new_flags_parse_errors_equal_the_reference(capsys, argv):
+    msgs = []
+    for parser in (t_cli.build_parser(), r_cli.build_parser()):
+        with pytest.raises(SystemExit) as exc:
+            parser.parse_args(["-i", "x.sam", *argv])
+        assert exc.value.code == 2
+        msgs.append(capsys.readouterr().err.splitlines()[-1])
+    assert msgs[0].split(": error: ")[1] == msgs[1].split(": error: ")[1]
+
+
+@pytest.mark.parametrize("value", ["bogus", "scatter", "mxu"])
+def test_pileup_rejects_what_the_port_lacks(capsys, value):
+    """``scatter`` and ``mxu`` are queued in the port: its parser names
+    the strategies it runs."""
+    with pytest.raises(SystemExit) as exc:
+        t_cli.build_parser().parse_args(["-i", "x.sam", "--pileup", value])
+    assert exc.value.code == 2
+    msg = capsys.readouterr().err.splitlines()[-1]
+    assert f"argument --pileup: invalid choice: '{value}'" in msg
+    choices = msg.split("(choose from ")[1]
+    assert [c.strip(" ')") for c in choices.split(",")] == \
+        ["auto", "pallas", "host"]
+
+
+def _ref_pair(tmp_path, path, flags, tag):
+    want_cpu, _ = _run(r_cli.main, path, str(tmp_path / f"cpu_{tag}"),
+                       flags + ["--backend", "cpu"])
+    want_jax, _ = _run(r_cli.main, path, str(tmp_path / f"jax_{tag}"),
+                       flags + ["--backend", "jax"])
+    assert want_cpu == want_jax
+    return want_cpu
+
+
+OUT_OF_CONTRACT = sam_text([("r", 30)], [
+    ("r", 1, "10M", "ACGTACGTAC"), ("other", 1, "2M", "AC"),
+    ("r", 25, "10M", "ACGTACGTAC"), ("r", 3, "4M2I4M", "ACGTxxACGT"),
+    ("r", 5, "8M", "ACGTACGT")])
+
+
+@pytest.mark.parametrize("pileup", ["pallas", "host"])
+def test_permissive_flag(tmp_path, pileup):
+    path = str(tmp_path / "bad.sam")
+    with open(path, "w") as fh:
+        fh.write(OUT_OF_CONTRACT)
+    want = _ref_pair(tmp_path, path, ["--permissive"], "perm")
+    got, _ = _run(t_cli.main, path, str(tmp_path / "t"),
+                  ["--permissive", "--pileup", pileup], device="cpu")
+    assert got == want
+    with pytest.raises(KeyError) as t_exc:
+        _run(t_cli.main, path, str(tmp_path / "t2"), ["--pileup", pileup],
+             device="cpu")
+    with pytest.raises(KeyError) as r_exc:
+        _run(r_cli.main, path, str(tmp_path / "r2"), ["--backend", "cpu"])
+    assert str(t_exc.value) == str(r_exc.value)
+
+
+@pytest.mark.parametrize("width", ["-1", "0", "64"])
+def test_segment_width_flag(tmp_path, decoder_ran, width):
+    """Reads of 150-300 bases against 64-wide segments (and the layout
+    off, and its default): the same bytes as the reference."""
+    text = simulate(SimSpec(n_contigs=2, contig_len=1500, n_reads=300,
+                            read_len=200, ins_read_rate=0.2,
+                            del_read_rate=0.2, seed=31))
+    path = str(tmp_path / "long.sam")
+    with open(path, "w") as fh:
+        fh.write(text)
+    flags = ["--segment-width", width, "-c", "0.25,0.75"]
+    want = _ref_pair(tmp_path, path, flags, "seg")
+    for pileup in ("pallas", "host"):
+        got, _ = _run(t_cli.main, path, str(tmp_path / f"t_{pileup}"),
+                      flags + ["--pileup", pileup], device="cpu")
+        assert got == want
+    assert decoder_ran == ["native", "native"]
+
+
+def test_chunk_reads_flag(tmp_path, monkeypatch):
+    from sam2consensus_torch.ops import pileup
+
+    sizes = []
+    add = pileup.PileupAccumulator.add
+
+    def counted_add(self, batch):
+        sizes.append(batch.n_reads)
+        return add(self, batch)
+
+    monkeypatch.setattr(pileup.PileupAccumulator, "add", counted_add)
+    text = simulate(SimSpec(n_contigs=1, contig_len=400, n_reads=50,
+                            read_len=40, seed=33))
+    path = str(tmp_path / "c.sam")
+    with open(path, "w") as fh:
+        fh.write(text)
+    flags = ["--chunk-reads", "7", "--decoder", "py"]
+    want = _ref_pair(tmp_path, path, flags[:2], "chunk")
+    got, _ = _run(t_cli.main, path, str(tmp_path / "t"),
+                  flags + ["--pileup", "pallas"], device="cpu")
+    assert got == want
+    assert sizes and max(sizes) == 7 and sum(sizes) == 50
+
+
+def test_quiet_prints_nothing(tmp_path, capsys):
+    path = os.path.join(DATA, "formats_short.sam")
+    assert t_cli.main(["-i", path, "-o", str(tmp_path / "t"), "--quiet"],
+                      device="cpu") == 0
+    assert capsys.readouterr().out == ""
+    assert r_cli.main(["-i", path, "-o", str(tmp_path / "r"), "--quiet"]) \
+        == 0
+    assert capsys.readouterr().out == ""
+    assert sorted(os.listdir(tmp_path / "t")) == \
+        sorted(os.listdir(tmp_path / "r"))
+
+
+@pytest.fixture(scope="module")
+def sharded_input(tmp_path_factory):
+    """A SAM of about 2.5 MB (two byte shards at the default 1 MiB shard
+    floor), its BAM twin, and the reference CLIs' FASTA of it."""
+    from sam2consensus_torch.formats.bam import sam_text_to_bam
+
+    tmp = tmp_path_factory.mktemp("sharded")
+    text = simulate(SimSpec(n_contigs=2, contig_len=6000, n_reads=9000,
+                            read_len=100, ins_read_rate=0.1,
+                            del_read_rate=0.1, seed=37))
+    sam = str(tmp / "s.sam")
+    with open(sam, "w") as fh:
+        fh.write(text)
+    bam = sam_text_to_bam(text, str(tmp / "s.bam"))
+    flags = ["-c", "0.25,0.75"]
+    want = _ref_pair(tmp, sam, flags, "sharded")
+    assert _ref_pair(tmp, bam, flags, "sharded_bam") == want
+    return sam, bam, flags, want
+
+
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+@pytest.mark.parametrize("threads", ["1", "2"])
+@pytest.mark.parametrize("pileup", ["auto", "pallas", "host"])
+def test_pileup_and_decode_threads(tmp_path, sharded_input, decoder_ran,
+                                   monkeypatch, pileup, threads, fmt):
+    sam, bam, flags, want = sharded_input
+    stats = []
+    orig = TorchBackend.run
+
+    def run(self, *args, **kwargs):
+        result = orig(self, *args, **kwargs)
+        stats.append(result.stats.extra)
+        return result
+
+    monkeypatch.setattr(TorchBackend, "run", run)
+    got, _ = _run(t_cli.main, sam if fmt == "sam" else bam,
+                  str(tmp_path / "t"),
+                  flags + ["--pileup", pileup, "--decode-threads", threads],
+                  device="cpu")
+    assert got == want
+    extra = stats[-1]
+    assert extra["pileup_path"] == ("device" if pileup == "pallas"
+                                    else "host")
+    assert extra["counts_fused"] == (pileup != "pallas")
+    assert extra["tail_device"] == "cpu"
+    assert extra["tail_native"] == (pileup != "pallas")
+    if fmt == "sam" and threads == "2":
+        assert extra["ingest_mode"]["rung"] == "shards"
+        assert extra["ingest_shards"] == 2
+        assert extra["decode_rung"] == ("slab" if pileup == "pallas"
+                                        else "fused")

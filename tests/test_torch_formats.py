@@ -39,8 +39,10 @@ def _expected(fam):
         return fh.read()
 
 
-def _render(tmp_path, argv):
-    """The port's CLI on the CPU; returns (FASTA text, stats)."""
+def _render(tmp_path, argv, pileup="pallas"):
+    """The port's CLI on the CPU; returns (FASTA text, stats).  The CPU
+    device is link-free, so ``--pileup auto`` would take the host counts:
+    the default pins ``pallas``, the device accumulator's plain path."""
     ran = []
     orig = TorchBackend.run
 
@@ -53,7 +55,8 @@ def _render(tmp_path, argv):
     TorchBackend.run = run
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            assert t_cli.main(argv + ["-o", out, "-p", "fixture"],
+            assert t_cli.main(argv + ["-o", out, "-p", "fixture",
+                                      "--pileup", pileup],
                               device="cpu") == 0
     finally:
         TorchBackend.run = orig
@@ -78,6 +81,24 @@ def test_cli_renders_expected(tmp_path, fam, ext, forced, decoder):
     assert stats.extra["stage_sec"] == 0.0
 
 
+@pytest.mark.parametrize("decoder", ["native", "py"])
+@pytest.mark.parametrize("pileup", ["host", "auto"])
+@pytest.mark.parametrize("ext", list(CONTAINERS))
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_cli_renders_expected_pileup(tmp_path, fam, ext, pileup, decoder):
+    """Every container under host counts: the fused C++ count (the native
+    BAM and SAM decoders) or ``s2c_accumulate_rows`` (``--decoder py``),
+    and the native tail."""
+    text, stats = _render(tmp_path, [
+        "-i", os.path.join(DATA, f"formats_{fam}{ext}"),
+        "--decoder", decoder], pileup=pileup)
+    assert text == _expected(fam)
+    assert stats.extra["decoder"] == decoder
+    assert stats.extra["pileup_path"] == "host"
+    assert stats.extra["counts_fused"] == (decoder == "native")
+    assert stats.extra["tail_native"] is True
+
+
 @pytest.mark.parametrize("threads", ["0", "3"])
 def test_cli_decode_threads(tmp_path, threads):
     text, _ = _render(tmp_path, [
@@ -90,7 +111,7 @@ def test_cli_counts_bam_records(capsys, tmp_path):
     with open(os.path.join(DATA, "formats_short.sam")) as fh:
         n_body = sum(1 for line in fh if not line.startswith("@"))
     t_cli.main(["-i", os.path.join(DATA, "formats_short.bam"), "-o",
-                str(tmp_path / "o")], device="cpu")
+                str(tmp_path / "o"), "--pileup", "pallas"], device="cpu")
     assert f"A total of {n_body} reads were processed" in \
         capsys.readouterr().out
 

@@ -344,10 +344,14 @@ def test_star_seq_strict_error(needs_gxx, tmp_path):
 
 # -- the backend's choice of decoder and the prefetch thread ----------------
 def _run_backend(text, tmp_path, **cfg):
+    """``TorchBackend.run`` on the CPU with the device accumulator
+    (``pileup="pallas"``: on the link-free CPU ``auto`` takes host
+    counts, and these tests watch the row path)."""
     contigs, stream = _stream(t_sam, text, "file", tmp_path)
     try:
         res = TorchBackend("cpu").run(contigs, stream,
-                                      TConfig(prefix="p", **cfg))
+                                      TConfig(prefix="p", pileup="pallas",
+                                              **cfg))
     finally:
         stream.handle.close()
     return res, stream
@@ -444,7 +448,8 @@ def test_strict_error_mid_file_through_prefetch(needs_gxx, tmp_path,
         with pytest.raises(KeyError) as got:
             with contextlib.redirect_stdout(io.StringIO()):
                 t_cli.main(["-i", sam, "-o", str(tmp_path / "o"),
-                            "--decoder", decoder], device="cpu")
+                            "--decoder", decoder, "--pileup", "pallas"],
+                           device="cpu")
     assert str(got.value) == str(want.value)
     assert len(batches) >= 2
     assert not list((tmp_path / "o").glob("*.fasta"))
@@ -521,3 +526,55 @@ def test_consumer_failure_stops_the_producer(needs_gxx, tmp_path):
             _run_backend(text, tmp_path, decoder="native")
     assert len(calls) == 2
     assert not _prefetch_threads()
+
+
+@pytest.mark.parametrize("seg_w,native_lines", [(-1, True), (0, False)])
+def test_overflow_lines_decode_natively_without_segments(
+        needs_gxx, tmp_path, monkeypatch, seg_w, native_lines):
+    """Reads wider than the slab: with the segmented layout off
+    (``--segment-width -1``) the C decoder takes each one at a width that
+    holds it and nothing replays in python; under the default layout they
+    replay (and segment) there.  The counts, reads, events and insertion
+    groups equal the python encoder's and the JAX package's either way."""
+    from sam2consensus_torch.encoder.events import resolve_segment_width
+
+    rng = np.random.default_rng(3)
+    genome = "".join("ACGT"[i] for i in rng.integers(0, 4, 30000))
+    reads = []
+    for i in range(40):
+        s = int(rng.integers(0, 20000))
+        n = int(rng.integers(5000, 9000))
+        reads.append(("g", s + 1, f"{n // 2}M3I{n - n // 2}M",
+                      genome[s:s + n // 2] + "TTT" + genome[s + n // 2:s + n]))
+    text = sam_text([("g", 30000)], reads)
+    replays = []
+    fallback = t_nat.NativeReadEncoder._fallback_line
+
+    def counted(self, *args, **kwargs):
+        replays.append(args[1])
+        return fallback(self, *args, **kwargs)
+
+    monkeypatch.setattr(t_nat.NativeReadEncoder, "_fallback_line", counted)
+    kw = {"segment_width": resolve_segment_width(seg_w)}
+    layout, py, pb, _ = _encode("t", "py", text, tmp_path, "file", **kw)
+    _, nat, nb, ns = _encode("t", "native", text, tmp_path, "file", **kw)
+    r_layout, ref, rb, rs = _encode("r", "native", text, tmp_path, "file",
+                                    **kw)
+    assert (len(replays) == 0) == native_lines
+    want = _counts(pb, layout.total_len)
+    np.testing.assert_array_equal(_counts(nb, layout.total_len), want)
+    np.testing.assert_array_equal(_counts(rb, layout.total_len), want)
+    assert nat.n_reads == py.n_reads == ref.n_reads == 40
+    assert sum(b[1] for b in nb) == sum(b[1] for b in pb)
+    assert ns.n_lines == rs.n_lines
+    groups = t_events.group_insertions(nat.insertions, layout)
+    _same_groups(t_events.group_insertions(py.insertions, layout), groups)
+    _same_groups(groups, r_events.group_insertions(ref.insertions, r_layout))
+    # the fused host count takes the same lines the same way
+    replays.clear()
+    counts = np.zeros((layout.total_len, 6), dtype=np.int32)
+    _, fused, fb, _ = _encode("t", "native", text, tmp_path, "file",
+                              accumulate_into=counts, **kw)
+    assert (len(replays) == 0) == native_lines
+    np.testing.assert_array_equal(counts, want)
+    assert fused.n_reads == 40 and all(not b[2] for b in fb)
