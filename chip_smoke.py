@@ -48,18 +48,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``pallas`` and ``host`` (the sharded rung with more than one shard
    when threads > 1; decode, worker seconds and shards printed);
    ``longread_sv`` at ``--segment-width -1`` beside the default (no line
-   may replay in Python at -1).  Every kernel must have launched in that
-   window.  Then the link probe's round trip and H2D / D2H rates, and the
-   native vote's ns a position at ``ecoli_scale``'s L for T = 1 and 2;
+   may replay in Python at -1).  Each default run prints its device-side
+   decisions (row wire, tail encoding, insertion route, bytes shipped and
+   fetched) and must take wire packed5 without probing the link.  The
+   device-side choices run on CUDA beside it, each byte-identical to that
+   input's default run: ``ecoli_scale`` at ``--wire delta8`` (delta8 slabs
+   counted, fewer bytes shipped than their packed5-equivalent, K1
+   launched) and ``--pileup scatter`` (no K1); ``amplicon_deep`` and
+   ``longread_sv`` at ``--insertion-kernel scatter`` (no K2 or K3) and
+   ``pallas`` (the kernel of the table's width); ``S2C_TAIL_ENCODING``
+   ``sparse`` and ``packed5`` on all three.  Every kernel must have
+   launched in that window.  Then the link probe's round trip and H2D /
+   D2H rates, and the native vote's ns a position at ``ecoli_scale``'s L
+   for T = 1 and 2;
 8. under ``torch.cuda.set_sync_debug_mode("error")``, once each: the K1,
    K2 and K3 routes at the largest main-path shapes, the staged K1 route
    (``PileupAccumulator.add`` of a batch staged as the prefetch thread
-   stages it: event wait, device pack, K1), and the whole tail
+   stages it: event wait, device pack, K1), the same rows staged under
+   ``delta8`` (event wait, device unpack, pack, K1) and for the scatter
+   strategy, each counting what the K1 route counts, the whole tail
    (``fused.vote_packed``) on the arguments ``longread_sv`` (K3 and the
-   torch vote) and ``amplicon_deep`` (K2) gave it, and the host-count
-   route on both (the narrowed counts' pinned upload and the tail; its
-   output must equal the int32 tail's).  A host synchronisation in any of
-   them is fatal;
+   torch vote) and ``amplicon_deep`` (K2) gave it, its sparse and packed5
+   heads there and on ``ecoli_scale``'s tail, and the host-count route on
+   both (the narrowed counts' pinned upload and the tail; its output must
+   equal the int32 tail's).  A host synchronisation in any of them is
+   fatal; the ``--insertion-kernel scatter`` tail (``index_put_``) is
+   reported, not required;
+   then the device-side choices at the main path's shapes, CUDA events:
+   the delta8 unpack of the K1 slab (host encode beside it; lanes against
+   packed5 and raw bytes), the scatter strategy against K1's route on it,
+   the three position heads alone at ``ecoli_scale`` and in the whole
+   tails of ``amplicon_deep`` and ``longread_sv`` (bytes beside), the
+   insertion routes, and the gates' constants;
 9. the C++ decoder (``NativeReadEncoder``) against the Python
    ``ReadEncoder`` on ``ecoli_scale`` and ``longread_sv`` at full size:
    pileup counts of the batches, reads, skipped, events, lines and every
@@ -405,7 +425,8 @@ class Capture:
     phase 7's runs of its inputs at their defaults made (and the input it
     came from), so the kernel can be timed afterwards at those shapes; the
     variant runs (``--pileup``, ``--decode-threads``, ``--segment-width``)
-    record nothing.  ``key`` may name ``{input}``: one record per input."""
+    record nothing.  ``key`` may name ``{input}``: one record per
+    input."""
 
     def __init__(self):
         self.calls = {}
@@ -448,12 +469,14 @@ def read_dir(path: str) -> str:
 def pileup_split():
     """Host-clock seconds of the pileup's steps while the block runs, on
     the thread that runs each.  The producer (the decode prefetch
-    thread): ``real_rows``, the wait for a pinned slot's last copy
-    (``slot_wait``), the copy into the slot (``slot_copy``), and the
-    enqueue of the host-to-device copies and their event on the copy
-    stream (``h2d_enqueue``).  The consumer: ``PileupAccumulator.add``
-    (``add``), of which the device pack (``pack``) and the K1 route
-    (``accumulate_rows``: the device sort and the launch, enqueued); the
+    thread): ``real_rows``, the delta8 canonicalise and encode
+    (``encode``), the wait for a pinned slot's last copy (``slot_wait``),
+    the copy into the slot (``slot_copy``), and the enqueue of the
+    host-to-device copies and their event on the copy stream
+    (``h2d_enqueue``).  The consumer: ``PileupAccumulator.add``
+    (``add``), of which the delta8 unpack (``unpack``), the device pack
+    (``pack``) and the count (``route``: K1's ``accumulate_rows``, the
+    device sort and the launch, or ``scatter_segments``, enqueued); the
     rest of ``add`` is the device-side event wait and ``record_stream``.
     ``sync`` is the wait for the last kernel.  Also counts the calls of
     ``real_rows`` and ``pack_nibbles`` per thread, and the bytes the
@@ -462,12 +485,18 @@ def pileup_split():
 
     from sam2consensus_torch.ops import pileup, pileup_kernel
 
-    sec = dict.fromkeys(("real_rows", "slot_wait", "slot_copy",
-                         "h2d_enqueue", "add", "pack", "route", "sync",
-                         "h2d_bytes"), 0)
+    from sam2consensus_torch import wire
+    from sam2consensus_torch.wire import device as wire_device
+
+    sec = dict.fromkeys(("real_rows", "encode", "slot_wait", "slot_copy",
+                         "h2d_enqueue", "add", "unpack", "pack", "route",
+                         "sync", "h2d_bytes"), 0)
     calls = {}
     saved = []
     for obj, attr, key in ((pileup, "real_rows", "real_rows"),
+                           (wire, "encode_wire_slab", "encode"),
+                           (wire_device, "decode_slab", "unpack"),
+                           (pileup, "scatter_segments", "route"),
                            (pileup, "pack_nibbles", "pack_nibbles"),
                            (pileup._PinnedSlot, "wait", "slot_wait"),
                            (pileup._PinnedSlot, "fill", "slot_copy"),
@@ -483,7 +512,7 @@ def pileup_split():
             thread = threading.current_thread().name
             calls[(_key, thread)] = calls.get((_key, thread), 0) + 1
             if _key == "h2d_enqueue":
-                sec["h2d_bytes"] += args[2].nbytes + args[3].nbytes
+                sec["h2d_bytes"] += sum(t.nbytes for t in args[2])
             t0 = time.perf_counter()
             try:
                 return _orig(*args)
@@ -507,19 +536,20 @@ def print_split(sec: dict, calls: dict, st) -> None:
     for (key, thread), n in calls.items():
         on.setdefault(key, {})[thread] = n
     print(f"    pileup split, producer: real_rows={sec['real_rows']:.4f}s "
-          f"slot_wait={sec['slot_wait']:.4f}s "
+          f"encode={sec['encode']:.4f}s slot_wait={sec['slot_wait']:.4f}s "
           f"slot_copy={sec['slot_copy']:.4f}s "
           f"h2d_enqueue={sec['h2d_enqueue']:.4f}s ({sec['h2d_bytes']} B); "
           f"stage_sec={st.extra['stage_sec']:.4f}s "
           f"overlap_sec={st.extra['overlap_sec']:.4f}s "
           f"backpressure_sec={st.extra['backpressure_sec']:.4f}s")
-    wait = sec["add"] - sec["pack"] - sec["route"]
+    wait = sec["add"] - sec["unpack"] - sec["pack"] - sec["route"]
     print(f"    pileup split, consumer: add={sec['add']:.4f}s = "
           f"event_wait+record_stream={wait:.4f}s "
+          f"device_unpack={sec['unpack']:.4f}s "
           f"device_pack={sec['pack']:.4f}s "
-          f"k1_route_enqueue={sec['route']:.4f}s; "
+          f"count_route_enqueue={sec['route']:.4f}s; "
           f"sync_wait={sec['sync']:.4f}s; calls by thread: {on}")
-    for key in ("real_rows", "slot_copy", "h2d_enqueue"):
+    for key in ("real_rows", "encode", "slot_copy", "h2d_enqueue"):
         if set(on.get(key, {})) - {"decode-prefetch"}:
             fail(f"{key} ran off the producer thread: {on[key]}")
     if "pack_nibbles" in on:
@@ -655,7 +685,7 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         n_stats = len(cap.stats)
         cap.input = name
         with launch_events(kernels) as events, \
-                pileup_split() as (split, calls):
+                pileup_split() as (split, calls), probes() as probed:
             wall = run_cli(["-i", path, "-o",
                             os.path.join(tmp, name + "_cuda"), *flags,
                             "--decoder", "native", "--pileup", "pallas"],
@@ -663,6 +693,7 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         st = cap.stats[n_stats]
         decoder_of(cap, "native")
         cap.input = None
+        default_decisions(name, st.extra, probed[0], card)
         ev = {n: sum(s.elapsed_time(e) for s, e in pairs)
               for n, pairs in events.items()}
         launched = {k.name: k.launches - before[k.name] for k in kernels}
@@ -699,12 +730,132 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         tail_kernels = {n for n in ("insertion_vote", "insertion_table")
                         if launched[n]}
         strategy_runs(tmp, card, cap, name, path, flags, want, tail_kernels)
+        if name in ("ecoli_scale", "amplicon_deep", "longread_sv"):
+            choice_runs(tmp, card, cap, name, path, flags, want,
+                        tail_kernels, st.extra)
         if name == "ecoli_scale":
             bam_runs(tmp, card, cap, text, path, flags, tail_kernels)
             thread_runs(tmp, card, cap, path, flags, want)
         if name == "longread_sv":
             width_runs(tmp, card, cap, path, flags, want)
     return paths
+
+
+@contextlib.contextmanager
+def probes():
+    """Counts the link probes the backend asks for while the block runs
+    (``torch_backend._probed_link``; yields a one-element list)."""
+    from sam2consensus_torch.backends import torch_backend
+
+    seen = [0]
+    orig = torch_backend._probed_link
+
+    def counted(*args, **kwargs):
+        seen[0] += 1
+        return orig(*args, **kwargs)
+
+    torch_backend._probed_link = counted
+    try:
+        yield seen
+    finally:
+        torch_backend._probed_link = orig
+
+
+def default_decisions(name: str, extra: dict, probed: int, card: str) -> None:
+    """Prints a default (``--pileup pallas``) run's device-side decisions:
+    the row wire, the tail's encoding and insertion route, the fetched
+    bytes and the link probes; fails unless the wire is packed5, a tail
+    with insertions took the kernels and the run probed nothing."""
+    wire, enc = extra["wire"], extra["tail_encoding"]
+    print(f"    decisions [{card}]: wire={wire['chosen']} ({wire['reason']}, "
+          f"link {wire.get('link_source')}) encoding={enc['chosen']} "
+          f"(link {enc.get('link_source')}) insertion_kernel="
+          f"{extra.get('insertion_kernel')} fetch={extra['tail_fetch_bytes']}"
+          f" B h2d={extra['h2d_bytes']} B (raw rows "
+          f"{extra['wire_rows_bytes']} B, packed5-equivalent "
+          f"{extra['wire_packed5_bytes']} B) pileup={extra['pileup']} "
+          f"link probes={probed}")
+    if wire["chosen"] != "packed5" or probed \
+            or extra.get("insertion_kernel", "pallas") != "pallas":
+        fail(f"{name}: the default run took wire {wire['chosen']} and "
+             f"insertion route {extra.get('insertion_kernel')} and probed "
+             f"the link {probed} times")
+
+
+def choice_runs(tmp: str, card: str, cap: Capture, name: str, path: str,
+                flags: list, want: str, tail_kernels: set,
+                default: dict) -> None:
+    """Phase 7's device-side choices on one full-size input, on CUDA,
+    each byte-identical to the CPU run (the default CUDA run's bytes):
+    ``ecoli_scale`` at ``--wire delta8`` (delta8 slabs counted, fewer
+    bytes shipped than their packed5-equivalent, K1 launched) and at
+    ``--pileup scatter`` (no K1); ``amplicon_deep`` and ``longread_sv`` at
+    ``--insertion-kernel scatter`` (no K2 or K3) and ``pallas`` (the
+    kernel of the table's width); and ``S2C_TAIL_ENCODING`` ``sparse`` and
+    ``packed5`` on all three (the fetched bytes beside the default's)."""
+    from sam2consensus_torch.kernels.build import all_kernels
+
+    kernels = {k.name: k for k in all_kernels()}
+    runs = []
+    if name == "ecoli_scale":
+        runs += [("--wire delta8", ["--wire", "delta8"], None),
+                 ("--pileup scatter", [], None)]
+    else:
+        runs += [(f"--insertion-kernel {ik}", ["--insertion-kernel", ik],
+                  None) for ik in ("scatter", "pallas")]
+    runs += [(f"S2C_TAIL_ENCODING={enc}", [], enc)
+             for enc in ("sparse", "packed5")]
+    for label, extra_flags, enc in runs:
+        out = os.path.join(tmp, f"{name}_{label.split()[-1].split('=')[-1]}")
+        pileup = "scatter" if label == "--pileup scatter" else "pallas"
+        before = {n: k.launches for n, k in kernels.items()}
+        if enc:
+            os.environ["S2C_TAIL_ENCODING"] = enc
+        try:
+            wall = run_cli(["-i", path, "-o", out, *flags, "--decoder",
+                            "native", "--pileup", pileup, *extra_flags],
+                           None)
+        finally:
+            os.environ.pop("S2C_TAIL_ENCODING", None)
+        e = cap.stats[-1].extra
+        ran = {n: k.launches - before[n] for n, k in kernels.items()}
+        same = read_dir(out) == want
+        print(f"  {name} {label} [{card}]: wire={e['wire']['chosen']} "
+              f"pileup={e['pileup']} h2d={e['h2d_bytes']} B "
+              f"(raw rows {e['wire_rows_bytes']} B, packed5-equivalent "
+              f"{e['wire_packed5_bytes']} B, default run "
+              f"{default['h2d_bytes']} B) encoding="
+              f"{e['tail_encoding']['chosen']} fetch={e['tail_fetch_bytes']}"
+              f" B (default {default['tail_fetch_bytes']} B) "
+              f"insertion_kernel={e.get('insertion_kernel')} "
+              f"launches={ran} pileup_sec={e['pileup_sec']:.4f}s "
+              f"tail={e['tail_sec']:.4f}s wall={wall:.3f}s "
+              f"byte-identical={same}")
+        if not same:
+            fail(f"{name} {label}: output differs from the default run")
+        k1 = ran["pileup_rows"]
+        tail_ran = {n for n in ("insertion_vote", "insertion_table")
+                    if ran[n]}
+        if label == "--wire delta8":
+            if not e["pileup"].get("wire_delta8") or not k1 \
+                    or e["h2d_bytes"] >= e["wire_packed5_bytes"]:
+                fail(f"{name} {label}: {e['pileup']}, {k1} K1 launches, "
+                     f"{e['h2d_bytes']} B shipped against "
+                     f"{e['wire_packed5_bytes']} B packed5-equivalent")
+        elif label == "--pileup scatter":
+            if k1 or not any(k.startswith("scatter_w") for k in e["pileup"]):
+                fail(f"{name} {label}: {k1} K1 launches, {e['pileup']}")
+        elif label.startswith("--insertion-kernel"):
+            ik = extra_flags[1]
+            cols = cap.calls[f"tail:{name}"][1][9]
+            expect = set() if ik == "scatter" else {
+                "insertion_vote" if cols <= 512 else "insertion_table"}
+            if tail_ran != expect or e["insertion_kernel"] != ik:
+                fail(f"{name} {label}: launched {sorted(tail_ran)}, route "
+                     f"{e['insertion_kernel']}")
+        elif e["tail_encoding"]["chosen"] != enc or tail_ran != tail_kernels:
+            fail(f"{name} {label}: encoding {e['tail_encoding']}, launched "
+                 f"{sorted(tail_ran)} against {sorted(tail_kernels)}")
 
 
 def placement_of(extra: dict) -> str:
@@ -947,6 +1098,24 @@ def sync_free(cap: Capture) -> None:
     # K1 route) runs under it
     acc, batch = staged_batch(counts, starts, packed)
     acc.stage(batch)
+    # the same rows staged under delta8 (canonicalised and encoded on the
+    # host) and for the scatter strategy
+    acc8, batch8 = staged_batch(counts, starts, packed, wire="delta8")
+    acc8.stage(batch8)
+    acc_sc, batch_sc = staged_batch(counts, starts, packed,
+                                    strategy="scatter")
+    acc_sc.stage(batch_sc)
+    if not acc8.account.slabs.get("delta8"):
+        fail(f"the staged delta8 slab went raw: {acc8.account.extra()}")
+    # the position head's other encodings on each captured tail
+    heads = {}
+    for name in ("ecoli_scale", "amplicon_deep", "longread_sv"):
+        args = cap.calls["tail:" + name][1]
+        cap_ = fused.pad_cap(args[0].shape[0] + 1)
+        for enc, out_enc in (("sparse", cap_), ("packed5", "packed5")):
+            heads[f"{enc} tail on {name}"] = \
+                lambda args=args, out_enc=out_enc: fused.vote_packed(
+                    *args[:12], out_enc)
     # the host-count route: counts as the fused decode leaves them on the
     # host (set outside the check); the upload and the tail run under it
     host_accs, host_tails = {}, {}
@@ -959,6 +1128,11 @@ def sync_free(cap: Capture) -> None:
             ("K1 route", lambda: pk.accumulate_rows(scratch, starts, packed)),
             ("staged K1 route (PileupAccumulator.add: event wait, device "
              "pack, K1)", lambda: acc.add(batch)),
+            ("staged delta8 route (PileupAccumulator.add: event wait, "
+             "device unpack, device pack, K1)", lambda: acc8.add(batch8)),
+            ("staged scatter strategy (PileupAccumulator.add: event wait, "
+             "scatter_segments)", lambda: acc_sc.add(batch_sc)),
+            *heads.items(),
             ("K2 route", lambda: ik.vote_insertions_fused(*k2_args)),
             ("K3 route", lambda: ik.build_insertion_table_kernel(*k3_args)),
             *((f"vote_packed on {name}'s tail (cols="
@@ -984,11 +1158,25 @@ def sync_free(cap: Capture) -> None:
         torch.cuda.synchronize()
         print(f"  {what} under set_sync_debug_mode('error'): "
               f"no host synchronisation")
-    err = max_err(acc.counts, scratch[:acc.total_len])
-    print(f"  staged route counts vs the K1 route on the same rows: "
-          f"max_abs_err={err}")
-    if err:
-        fail("the staged route's counts differ from the K1 route's")
+    for what, other in (("staged route", acc), ("staged delta8 route", acc8),
+                        ("staged scatter strategy", acc_sc)):
+        err = max_err(other.counts, scratch[:other.total_len])
+        print(f"  {what} counts vs the K1 route on the same rows: "
+              f"max_abs_err={err}")
+        if err:
+            fail(f"the {what}'s counts differ from the K1 route's")
+    # not required sync-free: the insertion table by index_put_
+    for name in ("amplicon_deep", "longread_sv"):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fused.vote_packed_scatter(*cap.calls["tail:" + name][1])
+            synced = "no host synchronisation"
+        except RuntimeError as exc:
+            synced = f"synchronises ({str(exc).splitlines()[0]})"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"  the --insertion-kernel scatter tail on {name}: {synced}")
     for name, got in host_tails.items():
         want = fused.vote_packed(*cap.calls["tail:" + name][1])
         err = max_err(got, want)
@@ -1000,20 +1188,111 @@ def sync_free(cap: Capture) -> None:
             fail(f"the host-count route's tail differs on {name}")
 
 
-def staged_batch(counts, starts, packed):
-    """A CUDA ``PileupAccumulator`` over ``counts``' positions and a
-    ``SegmentBatch`` holding the rows ``(starts, packed)`` as raw codes
-    (PAD 255), as the decoder hands them over."""
+def staged_batch(counts, starts, packed, strategy="pallas", wire="packed5"):
+    """A CUDA ``PileupAccumulator`` over ``counts``' positions (with the
+    given strategy and wire) and a ``SegmentBatch`` holding the rows
+    ``(starts, packed)`` as raw codes (PAD 255), as the decoder hands them
+    over."""
     from sam2consensus_torch.encoder.events import SegmentBatch
     from sam2consensus_torch.ops.pileup import (PileupAccumulator,
                                                 unpack_nibbles)
 
     codes = unpack_nibbles(packed).cpu().numpy()
     codes[codes == 15] = 255
-    acc = PileupAccumulator(counts.shape[0] - 1, counts.device)
+    acc = PileupAccumulator(counts.shape[0] - 1, counts.device, strategy,
+                            wire)
     batch = SegmentBatch(buckets={codes.shape[1]: (
         starts.cpu().numpy(), codes)}, n_reads=len(codes))
     return acc, batch
+
+
+# -- the device-side choices at the main path's shapes ----------------------
+def choice_timing(cap: Capture, card: str) -> None:
+    """Times the run's device-side choices with CUDA events (mean of 20
+    calls after a warm-up): the delta8 unpack of the K1 slab (and its
+    host encode, host clock) with its bytes against packed5 and the raw
+    rows; the scatter strategy against K1's route on the same rows; the
+    position head's three encodings on ``ecoli_scale``'s counts (the
+    no-insertion tail) and in the whole tails of ``amplicon_deep`` (K2)
+    and ``longread_sv`` (K3), with their fetched bytes, beside the
+    ``--insertion-kernel scatter`` tail; then the constants the gates
+    read."""
+    from sam2consensus_torch.backends import torch_backend as tb
+    from sam2consensus_torch.ops import fused
+    from sam2consensus_torch.ops import pileup as pl
+    from sam2consensus_torch.ops.pileup_kernel import accumulate_rows
+    from sam2consensus_torch.wire import WireAccount, codec, encode_wire_slab
+    from sam2consensus_torch.wire.device import decode_slab, wire_lane
+
+    _, (counts, starts, packed), src = cap.calls["K1"]
+    codes = pl.unpack_nibbles(packed)
+    codes = torch.where(codes == 15, 255, codes)
+    n, w = codes.shape
+    host_s, host_c = starts.cpu().numpy(), codes.cpu().numpy()
+    enc_sec = min(_host_sec(lambda: encode_wire_slab(
+        "delta8", host_s, host_c, WireAccount())) for _ in range(3))
+    slab = encode_wire_slab("delta8", host_s, host_c, WireAccount())
+    if slab is None:
+        fail(f"{src}'s K1 slab did not take delta8")
+    lanes = [torch.from_numpy(np.ascontiguousarray(wire_lane(a))).to(
+        counts.device) for a in slab.arrays()]
+    meta = (slab.width, slab.sentinel, tuple(
+        a.dtype == np.uint16 for a in (slab.esc_delta, slab.trail,
+                                       slab.esc_idx)))
+    unpack = time_ms(lambda: decode_slab(*lanes, *meta), 20)
+    lane_bytes = sum(a.nbytes for a in slab.arrays())
+    raw = codec.packed5_slab_bytes(n, w)
+    print(f"  delta8 on {src}'s K1 slab ({n} x {w}) [{card}]: host encode "
+          f"{enc_sec * 1e3:.3f} ms ({enc_sec / (n * w) * 1e9:.4f} ns a "
+          f"cell), device unpack {unpack:.4f} ms ({unpack * 1e6 / (n * w):.4f}"
+          f" ns a cell); lanes {lane_bytes} B against packed5 {raw} B and "
+          f"the raw rows {n * (4 + w)} B (saved "
+          f"{(n * (4 + w) - lane_bytes) / (n * w):.4f} B a cell against the "
+          f"raw rows, priced at {codec.ROWS_SAVED_BYTES_PER_CELL}; "
+          f"{(raw - lane_bytes) / (n * w):.4f} against packed5, the "
+          f"reference's {codec.SAVED_BYTES_PER_CELL})")
+    scratch = torch.zeros_like(counts)
+    k1 = time_ms(lambda: accumulate_rows(scratch, starts,
+                                         pl.pack_codes(codes)), 20)
+    sc = time_ms(lambda: pl.scatter_segments(scratch, starts, codes,
+                                             counts.shape[0] - 1), 20)
+    print(f"  pileup strategies on that slab [{card}]: K1 route (device "
+          f"pack + K1) {k1:.4f} ms, scatter {sc:.4f} ms ({sc / k1:.2f}x)")
+
+    def heads(label, call, length):
+        cap_ = fused.pad_cap(length + 1)
+        parts = []
+        for enc, out_enc in (("dense", None), ("sparse", cap_),
+                             ("packed5", "packed5")):
+            ms = time_ms(lambda: call(out_enc), 10)
+            parts.append(f"{enc} {ms:.4f} ms {call(out_enc).numel()} B")
+        print(f"  {label} [{card}]: " + ", ".join(parts))
+
+    args = cap.calls["tail:ecoli_scale"][1]
+    heads(f"position head alone on ecoli_scale (L={args[0].shape[0]})",
+          lambda out_enc: fused.vote_packed_simple(
+              args[0], args[1], args[2], args[8], 0, False, out_enc),
+          args[0].shape[0])
+    for name in ("amplicon_deep", "longread_sv"):
+        args = cap.calls["tail:" + name][1]
+        heads(f"whole tail on {name} (L={args[0].shape[0]}, "
+              f"{args[3].numel()} sites x {args[9]} cols)",
+              lambda out_enc, args=args: fused.vote_packed(*args[:12],
+                                                           out_enc),
+              args[0].shape[0])
+        kern = time_ms(lambda: fused.vote_packed(*args), 10)
+        scat = time_ms(lambda: fused.vote_packed_scatter(*args), 10)
+        print(f"  insertion routes in {name}'s dense tail [{card}]: "
+              f"kernels {kern:.4f} ms, scatter {scat:.4f} ms")
+    print(f"  the gates' constants [{card}]: WIRE_HOST_NS="
+          f"{codec.WIRE_HOST_NS} WIRE_DEV_NS={codec.WIRE_DEV_NS} (--wire "
+          f"auto below {codec.wire_auto_cutoff_bps() / 1e6:.1f} MB/s) "
+          f"SPARSE_NS_PER_POS={tb.SPARSE_NS_PER_POS} P5_HOST_NS_PER_CHAR="
+          f"{tb.P5_HOST_NS_PER_CHAR} P5_DEV_NS_PER_CHAR="
+          f"{tb.P5_DEV_NS_PER_CHAR} ROWS_SAVED_BYTES_PER_CELL="
+          f"{codec.ROWS_SAVED_BYTES_PER_CELL} LINK_BPS_FLOOR="
+          f"{tb.LINK_BPS_FLOOR / 1e9:.1f} GB/s LINK_RT_SEC_CEIL="
+          f"{tb.LINK_RT_SEC_CEIL * 1e6:.1f} us")
 
 
 # -- phase 9: the C++ decoder against the Python encoder --------------------
@@ -1314,9 +1593,13 @@ def main() -> int:
         print(f"host rates [{card}]")
         host_rates(cap, card)
 
-        print("phase 8: the K1, K2 and K3 routes, both tails and the "
-              "host-count route make no host synchronisation")
+        print("phase 8: the K1, K2 and K3 routes, the staged K1, delta8 "
+              "and scatter routes, every tail encoding and the host-count "
+              "route make no host synchronisation")
         sync_free(cap)
+
+        print(f"the device-side choices at the main path's shapes [{card}]")
+        choice_timing(cap, card)
 
         print(f"phase 9: NativeReadEncoder vs ReadEncoder at full size "
               f"[{card}]")

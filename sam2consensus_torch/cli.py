@@ -4,10 +4,11 @@ Drop-in compatible with the reference CLI (reference
 ``sam2consensus.py:87-104``): the eight flags ``-i -c -n -o -p -m -f -d``
 keep their names, defaults and post-processing (``:108-138``), plus the
 reference package's one-shot flags ``--py2-compat``, ``--permissive``,
-``--segment-width``, ``--quiet``, ``--format``, ``--pileup``,
-``--decode-threads``, ``--decoder`` and ``--chunk-reads``; the progress
-messages match.  Input is SAM, gzip or BGZF SAM, or BAM,
-sniffed by magic bytes (``formats.open_alignment_input``).  The run goes
+``--segment-width``, ``--quiet``, ``--format``, ``--pileup``, ``--wire``,
+``--insertion-kernel``, ``--decode-threads``, ``--decoder`` and
+``--chunk-reads``; the progress messages match.  Input is SAM, gzip or
+BGZF SAM, or BAM, sniffed by magic bytes
+(``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
 way to choose another device.
 
@@ -79,10 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "inflated block-parallel on --decode-threads "
                         "workers) or BAM (block-parallel BGZF + binary "
                         "record decode, no SAM text materialized)")
-    p.add_argument("--pileup", choices=["auto", "pallas", "host"],
+    p.add_argument("--pileup", choices=["auto", "pallas", "scatter", "host"],
                    default="auto",
                    help="pileup strategy: pallas (the CUDA histogram "
-                        "kernel over the decoded rows), host (count in "
+                        "kernel over the decoded rows), scatter (a torch "
+                        "index_add_ of the rows' cells), host (count in "
                         "native code as the reads decode, ship the count "
                         "tensor once; the tail then runs where the "
                         "link-priced placement model says), or auto "
@@ -90,6 +92,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "bound measured on the card, else pallas; on "
                         "the CPU device, with the native library, host "
                         "counts at every genome size)")
+    p.add_argument("--wire", choices=["auto", "packed5", "delta8"],
+                   default="auto",
+                   help="host->device row wire codec: packed5 (the rows "
+                        "as decoded: int32 starts and the code bytes, "
+                        "packed into nibbles on the card), delta8 "
+                        "(delta-compressed starts with an escape lane, "
+                        "2-bit ACGT planes and trailing-pad elision, "
+                        "unpacked on the card into the same rows, so the "
+                        "counts are identical), or auto (default: delta8 "
+                        "on a link slower than the encode and unpack "
+                        "cost, packed5 otherwise and on the CPU device)")
+    p.add_argument("--insertion-kernel", dest="ins_kernel",
+                   choices=["auto", "scatter", "pallas"], default="auto",
+                   help="insertion table and vote on the card: the torch "
+                        "scatter and vote, or the CUDA kernels (the fused "
+                        "table + vote, or the table kernel and the torch "
+                        "vote for wide tables). auto (default) takes the "
+                        "kernels for a card tail inside the event-count "
+                        "window measured on the card, scatter otherwise")
     p.add_argument("--decode-threads", dest="decode_threads", type=int,
                    default=1,
                    help="host worker threads (multi-core hosts; 0 = auto, "
@@ -146,6 +167,8 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         segment_width=args.segment_width,
         decoder=args.decoder,
         pileup=args.pileup,
+        wire=args.wire,
+        ins_kernel=args.ins_kernel,
         decode_threads=args.decode_threads,
         chunk_reads=args.chunk_reads,
     )

@@ -4,8 +4,8 @@ Copy of ``RunConfig``, ``resolve_decode_threads``, ``default_prefix`` and
 ``normalize_outfolder`` from ``sam2consensus_tpu/config.py`` (field names
 kept, pinned by ``tests/test_torch_copies.py``).  The port honours
 ``thresholds, min_depth, fill, maxdel, prefix, nchar, outfolder, strict,
-py2_compat, input_format, segment_width, decoder, pileup (auto, pallas or
-host), decode_threads, chunk_reads``; the other fields exist so a config
+py2_compat, input_format, segment_width, decoder, pileup (auto, pallas,
+scatter or host), wire, decode_threads, ins_kernel, chunk_reads``; the other fields exist so a config
 built for the reference reads the same here.
 """
 

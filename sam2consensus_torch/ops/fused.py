@@ -1,17 +1,25 @@
 """The pipeline tail in one packed buffer: vote + insertion table + stats.
 
-Port of the dense-ASCII route of ``sam2consensus_tpu/ops/fused.py``.  The
-whole post-accumulation tail produces ONE uint8 buffer, fetched with one
-device-to-host copy:
+Port of ``sam2consensus_tpu/ops/fused.py``.  The whole post-accumulation
+tail produces ONE uint8 buffer, fetched with one device-to-host copy:
 
-    [ syms T*L | insertion syms T*Kp*Cp | contig cov sums C*4 | site cov Kp*4
-      | dash counts T*C*4 (device epilogue only) ]
+    [ position head | insertion syms T*Kp*Cp | contig cov sums C*4
+      | site cov Kp*4 | dash counts T*C*4 (device epilogue only) ]
 
-byte-identical to the JAX functions for the same inputs
-(``tests/test_torch_ops.py``).  The insertion vote runs in K2 when the
-padded column count ``cp`` is at most ``FUSED_VOTE_MAX_CP``; else in K3 and
-the torch vote (the JAX split at ``ops/fused.py:333-342``).  Both take the
-events straight, unsorted, and neither path synchronises with the host.
+where the position head is one of three encodings (``out_enc``,
+:func:`_syms_head`): dense ASCII ``T*L`` (``None``); sparse, an emit
+bitmask ``ceil(L/8)`` and ``T*cap`` characters compacted to the emitted
+positions (an int ``cap``); or packed5, a nibble plane ``T*ceil(L/2)`` and
+a high-bit plane ``T*ceil(L/8)`` of the vote's 5-bit codes (``"packed5"``).
+The buffers are byte-identical to the JAX functions for the same inputs
+(``tests/test_torch_ops.py``, ``tests/test_torch_encodings.py``).
+
+The insertion vote runs in the kernels (:func:`vote_packed`: K2 when the
+padded column count ``cp`` is at most ``FUSED_VOTE_MAX_CP``, else K3 and
+the torch vote, the JAX split at ``ops/fused.py:333-342``) or, under
+``--insertion-kernel scatter``, in the torch scatter and vote
+(:func:`vote_packed_scatter`).  All take the events straight, unsorted,
+and no route synchronises with the host.
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ import torch
 
 from .insertion_kernel import (FUSED_VOTE_MAX_CP, build_insertion_table_kernel,
                                vote_insertions_fused)
-from .insertions import vote_insertions
-from .vote import vote_block
+from .insertions import build_insertion_table, vote_insertions
+from .vote import emit_gate, vote_block
 
 
 def next_pow2(n: int) -> int:
@@ -90,24 +98,93 @@ def contig_dash_counts(syms: torch.Tensor, offsets: torch.Tensor,
     return (prefix[:, offsets[1:]] - prefix[:, offsets[:-1]]).to(torch.int32)
 
 
-def _epilogue_sections(syms, offsets, epilogue: bool) -> list:
+def _pack_bits_le(mask: torch.Tensor) -> torch.Tensor:
+    """Bool ``[L]`` -> uint8 ``[ceil(L/8)]``, little bit order (the host
+    inverse is ``np.unpackbits(..., bitorder="little")``)."""
+    m = mask.to(torch.int32)
+    pad = (-m.shape[0]) % 8
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    bit = torch.arange(8, dtype=torch.int32, device=m.device)
+    return (m.reshape(-1, 8) << bit).sum(dim=1).to(torch.uint8)
+
+
+def _sparse_syms(syms: torch.Tensor, emit: torch.Tensor, cap: int):
+    """The per-threshold symbols compacted to the emitted positions: the
+    emit bitmask (threshold-independent) and ``[T, cap]`` characters.  The
+    compaction is a scatter into ``cap + 1`` columns, whose last one takes
+    every unemitted position, then a slice (a mask index would
+    synchronise)."""
+    bits = _pack_bits_le(emit)
+    idx = torch.cumsum(emit.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    tgt = torch.where(emit, idx, cap).clamp(max=cap).long()
+    compact = torch.zeros((syms.shape[0], cap + 1), dtype=torch.uint8,
+                          device=syms.device)
+    compact.scatter_(1, tgt.expand(syms.shape[0], -1), syms)
+    return bits, compact[:, :cap]
+
+
+def _pack5_planes(code5: torch.Tensor):
+    """``[T, L]`` 5-bit symbol codes -> a nibble plane ``[T, ceil(L/2)]``
+    (even positions in the low nibble) and a high-bit plane
+    ``[T, ceil(L/8)]`` (little bit order): 0.625 bytes a character."""
+    c = code5.to(torch.int32)
+    t, length = c.shape
+    pad = (-length) % 8
+    if pad:
+        c = torch.nn.functional.pad(c, (0, pad))
+    pairs = (c & 15).reshape(t, -1, 2)
+    nibs = (pairs[..., 0] | (pairs[..., 1] << 4)).to(torch.uint8)
+    bit = torch.arange(8, dtype=torch.int32, device=c.device)
+    hbits = ((c >> 4).reshape(t, -1, 8) << bit).sum(dim=-1).to(torch.uint8)
+    return nibs[:, :(length + 1) // 2], hbits[:, :(length + 7) // 8]
+
+
+def sym_space(out_enc) -> str:
+    """Copy: the vote's symbol space for a tail encoding: packed5 votes in
+    5-bit codes (``ops.vote.IUPAC_MASK_LUT5``), dense and sparse in
+    ASCII."""
+    return "code5" if out_enc == "packed5" else "ascii"
+
+
+def dash_code(out_enc) -> int:
+    """Copy: ``'-'`` in the vote's symbol space (1 in code5)."""
+    return 1 if out_enc == "packed5" else ord("-")
+
+
+def _syms_head(syms, cov, min_depth: int, out_enc) -> list:
+    """The position-symbol section of the packed buffer: ``None`` dense
+    ``[T*L]``; an int, sparse (emit bitmask + characters compacted to that
+    capacity); ``"packed5"``, the 5-bit planes (``syms`` in code5)."""
+    if out_enc is None:
+        return [syms.reshape(-1)]
+    if out_enc == "packed5":
+        return [p.reshape(-1) for p in _pack5_planes(syms)]
+    bits, compact = _sparse_syms(syms, emit_gate(cov, min_depth), out_enc)
+    return [bits, compact.reshape(-1)]
+
+
+def _epilogue_sections(syms, offsets, out_enc, epilogue: bool) -> list:
     if not epilogue:
         return []
     return [_bytes_of_i32(contig_dash_counts(syms, offsets,
-                                             ord("-")).reshape(-1))]
+                                             dash_code(out_enc)).reshape(-1))]
 
 
 def vote_packed_simple(counts: torch.Tensor, thresholds: Sequence[float],
                        offsets: torch.Tensor, min_depth: int,
-                       fill_code: int = 0,
-                       epilogue: bool = False) -> torch.Tensor:
-    """No-insertion tail: position vote + contig sums, one packed buffer."""
-    syms, cov = vote_block(counts, thresholds, min_depth, "ascii", fill_code)
+                       fill_code: int = 0, epilogue: bool = False,
+                       out_enc=None) -> torch.Tensor:
+    """No-insertion tail: position vote + contig sums, one packed buffer;
+    ``out_enc`` the position head's encoding (:func:`_syms_head`)."""
+    syms, cov = vote_block(counts, thresholds, min_depth, sym_space(out_enc),
+                           fill_code)
     contig_sums, _ = _tail_stats(
         cov, offsets, torch.full((1,), -1, dtype=torch.int32,
                                  device=cov.device))
-    return torch.cat([syms.reshape(-1), _bytes_of_i32(contig_sums)]
-                     + _epilogue_sections(syms, offsets, epilogue))
+    return torch.cat(_syms_head(syms, cov, min_depth, out_enc)
+                     + [_bytes_of_i32(contig_sums)]
+                     + _epilogue_sections(syms, offsets, out_enc, epilogue))
 
 
 def vote_packed(counts: torch.Tensor, thresholds: Sequence[float],
@@ -115,21 +192,58 @@ def vote_packed(counts: torch.Tensor, thresholds: Sequence[float],
                 n_cols: torch.Tensor, ev_key: torch.Tensor,
                 ev_col: torch.Tensor, ev_code: torch.Tensor,
                 min_depth: int, cp: int, fill_code: int = 0,
-                epilogue: bool = False) -> torch.Tensor:
-    """Position vote + insertion table + insertion vote + stats, packed.
+                epilogue: bool = False, out_enc=None) -> torch.Tensor:
+    """Position vote + insertion table + insertion vote + stats, packed,
+    with the insertion kernels (the reference's
+    ``_vote_packed_pallas_body``): K2 up to ``FUSED_VOTE_MAX_CP`` padded
+    columns, else K3 and the torch vote.
 
     ``site_keys``/``n_cols`` are the padded ``[Kp]`` site arrays (flat
     position, -1 for end-of-contig and pad sites); ``cp`` is the padded
-    column count; events key into ``[0, Kp)``."""
-    syms, cov = vote_block(counts, thresholds, min_depth, "ascii", fill_code)
-    contig_sums, site_cov = _tail_stats(cov, offsets, site_keys)
-    if cp <= FUSED_VOTE_MAX_CP:
-        ins_syms = vote_insertions_fused(ev_key, ev_col, ev_code, site_cov,
+    column count; events key into ``[0, Kp)``; ``out_enc`` the position
+    head's encoding."""
+    def table_vote(site_cov):
+        if cp <= FUSED_VOTE_MAX_CP:
+            return vote_insertions_fused(ev_key, ev_col, ev_code, site_cov,
                                          n_cols, cp, thresholds)
-    else:
         table = build_insertion_table_kernel(ev_key, ev_col, ev_code,
                                              site_keys.shape[0], cp)
-        ins_syms = vote_insertions(table, site_cov, n_cols, thresholds)
-    return torch.cat([syms.reshape(-1), ins_syms.reshape(-1),
-                      _bytes_of_i32(contig_sums), _bytes_of_i32(site_cov)]
-                     + _epilogue_sections(syms, offsets, epilogue))
+        return vote_insertions(table, site_cov, n_cols, thresholds)
+
+    return _packed_with_insertions(counts, thresholds, offsets, site_keys,
+                                   min_depth, fill_code, epilogue, out_enc,
+                                   table_vote)
+
+
+def vote_packed_scatter(counts: torch.Tensor, thresholds: Sequence[float],
+                        offsets: torch.Tensor, site_keys: torch.Tensor,
+                        n_cols: torch.Tensor, ev_key: torch.Tensor,
+                        ev_col: torch.Tensor, ev_code: torch.Tensor,
+                        min_depth: int, cp: int, fill_code: int = 0,
+                        epilogue: bool = False,
+                        out_enc=None) -> torch.Tensor:
+    """:func:`vote_packed` with the table by the torch scatter
+    (``ops.insertions.build_insertion_table``) and the torch vote: the
+    ``--insertion-kernel scatter`` route (the reference's
+    ``_vote_packed_body``)."""
+    def table_vote(site_cov):
+        table = build_insertion_table(site_keys.shape[0], cp, ev_key, ev_col,
+                                      ev_code)
+        return vote_insertions(table, site_cov, n_cols, thresholds)
+
+    return _packed_with_insertions(counts, thresholds, offsets, site_keys,
+                                   min_depth, fill_code, epilogue, out_enc,
+                                   table_vote)
+
+
+def _packed_with_insertions(counts, thresholds, offsets, site_keys,
+                            min_depth, fill_code, epilogue, out_enc,
+                            table_vote) -> torch.Tensor:
+    syms, cov = vote_block(counts, thresholds, min_depth, sym_space(out_enc),
+                           fill_code)
+    contig_sums, site_cov = _tail_stats(cov, offsets, site_keys)
+    ins_syms = table_vote(site_cov)
+    return torch.cat(_syms_head(syms, cov, min_depth, out_enc)
+                     + [ins_syms.reshape(-1), _bytes_of_i32(contig_sums),
+                        _bytes_of_i32(site_cov)]
+                     + _epilogue_sections(syms, offsets, out_enc, epilogue))

@@ -3,13 +3,16 @@
 Port of the single-device path of ``sam2consensus_tpu/ops/pileup.py``.
 On CUDA each bucket of a batch is staged on the decode prefetch thread
 (:meth:`PileupAccumulator.stage`): its real rows' starts and raw uint8
-codes go into a pinned slot and cross to the card on a side stream.  The
-consumer's stream waits on that copy's event (on the device, not the
-host), packs the codes into nibbles with torch ops (:func:`pack_codes`)
-and runs the histogram kernel (K1, ``ops/pileup_kernel.py``).  On the CPU
-``add`` packs with numpy (:func:`pack_nibbles`) and runs K1's plain
-PyTorch version :func:`scatter_segments_packed`.  The count tensor is
-updated in place (no second ``[L, 6]`` buffer per slab).
+codes (or, under ``--wire delta8``, the encoded slab's lanes) go into a
+pinned slot and cross to the card on a side stream.  The consumer's
+stream waits on that copy's event (on the device, not the host), unpacks
+a delta8 slab (``wire.device``) and counts: ``pallas`` packs the codes
+into nibbles with torch ops (:func:`pack_codes`) and runs the histogram
+kernel (K1, ``ops/pileup_kernel.py``), ``scatter`` runs
+:func:`scatter_segments`.  On the CPU ``add`` runs the same steps on host
+tensors, with K1's plain PyTorch version :func:`scatter_segments_packed`.
+The count tensor is updated in place (no second ``[L, 6]`` buffer per
+slab).
 
 :class:`HostPileupAccumulator` is the other strategy (``--pileup host``):
 the counts accumulate on the host, in the C++ decode pass itself
@@ -99,6 +102,43 @@ def scatter_segments_packed(counts: torch.Tensor, starts: torch.Tensor,
     return counts.index_put_((pos, code), ones, accumulate=True)
 
 
+#: copy: cap on expanded scatter cells (rows x width) a call, bounding the
+#: int64 index temporary to 64 MB
+SCATTER_CELL_BUDGET = 1 << 23
+
+
+def iter_row_slices(n_rows: int, width: int, multiple_of: int = 1):
+    """Copy: ``(lo, hi)`` row slices of at most SCATTER_CELL_BUDGET cells."""
+    step = max(multiple_of, (SCATTER_CELL_BUDGET // width)
+               // multiple_of * multiple_of)
+    for lo in range(0, n_rows, step):
+        yield lo, min(n_rows, lo + step)
+
+
+def scatter_segments(counts: torch.Tensor, starts: torch.Tensor,
+                     codes: torch.Tensor, sacrificial: int) -> torch.Tensor:
+    """The ``--pileup scatter`` strategy, in place: one ``index_add_`` of
+    ones over the flat cell index ``(start_r + j) * 6 + code_r[j]`` per
+    slice of :func:`iter_row_slices`.  The reference's
+    ``_scatter_segments_packed`` (an XLA scatter-add) in torch: PAD cells
+    (any code past the alphabet: 255 raw, 15 unpacked) count into row
+    ``sacrificial`` (inside the padded count tensor, never read), as
+    there, instead of being filtered by a mask, which would synchronise
+    with the host on CUDA.  ``codes`` uint8 ``[S, W]``; returns
+    ``counts``."""
+    w = codes.shape[1]
+    flat = counts.view(-1)
+    col = torch.arange(w, device=codes.device)
+    for lo, hi in iter_row_slices(codes.shape[0], w):
+        cd = codes[lo:hi]
+        cell = (starts[lo:hi].long()[:, None] + col) * NUM_SYMBOLS + cd
+        idx = torch.where(cd < NUM_SYMBOLS, cell, sacrificial * NUM_SYMBOLS)
+        flat.index_add_(0, idx.reshape(-1),
+                        torch.ones(idx.numel(), dtype=counts.dtype,
+                                   device=counts.device))
+    return counts
+
+
 def real_rows(codes: np.ndarray) -> int:
     """Rows before the slab's all-PAD tail (the encoder pads a bucket's row
     count to a power of two with all-PAD rows at start 0)."""
@@ -111,22 +151,24 @@ def real_rows(codes: np.ndarray) -> int:
 
 class StagedRows(NamedTuple):
     """One bucket's real rows on the card, as the prefetch thread staged
-    them: ``starts`` int32 ``[n]`` and raw ``codes`` uint8 ``[n, W]``,
-    allocated on the copy stream; ``ready`` is recorded there after the
-    copies."""
-    starts: torch.Tensor
-    codes: torch.Tensor
+    them: ``operands``, the tensors that crossed (int32 starts ``[n]`` and
+    raw uint8 codes ``[n, W]``, or a delta8 slab's six lanes), allocated
+    on the copy stream; ``ready``, recorded there after the copies;
+    ``meta``, a delta8 slab's ``(width, sentinel, u16)``
+    (``wire.device.decode_slab``), None for raw rows."""
+    operands: tuple
     ready: torch.cuda.Event
+    meta: Optional[tuple] = None
 
 
 class _PinnedSlot:
-    """A page-locked host buffer pair, grown to the largest slab and
-    reused.  ``copied`` is the event of the last host-to-device copy that
-    read it: the slot is written again only after that copy completed."""
+    """Page-locked host buffers, one per array of a staged bucket, each
+    grown to the largest it held and reused.  ``copied`` is the event of
+    the last host-to-device copy that read them: the slot is written
+    again only after that copy completed."""
 
     def __init__(self):
-        self.starts = torch.empty(0, dtype=torch.int32, pin_memory=True)
-        self.codes = torch.empty(0, dtype=torch.uint8, pin_memory=True)
+        self.buffers: list = []
         self.copied: Optional[torch.cuda.Event] = None
 
     def wait(self) -> None:
@@ -135,41 +177,62 @@ class _PinnedSlot:
         if self.copied is not None:
             self.copied.synchronize()
 
-    def fill(self, starts: np.ndarray, codes: np.ndarray):
-        """Copy ``starts`` [n] and ``codes`` [n, W] in (after
-        :meth:`wait`); returns the pinned views."""
-        n, w = codes.shape
-        if self.starts.numel() < n:
-            self.starts = torch.empty(n, dtype=torch.int32, pin_memory=True)
-        if self.codes.numel() < n * w:
-            self.codes = torch.empty(n * w, dtype=torch.uint8,
-                                     pin_memory=True)
-        st = self.starts[:n]
-        cd = self.codes[:n * w].view(n, w)
-        st.copy_(torch.from_numpy(starts))
-        cd.copy_(torch.from_numpy(codes))
-        return st, cd
+    def fill(self, arrays) -> list:
+        """Copy the numpy ``arrays`` in (after :meth:`wait`); returns the
+        pinned views, of the arrays' dtypes and shapes."""
+        views = []
+        for i, a in enumerate(arrays):
+            if i == len(self.buffers):
+                self.buffers.append(torch.empty(0, dtype=torch.uint8,
+                                                pin_memory=True))
+            if self.buffers[i].numel() < a.nbytes:
+                self.buffers[i] = torch.empty(a.nbytes, dtype=torch.uint8,
+                                              pin_memory=True)
+            src = torch.from_numpy(np.ascontiguousarray(a))
+            view = self.buffers[i][:a.nbytes].view(src.dtype).view(a.shape)
+            view.copy_(src)
+            views.append(view)
+        return views
 
 
 class PileupAccumulator:
     """Streaming single-device accumulator of segment batches.
 
-    CUDA: :meth:`stage` (on the decode prefetch thread) ships each
-    bucket's real rows through two pinned slots on a copy stream, and
-    :meth:`add` (on the consumer) waits for them on its own stream, packs
-    them on the card and launches K1.  An unstaged batch is staged by
-    ``add`` itself first.  CPU: ``stage`` does nothing, and ``add`` packs
-    with numpy and runs K1's plain version
-    (``ops.pileup_kernel.accumulate_rows`` picks by the tensor's device).
-    ``counts`` is the ``[total_len, 6]`` view.
+    ``strategy``: ``pallas`` packs each bucket's rows into nibbles and
+    runs K1 (``ops.pileup_kernel.accumulate_rows``, its plain version on
+    the CPU), ``scatter`` runs :func:`scatter_segments` on the raw codes.
+    ``wire``: the rows cross as they are (``packed5``, the run's default
+    codec; on the card they are packed there) or, under ``delta8``,
+    canonicalised and encoded (``wire.codec``) and unpacked on the device
+    (``wire.device.decode_slab``); a slab that would not shrink goes raw.
+
+    CUDA: :meth:`stage` (on the decode prefetch thread) trims, encodes and
+    ships each bucket through two pinned slots on a copy stream;
+    :meth:`add` (on the consumer) waits for the copies on its own stream,
+    unpacks a delta8 slab and counts, with no host synchronisation.  An
+    unstaged batch is staged by ``add`` itself first.  CPU: ``stage`` does
+    nothing, and ``add`` runs the same steps on host tensors.  The count
+    tensor is updated in place; ``counts`` is the ``[total_len, 6]`` view.
+    ``strategy_used`` counts ``<strategy>_w<W>`` a counted bucket and
+    ``wire_delta8`` a delta8 slab; ``account`` is the link bill.
     """
 
     #: pinned slots, taken in turn by the staged buckets
     SLOTS = 2
 
-    def __init__(self, total_len: int, device):
+    def __init__(self, total_len: int, device, strategy: str = "pallas",
+                 wire: str = "packed5"):
+        from ..wire import WireAccount
+
+        if strategy not in ("pallas", "scatter"):
+            raise ValueError(f"pileup strategy {strategy!r}: the device "
+                             f"accumulator runs pallas and scatter")
         self.total_len = total_len
         self.device = torch.device(device)
+        self.strategy = strategy
+        self.wire = wire
+        self.strategy_used: dict = {}
+        self.account = WireAccount()
         self.padded_len = padded_total_len(total_len)
         self._counts = torch.zeros((self.padded_len, NUM_SYMBOLS),
                                    dtype=torch.int32, device=self.device)
@@ -178,41 +241,61 @@ class PileupAccumulator:
             self._slots = [_PinnedSlot() for _ in range(self.SLOTS)]
             self._next_slot = 0
 
+    def _host_rows(self, starts: np.ndarray, codes: np.ndarray):
+        """A bucket's real rows as they cross the link, ``(arrays, meta)``
+        (``StagedRows.meta``), billed to ``account``; None when the bucket
+        has no real row."""
+        from ..wire import encode_wire_slab
+        from ..wire.device import wire_lane
+
+        n = real_rows(codes)
+        if n == 0:
+            return None
+        starts, codes = starts[:n], codes[:n]
+        slab = encode_wire_slab(self.wire, starts, codes, self.account)
+        if slab is None:
+            arrays, meta, codec = (starts, codes), None, "packed5"
+        else:
+            arrays = tuple(wire_lane(a) for a in slab.arrays())
+            meta = (slab.width, slab.sentinel,
+                    tuple(a.dtype == np.uint16 for a in
+                          (slab.esc_delta, slab.trail, slab.esc_idx)))
+            codec = "delta8"
+        self.account.add(codec, sum(a.nbytes for a in arrays), n,
+                         codes.shape[1])
+        return arrays, meta
+
     def stage(self, batch: SegmentBatch) -> None:
-        """Ship the batch's real rows to the card (CUDA only): trim, copy
-        into the next pinned slot, copy to the device ``non_blocking`` on
-        the copy stream and record an event there; the results land in
-        ``batch.staged`` (``None`` for a bucket with no real row).  Runs on
-        the decode prefetch thread."""
+        """Ship the batch's real rows to the card (CUDA only): trim (and
+        encode under delta8), copy into the next pinned slot, copy to the
+        device ``non_blocking`` on the copy stream and record an event
+        there; the results land in ``batch.staged`` (``None`` for a bucket
+        with no real row).  Runs on the decode prefetch thread."""
         if self.device.type != "cuda":
             return
         with torch.cuda.device(self.device):
             for w, (starts, codes) in batch.buckets.items():
-                n = real_rows(codes)
-                if n == 0:
+                rows = self._host_rows(starts, codes)
+                if rows is None:
                     batch.staged[w] = None
                     continue
                 slot = self._slots[self._next_slot]
                 self._next_slot = (self._next_slot + 1) % len(self._slots)
                 slot.wait()
-                batch.staged[w] = self._ship(slot, *slot.fill(starts[:n],
-                                                              codes[:n]))
+                batch.staged[w] = self._ship(slot, slot.fill(rows[0]),
+                                             rows[1])
 
-    def _ship(self, slot: _PinnedSlot, starts: torch.Tensor,
-              codes: torch.Tensor) -> StagedRows:
-        """Enqueue the pinned rows' copies to the card on the copy stream
-        and record their event (also the slot's ``copied``)."""
+    def _ship(self, slot: _PinnedSlot, pinned: list, meta) -> StagedRows:
+        """Enqueue the pinned arrays' copies to the card on the copy
+        stream and record their event (also the slot's ``copied``)."""
         with torch.cuda.stream(self._copy_stream):
-            d_starts = starts.to(self.device, non_blocking=True)
-            d_codes = codes.to(self.device, non_blocking=True)
+            ops = tuple(t.to(self.device, non_blocking=True) for t in pinned)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
         slot.copied = ready
-        return StagedRows(d_starts, d_codes, ready)
+        return StagedRows(ops, ready, meta)
 
     def add(self, batch: SegmentBatch) -> None:
-        from .pileup_kernel import accumulate_rows
-
         if self.device.type == "cuda":
             if batch.buckets and not batch.staged:
                 self.stage(batch)
@@ -222,25 +305,40 @@ class PileupAccumulator:
                     self._consume(rows, stream)
             return
         for _w, (starts, codes) in sorted(batch.buckets.items()):
-            n = real_rows(codes)
-            if n == 0:
-                continue
-            st = torch.from_numpy(np.ascontiguousarray(starts[:n]))
-            pk = torch.from_numpy(pack_nibbles(codes[:n]))
-            accumulate_rows(self._counts, st, pk)
+            rows = self._host_rows(starts, codes)
+            if rows is not None:
+                self._count(tuple(map(torch.from_numpy, rows[0])), rows[1])
 
     def _consume(self, rows: StagedRows, stream) -> None:
         """The consumer's part of a staged bucket: a device-side wait for
-        its copies, then the device pack and the K1 route, all enqueued
+        its copies, then the unpack (delta8) and the count, all enqueued
         on ``stream`` with no host synchronisation."""
-        from .pileup_kernel import accumulate_rows
-
         stream.wait_event(rows.ready)
         # allocated on the copy stream, used here: the caching allocator
         # must not hand their memory out again before this stream is done
-        rows.starts.record_stream(stream)
-        rows.codes.record_stream(stream)
-        accumulate_rows(self._counts, rows.starts, pack_codes(rows.codes))
+        for t in rows.operands:
+            t.record_stream(stream)
+        self._count(rows.operands, rows.meta)
+
+    def _count(self, operands: tuple, meta) -> None:
+        """Count one bucket's rows: ``operands`` raw ``(starts, codes)``,
+        or a delta8 slab's lanes with its ``meta``."""
+        from ..wire.device import decode_slab
+        from .pileup_kernel import accumulate_rows
+
+        if meta is None:
+            starts, codes = operands
+        else:
+            starts, codes = decode_slab(*operands, *meta)
+            self._note("wire_delta8")
+        if self.strategy == "scatter":
+            scatter_segments(self._counts, starts, codes, self.total_len)
+        else:
+            accumulate_rows(self._counts, starts, pack_codes(codes))
+        self._note(f"{self.strategy}_w{codes.shape[1]}")
+
+    def _note(self, key: str) -> None:
+        self.strategy_used[key] = self.strategy_used.get(key, 0) + 1
 
     def sync(self) -> None:
         if self.device.type == "cuda":

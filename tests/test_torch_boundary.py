@@ -49,7 +49,7 @@ print(len(names))
 """
 
 
-#: modules of the host decode, staging, host-count and placement paths,
+#: modules of the host decode, staging, wire, host-count and placement paths,
 #: named so that the walk cannot miss them
 REQUIRED = ["sam2consensus_torch.native",
             "sam2consensus_torch.ingest",
@@ -60,6 +60,8 @@ REQUIRED = ["sam2consensus_torch.native",
             "sam2consensus_torch.formats.bam",
             "sam2consensus_torch.io.sam",
             "sam2consensus_torch.wire.pipeline",
+            "sam2consensus_torch.wire.codec",
+            "sam2consensus_torch.wire.device",
             "sam2consensus_torch.encoder.parallel_decode",
             "sam2consensus_torch.utils.linkprobe",
             "sam2consensus_torch.backends.torch_backend"]

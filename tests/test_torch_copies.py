@@ -308,6 +308,60 @@ def test_fused_helpers():
     buf = np.random.default_rng(1).integers(0, 256, 40).astype(np.uint8)
     _same(t_fused.unpack_i32(buf, 10), r_fused.unpack_i32(buf, 10))
     assert t_ik.FUSED_VOTE_MAX_CP == r_pi.FUSED_VOTE_MAX_CP
+    for out_enc in (None, 1024, "packed5"):
+        assert t_fused.sym_space(out_enc) == r_fused._sym_space(out_enc)
+        assert t_fused.dash_code(out_enc) == r_fused._dash_code(out_enc)
+
+
+def test_wire_codec_constants_and_encode():
+    """The codec's lane constants, and ``encode_slab`` on an unsorted
+    slab with escapes, field by field."""
+    from sam2consensus_torch.wire import codec as t_codec
+    from sam2consensus_tpu.wire import codec as r_codec
+
+    for name in ("CODECS", "DELTA_ESCAPE", "SAVED_BYTES_PER_CELL"):
+        assert getattr(t_codec, name) == getattr(r_codec, name)
+    for name in ("WIRE2_TO_CODE", "CODE_TO_WIRE2", "IS_ACGT"):
+        _same(getattr(t_codec, name), getattr(r_codec, name))
+    rng = np.random.default_rng(12)
+    starts = rng.integers(0, 1 << 18, 96).astype(np.int32)
+    codes = rng.choice(np.array([0, 1, 2, 3, 4, 5, 255], np.uint8),
+                       (96, 64), p=[.02, .24, .24, .24, .02, .24, 0])
+    codes[:, 50:] = 255
+    for chunks in (1, 2, 3):
+        got = t_codec.encode_slab(starts, codes, chunks)
+        want = r_codec.encode_slab(starts, codes, chunks)
+        if want is None:
+            assert got is None
+            continue
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if isinstance(b, np.ndarray):
+                _same(a, b)
+            else:
+                assert a == b, f.name
+
+
+@pytest.mark.parametrize("mode", ["auto", "packed5", "delta8"])
+def test_wire_resolve_codec(monkeypatch, mode):
+    """``resolve_codec`` with the port's constants set to the reference's
+    defaults (its saving a cell priced against packed5 in place of the
+    port's against the raw rows) and none of the reference's environment
+    overrides."""
+    from sam2consensus_torch.wire import codec as t_codec
+    from sam2consensus_tpu.wire import codec as r_codec
+
+    for key in ("S2C_WIRE", "S2C_WIRE_DEV_NS", "S2C_WIRE_HOST_NS",
+                "S2C_WIRE_SAVED_BPC"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(t_codec, "WIRE_DEV_NS", 1.5)
+    monkeypatch.setattr(t_codec, "WIRE_HOST_NS", 2.0)
+    monkeypatch.setattr(t_codec, "ROWS_SAVED_BYTES_PER_CELL",
+                        r_codec.SAVED_BYTES_PER_CELL)
+    for link_free in (False, True):
+        for bps in (None, 1e6, 71e6, 72e6, 38.2e9):
+            assert t_codec.resolve_codec(mode, bps, link_free) == \
+                r_codec.resolve_codec(mode, bps, link_free)
 
 
 def test_simulate(tmp_path):

@@ -5,8 +5,10 @@ jax``, on the single-device corpus of ``tests/test_differential.py``, and
 to the pinned ``formats_*`` FASTAs.
 
 The CPU device is link-free, so ``--pileup auto`` takes the host counts
-and the native tail there.  The tests that hold the plain versions of the
-kernels end to end therefore pin ``--pileup pallas``; the ``host`` and
+and the native tail there, and ``--insertion-kernel auto`` the torch
+scatter.  The tests that hold the plain versions of the kernels end to
+end therefore pin ``--pileup pallas --insertion-kernel pallas``
+(:data:`PLAIN`); the ``host`` and
 ``auto`` cases run beside them, and the one-shot flags (``--permissive``,
 ``--segment-width``, ``--chunk-reads``, ``--quiet``, ``--pileup``,
 ``--decode-threads``) are held against the reference here too."""
@@ -46,6 +48,14 @@ def _differential_corpus():
 
 HANDCRAFTED = _differential_corpus()
 DECODERS = ["native", "py"]
+#: the flags that run the plain versions of K1, K2 and K3 on the CPU
+PLAIN = ["--pileup", "pallas", "--insertion-kernel", "pallas"]
+
+
+def _pinned(pileup: str) -> list:
+    """``--pileup pileup``, with the kernels' insertion route under
+    ``pallas`` (:data:`PLAIN`)."""
+    return PLAIN if pileup == "pallas" else ["--pileup", pileup]
 
 
 #: reference CLI runs so far, and the tests whose only JAX-package work is
@@ -189,8 +199,7 @@ def test_cli_byte_identical(tmp_path, references, decoder_ran, name, text,
     with open(path, "w") as fh:
         fh.write(text)
     got, log = _run(t_cli.main, path, str(tmp_path / "torch"),
-                    flags + ["--decoder", decoder, "--pileup", "pallas"],
-                    device="cpu")
+                    flags + ["--decoder", decoder] + PLAIN, device="cpu")
     assert decoder_ran == [decoder]
     want_cpu, want_jax, log_cpu = _references(references, tmp_path, name,
                                               path, flags)
@@ -241,8 +250,8 @@ def test_cli_byte_identical_pileup(tmp_path, references, decoder_ran, name,
 @pytest.mark.parametrize("ext", [".sam", ".sam.gz", ".plain.sam.gz"])
 def test_formats_fixtures(tmp_path, decoder_ran, fam, ext, decoder):
     got, _ = _run(t_cli.main, os.path.join(DATA, f"formats_{fam}{ext}"),
-                  str(tmp_path / "o"), ["--decoder", decoder, "--pileup",
-                                        "pallas"], device="cpu")
+                  str(tmp_path / "o"), ["--decoder", decoder] + PLAIN,
+                  device="cpu")
     assert decoder_ran == [decoder]
     with open(os.path.join(DATA, f"formats_{fam}.expected.fasta"),
               "rb") as fh:
@@ -264,7 +273,8 @@ def _rendered(backend, text, tcfg):
 ])
 def test_permissive_mode_identical(text):
     got = _rendered(TorchBackend("cpu"), text,
-                    TConfig(prefix="p", strict=False, pileup="pallas"))
+                    TConfig(prefix="p", strict=False, pileup="pallas",
+                            ins_kernel="pallas"))
     want = _rendered(CpuBackend(), text, RConfig(prefix="p", strict=False))
     assert got == want
 
@@ -278,8 +288,8 @@ def test_permissive_mode_identical(text):
 def test_strict_errors_match_oracle(record, exc):
     text = sam_text([("r", 6)], [record])
     with pytest.raises(exc) as e_torch:
-        _rendered(TorchBackend("cpu"), text, TConfig(prefix="p",
-                                                     pileup="pallas"))
+        _rendered(TorchBackend("cpu"), text, TConfig(
+            prefix="p", pileup="pallas", ins_kernel="pallas"))
     with pytest.raises(exc) as e_cpu:
         _rendered(CpuBackend(), text, RConfig(prefix="p"))
     assert str(e_torch.value) == str(e_cpu.value)
@@ -326,10 +336,10 @@ def test_new_flags_parse_errors_equal_the_reference(capsys, argv):
     assert msgs[0].split(": error: ")[1] == msgs[1].split(": error: ")[1]
 
 
-@pytest.mark.parametrize("value", ["bogus", "scatter", "mxu"])
+@pytest.mark.parametrize("value", ["bogus", "mxu"])
 def test_pileup_rejects_what_the_port_lacks(capsys, value):
-    """``scatter`` and ``mxu`` are queued in the port: its parser names
-    the strategies it runs."""
+    """``mxu`` is queued in the port: its parser names the strategies it
+    runs, in the reference's order."""
     with pytest.raises(SystemExit) as exc:
         t_cli.build_parser().parse_args(["-i", "x.sam", "--pileup", value])
     assert exc.value.code == 2
@@ -337,7 +347,7 @@ def test_pileup_rejects_what_the_port_lacks(capsys, value):
     assert f"argument --pileup: invalid choice: '{value}'" in msg
     choices = msg.split("(choose from ")[1]
     assert [c.strip(" ')") for c in choices.split(",")] == \
-        ["auto", "pallas", "host"]
+        ["auto", "pallas", "scatter", "host"]
 
 
 def _ref_pair(tmp_path, path, flags, tag):
@@ -362,7 +372,7 @@ def test_permissive_flag(tmp_path, pileup):
         fh.write(OUT_OF_CONTRACT)
     want = _ref_pair(tmp_path, path, ["--permissive"], "perm")
     got, _ = _run(t_cli.main, path, str(tmp_path / "t"),
-                  ["--permissive", "--pileup", pileup], device="cpu")
+                  ["--permissive"] + _pinned(pileup), device="cpu")
     assert got == want
     with pytest.raises(KeyError) as t_exc:
         _run(t_cli.main, path, str(tmp_path / "t2"), ["--pileup", pileup],
@@ -386,7 +396,7 @@ def test_segment_width_flag(tmp_path, decoder_ran, width):
     want = _ref_pair(tmp_path, path, flags, "seg")
     for pileup in ("pallas", "host"):
         got, _ = _run(t_cli.main, path, str(tmp_path / f"t_{pileup}"),
-                      flags + ["--pileup", pileup], device="cpu")
+                      flags + _pinned(pileup), device="cpu")
         assert got == want
     assert decoder_ran == ["native", "native"]
 
@@ -410,7 +420,7 @@ def test_chunk_reads_flag(tmp_path, monkeypatch):
     flags = ["--chunk-reads", "7", "--decoder", "py"]
     want = _ref_pair(tmp_path, path, flags[:2], "chunk")
     got, _ = _run(t_cli.main, path, str(tmp_path / "t"),
-                  flags + ["--pileup", "pallas"], device="cpu")
+                  flags + PLAIN, device="cpu")
     assert got == want
     assert sizes and max(sizes) == 7 and sum(sizes) == 50
 
@@ -464,7 +474,7 @@ def test_pileup_and_decode_threads(tmp_path, sharded_input, decoder_ran,
     monkeypatch.setattr(TorchBackend, "run", run)
     got, _ = _run(t_cli.main, sam if fmt == "sam" else bam,
                   str(tmp_path / "t"),
-                  flags + ["--pileup", pileup, "--decode-threads", threads],
+                  flags + _pinned(pileup) + ["--decode-threads", threads],
                   device="cpu")
     assert got == want
     extra = stats[-1]

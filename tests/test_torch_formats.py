@@ -41,8 +41,10 @@ def _expected(fam):
 
 def _render(tmp_path, argv, pileup="pallas"):
     """The port's CLI on the CPU; returns (FASTA text, stats).  The CPU
-    device is link-free, so ``--pileup auto`` would take the host counts:
-    the default pins ``pallas``, the device accumulator's plain path."""
+    device is link-free, so ``--pileup auto`` would take the host counts
+    and ``--insertion-kernel auto`` the torch scatter: the default pins
+    ``pallas``, the device accumulator's and the insertion kernels' plain
+    path."""
     ran = []
     orig = TorchBackend.run
 
@@ -56,7 +58,9 @@ def _render(tmp_path, argv, pileup="pallas"):
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             assert t_cli.main(argv + ["-o", out, "-p", "fixture",
-                                      "--pileup", pileup],
+                                      "--pileup", pileup]
+                              + (["--insertion-kernel", "pallas"]
+                                 if pileup == "pallas" else []),
                               device="cpu") == 0
     finally:
         TorchBackend.run = orig
@@ -111,7 +115,8 @@ def test_cli_counts_bam_records(capsys, tmp_path):
     with open(os.path.join(DATA, "formats_short.sam")) as fh:
         n_body = sum(1 for line in fh if not line.startswith("@"))
     t_cli.main(["-i", os.path.join(DATA, "formats_short.bam"), "-o",
-                str(tmp_path / "o"), "--pileup", "pallas"], device="cpu")
+                str(tmp_path / "o"), "--pileup", "pallas",
+                "--insertion-kernel", "pallas"], device="cpu")
     assert f"A total of {n_body} reads were processed" in \
         capsys.readouterr().out
 

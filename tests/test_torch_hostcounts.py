@@ -9,12 +9,11 @@ package's, on the CPU.
   sizes it reads (``_input_bytes`` of each format) and the backend's
   decision on them;
 * the placement ``tail_placement`` equals the JAX ``_tail_cpu_wins`` over
-  a grid, and ``_fetch_sec`` and ``_native_tail_possible`` theirs, with
+  a grid, and ``_fetch_costs`` and ``_native_tail_possible`` theirs, with
   the cost constants pinned (the shared environment overrides, the
   port's module constants and the JAX module's set to the same numbers;
-  the JAX fetch encodings the port does not ship priced out of reach; the
-  port's own fixed tail cost set to 0, the reference's model), so both
-  packages price with the same inputs;
+  the port's own fixed tail cost set to 0, the reference's model), so
+  both packages price with the same inputs;
 * ``vote_positions_native`` and ``insertion_tail_host`` equal the JAX
   functions exactly;
 * the backend records its decisions in ``stats.extra``; the CPU device is
@@ -62,11 +61,9 @@ def _collect_jax_garbage():
 #: environment overrides, and the module constants it has no override for
 PINNED_ENV = {"S2C_TAIL_RT_MS": "0.05", "S2C_TAIL_LINK_MBPS": "12000",
               "S2C_TAIL_NATIVE_NS": "4.5"}
-PINNED = {"TAIL_NATIVE_THR_NS": 0.75, "TAIL_CPU_POS_PER_SEC": 9e6}
-#: the reference also prices the packed5 and sparse fetches, which the
-#: port does not ship; pricing them out of reach leaves its dense bill
-UNSHIPPED = {"P5_HOST_NS_PER_CHAR": 1e6, "P5_DEV_NS_PER_CHAR": 1e6,
-             "SPARSE_NS_PER_POS": 1e6}
+PINNED = {"TAIL_NATIVE_THR_NS": 0.75, "TAIL_CPU_POS_PER_SEC": 9e6,
+          "P5_HOST_NS_PER_CHAR": 5.5, "P5_DEV_NS_PER_CHAR": 2.0,
+          "SPARSE_NS_PER_POS": 20.0}
 
 
 @pytest.fixture
@@ -79,9 +76,8 @@ def pinned(monkeypatch):
         monkeypatch.setenv(key, value)
     monkeypatch.setattr(jb, "TAIL_NATIVE_NS_PER_POS",
                         float(PINNED_ENV["S2C_TAIL_NATIVE_NS"]))
-    for attr, value in {**PINNED, **UNSHIPPED}.items():
-        if hasattr(tb, attr):
-            monkeypatch.setattr(tb, attr, value)
+    for attr, value in PINNED.items():
+        monkeypatch.setattr(tb, attr, value)
         monkeypatch.setattr(jb, attr, value)
     monkeypatch.setattr(tb, "TAIL_CHIP_FIXED_SEC", 0.0)
     return monkeypatch
@@ -244,15 +240,18 @@ def test_tail_placement_and_fetch_costs_equal_reference(pinned, native_tail,
     bps = float(link_mbps) * 1e6
     for total_len, n_thr, itemsize, aligned in GRID:
         upload = total_len * 6 * itemsize
-        got = _cpu_wins(total_len, n_thr, upload, native_tail)
+        got = _cpu_wins(total_len, n_thr, upload, native_tail, None,
+                        aligned)
         assert got == jb._tail_cpu_wins(total_len, n_thr, upload,
                                         native_tail, aligned), \
             (total_len, n_thr, itemsize, aligned)
         cap = t_fused.pad_cap(min(total_len, aligned) + 1) \
             if aligned else None
-        assert tb._fetch_sec(total_len, n_thr, bps) == \
-            jb._fetch_costs(total_len, n_thr, cap, bps)[None]
-        place = tb.tail_placement(total_len, n_thr, upload, native_tail)
+        assert tb.sparse_capacity(total_len, aligned) == cap
+        assert tb._fetch_costs(total_len, n_thr, cap, bps) == \
+            jb._fetch_costs(total_len, n_thr, cap, bps)
+        place = tb.tail_placement(total_len, n_thr, upload, native_tail,
+                                  None, aligned)
         assert place["link_source"] == "env"
         assert (place["cpu_sec"] < place["chip_sec"]) == got
 
@@ -271,7 +270,9 @@ def test_fixed_tail_cost_moves_the_crossover(pinned):
 
 def test_a_host_vote_under_the_fixed_cost_is_not_priced(pinned):
     """A host vote cheaper than the card's fixed cost alone wins whatever
-    the link: the link is neither probed nor read."""
+    the link, and one dearer than the card's bill at the worst link
+    (``LINK_RT_SEC_CEIL``, ``LINK_BPS_FLOOR``) loses whatever the link:
+    neither probes nor reads it.  Only a vote between the two does."""
     for key in ("S2C_TAIL_RT_MS", "S2C_TAIL_LINK_MBPS"):
         pinned.delenv(key)
     pinned.setattr(tb, "TAIL_CHIP_FIXED_SEC", 2e-3)
@@ -282,36 +283,62 @@ def test_a_host_vote_under_the_fixed_cost_is_not_priced(pinned):
     pinned.setattr(tb, "_probed_link", no_probe)
     place = tb.tail_placement(100_000, 2, 600_000, True)     # 0.53 ms
     assert place["chosen"] == "cpu"
-    assert place["link_source"] == "unpriced"
-    assert place["chip_sec"] == 2e-3 and "link_bps" not in place
+    assert place["link_source"] == "bounded"
+    assert "chip_sec" not in place and "link_bps" not in place
+    place = tb.tail_placement(1_000_000, 2, 6_000_000, True)  # 5.25 ms
+    assert place["chosen"] == "device"
+    assert place["link_source"] == "bounded"
     with pytest.raises(AssertionError, match="probed"):
-        tb.tail_placement(1_000_000, 2, 6_000_000, True)     # 5.25 ms
+        tb.tail_placement(400_000, 2, 2_400_000, True)       # 2.1 ms
 
 
 def test_unpriced_encodings_are_left_out(pinned):
-    """The port bills the dense fetch, the one it ships, whatever the
-    run's aligned bases (the reference's sparse key needs them)."""
-    assert tb._fetch_sec(1000, 2, 1e9) == 2000 / 1e9
+    """The card's bill takes the cheapest fetch it can price: without the
+    run's aligned bases the sparse head is left out (as in the
+    reference), and with them a sparse genome's bill is the sparse
+    fetch."""
+    pinned.setenv("S2C_TAIL_LINK_MBPS", "40")
+    bps = 40e6
+    costs = tb._fetch_costs(4_000_000, 2, None, bps)
+    assert sorted(map(str, costs)) == ["None", "packed5"]
+    assert costs[None] == 8_000_000 / bps > costs["packed5"]
     place = tb.tail_placement(4_000_000, 2, 24_000_000, True)
-    bps = float(PINNED_ENV["S2C_TAIL_LINK_MBPS"]) * 1e6
     assert place["chip_sec"] == pytest.approx(
-        5e-5 + 24_000_000 / bps + 8_000_000 / bps)
+        5e-5 + 24_000_000 / bps + min(costs.values()))
+    cap = tb.sparse_capacity(4_000_000, 1000)
+    sparse = tb._fetch_costs(4_000_000, 2, cap, bps)[cap]
+    assert sparse < min(costs.values())
+    place = tb.tail_placement(4_000_000, 2, 24_000_000, True, None, 1000)
+    assert place["chip_sec"] == pytest.approx(5e-5 + 24_000_000 / bps
+                                              + sparse)
 
 
 @pytest.mark.parametrize("library", [True, False], ids=["loaded", "missing"])
 @pytest.mark.parametrize("has_insertions", [True, False])
+@pytest.mark.parametrize("encoding", [None, "auto", "packed5"])
+@pytest.mark.parametrize("ins_kernel", ["auto", "scatter", "pallas"])
 def test_native_tail_possible_equals_reference(monkeypatch, library,
-                                               has_insertions):
+                                               has_insertions, encoding,
+                                               ins_kernel):
+    """A forced tail encoding and ``--insertion-kernel pallas`` (with
+    insertions) keep the tail off the native vote, as in the reference."""
     from sam2consensus_torch import native as t_native
     from sam2consensus_tpu import native as r_native
 
-    for key in ("S2C_TAIL_ENCODING", "S2C_TAIL_DEVICE"):   # the reference's
-        monkeypatch.delenv(key, raising=False)
+    monkeypatch.delenv("S2C_TAIL_DEVICE", raising=False)  # the reference's
+    if encoding is None:
+        monkeypatch.delenv("S2C_TAIL_ENCODING", raising=False)
+    else:
+        monkeypatch.setenv("S2C_TAIL_ENCODING", encoding)
     if not library:
         monkeypatch.setattr(t_native, "load", lambda: None)
         monkeypatch.setattr(r_native, "load", lambda: None)
-    assert tb._native_tail_possible() == \
-        jb._native_tail_possible(RConfig(), has_insertions) == library
+    got = tb._native_tail_possible(TConfig(ins_kernel=ins_kernel),
+                                   has_insertions)
+    assert got == jb._native_tail_possible(RConfig(ins_kernel=ins_kernel),
+                                           has_insertions)
+    assert got == (library and encoding != "packed5"
+                   and not (has_insertions and ins_kernel == "pallas"))
 
 
 def test_link_constants_without_a_card(monkeypatch):
@@ -494,8 +521,8 @@ def test_backend_host_paths_equal_device_path(monkeypatch, text, fill):
     device accumulator give the same records; each run records its
     decisions.  Records in memory have no known size: without the native
     tail, ``auto`` takes the device accumulator."""
-    want, extra = _run(text, pileup="pallas", fill=fill, min_depth=2,
-                       thresholds=[0.25, 0.75])
+    want, extra = _run(text, pileup="pallas", ins_kernel="pallas",
+                       fill=fill, min_depth=2, thresholds=[0.25, 0.75])
     assert extra["pileup_path"] == "device"
     assert extra["tail_placement"] == {"chosen": "device",
                                        "pileup": "device"}
@@ -510,7 +537,7 @@ def test_backend_host_paths_equal_device_path(monkeypatch, text, fill):
         if pileup == "auto":
             assert (extra["host_bound"], extra["host_bound_reason"]) == \
                 (1 << 62, "link_free")
-    monkeypatch.setattr(tb, "_native_tail_possible", lambda: False)
+    monkeypatch.setattr(tb, "_native_tail_possible", lambda *args: False)
     got, extra = _run(text, pileup="host", fill=fill, min_depth=2,
                       thresholds=[0.25, 0.75])
     assert got == want
@@ -524,5 +551,5 @@ def test_backend_host_paths_equal_device_path(monkeypatch, text, fill):
 
 
 def test_backend_rejects_an_unported_strategy():
-    with pytest.raises(ValueError, match="auto, pallas and host"):
-        _run(TEXT, pileup="scatter")
+    with pytest.raises(ValueError, match="auto, pallas, scatter and host"):
+        _run(TEXT, pileup="mxu")

@@ -346,11 +346,13 @@ def test_star_seq_strict_error(needs_gxx, tmp_path):
 def _run_backend(text, tmp_path, **cfg):
     """``TorchBackend.run`` on the CPU with the device accumulator
     (``pileup="pallas"``: on the link-free CPU ``auto`` takes host
-    counts, and these tests watch the row path)."""
+    counts, and these tests watch the row path; the insertion kernels'
+    plain versions, which ``auto`` leaves for the scatter there)."""
     contigs, stream = _stream(t_sam, text, "file", tmp_path)
     try:
         res = TorchBackend("cpu").run(contigs, stream,
                                       TConfig(prefix="p", pileup="pallas",
+                                              ins_kernel="pallas",
                                               **cfg))
     finally:
         stream.handle.close()
@@ -448,7 +450,8 @@ def test_strict_error_mid_file_through_prefetch(needs_gxx, tmp_path,
         with pytest.raises(KeyError) as got:
             with contextlib.redirect_stdout(io.StringIO()):
                 t_cli.main(["-i", sam, "-o", str(tmp_path / "o"),
-                            "--decoder", decoder, "--pileup", "pallas"],
+                            "--decoder", decoder, "--pileup", "pallas",
+                            "--insertion-kernel", "pallas"],
                            device="cpu")
     assert str(got.value) == str(want.value)
     assert len(batches) >= 2
