@@ -80,10 +80,52 @@ Phases, each fatal on failure (exit code 1, no result line):
    the three position heads alone at ``ecoli_scale`` and in the whole
    tails of ``amplicon_deep`` and ``longread_sv`` (bytes beside), the
    insertion routes, and the gates' constants;
+   Phase 8 also runs the K1 route under ``RetryPolicy().run`` and the
+   staged K1 route through ``ResilientDispatcher.add`` (the default
+   failure contract, no fault spec): they must make no host
+   synchronisation either;
 9. the C++ decoder (``NativeReadEncoder``) against the Python
    ``ReadEncoder`` on ``ecoli_scale`` and ``longread_sv`` at full size:
    pileup counts of the batches, reads, skipped, events, lines and every
-   array of ``group_insertions`` equal; a difference is fatal.
+   array of ``group_insertions`` equal; a difference is fatal;
+10. failure handling on the card, each run through ``cli.main`` on CUDA
+   (``--decoder native --pileup pallas``) byte-identical to its input's
+   default CUDA run, with the launch counts and the registry's counters
+   showing the rung: ``ecoli_scale`` under ``--fault-inject
+   pileup_dispatch:rpc:1:2`` (retried at least twice, K1 launched as in
+   the default run), ``--on-device-error fallback --fault-inject
+   accumulate:fatal:2:inf`` with the prefetch thread and stager live
+   (lands on ``host``; K1's launches stop at the demotion; no slab staged
+   after it; no slot left held; again under ``--decoder py
+   --chunk-reads 10000``, whose 15 batches outrun the two staging slots,
+   so that staging is seen to stop), the same with ``--checkpoint-dir`` (one
+   emergency checkpoint), ``pileup_dispatch:oom:1:1`` (a capacity
+   split), and ``pileup_dispatch:oom:3:1`` under ``--decoder py
+   --chunk-reads 10000`` (the split halves staged on the consumer while
+   the prefetch thread stages the next batches); ``amplicon_deep`` under ``vote:fatal:0:inf`` and fallback (the
+   tail demotes to the host, no K2); ``longread_sv`` under
+   ``insertion_build:rpc:0:1`` (retried, K3 launched as in the default
+   run); a real ``torch.cuda.OutOfMemoryError`` (an allocation larger
+   than the card) inside ``RetryPolicy.run`` classified CAPACITY; a
+   failed kernel build (``kernels.build.extension`` replaced by one that
+   raises) under fallback ending the run with the build's error and no
+   demotion; a K1 launch refused by its entry point (a wrapper bug: the
+   sort's permutation handed over as int32) under fallback ending the run
+   with the entry point's error and no demotion; two threads staging
+   ``ecoli_scale``'s slabs into one accumulator at once (the prefetch
+   thread and a consumer-side stage) with counts exactly equal to
+   numpy's; crash (the input's blocks stop mid-stream) and resume of
+   ``ecoli_scale`` under ``--checkpoint-dir --checkpoint-every 5000``,
+   from a checkpoint written on the card and one written on the CPU;
+   ``ecoli_scale`` with about 1 in 10,000 lines damaged (seeded) under
+   ``--on-bad-record quarantine`` as SAM at ``--decode-threads`` 1 and 0
+   and as BAM, each equal to the port's CPU run, the SAM rungs' sidecars
+   identical; and the host cost of ``ResilientDispatcher.add`` per
+   dispatch (its own work around a no-op accumulator, and its difference
+   to ``acc.add`` over a few hundred ``ecoli_scale`` slab dispatches in
+   alternating order, each with its spread) and the time of one
+   checkpoint write of its counts, with the card's name and power limit
+   beside both.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -106,6 +148,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1098,6 +1141,15 @@ def sync_free(cap: Capture) -> None:
     # K1 route) runs under it
     acc, batch = staged_batch(counts, starts, packed)
     acc.stage(batch)
+    # the same, dispatched through the failure contract's default path:
+    # ResilientDispatcher.add under the default RetryPolicy, no fault spec
+    from sam2consensus_torch.resilience import ladder, policy
+
+    acc_d, batch_d = staged_batch(counts, starts, packed)
+    acc_d.stage(batch_d)
+    dispatcher = ladder.ResilientDispatcher(policy.RetryPolicy(),
+                                            acc_d.total_len)
+    scratch_d = torch.zeros_like(counts)
     # the same rows staged under delta8 (canonicalised and encoded on the
     # host) and for the scatter strategy
     acc8, batch8 = staged_batch(counts, starts, packed, wire="delta8")
@@ -1126,8 +1178,14 @@ def sync_free(cap: Capture) -> None:
     torch.cuda.synchronize()
     for what, route in (
             ("K1 route", lambda: pk.accumulate_rows(scratch, starts, packed)),
+            ("K1 route under RetryPolicy().run (the default failure "
+             "contract)", lambda: policy.RetryPolicy().run(
+                 lambda: pk.accumulate_rows(scratch_d, starts, packed),
+                 site="pileup")),
             ("staged K1 route (PileupAccumulator.add: event wait, device "
              "pack, K1)", lambda: acc.add(batch)),
+            ("staged K1 route through ResilientDispatcher.add (default "
+             "RetryPolicy)", lambda: dispatcher.add(acc_d, batch_d)),
             ("staged delta8 route (PileupAccumulator.add: event wait, "
              "device unpack, device pack, K1)", lambda: acc8.add(batch8)),
             ("staged scatter strategy (PileupAccumulator.add: event wait, "
@@ -1158,8 +1216,14 @@ def sync_free(cap: Capture) -> None:
         torch.cuda.synchronize()
         print(f"  {what} under set_sync_debug_mode('error'): "
               f"no host synchronisation")
+    err = max_err(scratch_d, scratch)
+    print(f"  K1 route under RetryPolicy().run vs the K1 route: "
+          f"max_abs_err={err}")
+    if err:
+        fail("the K1 route under the retry policy counts differently")
     for what, other in (("staged route", acc), ("staged delta8 route", acc8),
-                        ("staged scatter strategy", acc_sc)):
+                        ("staged scatter strategy", acc_sc),
+                        ("staged route through the dispatcher", acc_d)):
         err = max_err(other.counts, scratch[:other.total_len])
         print(f"  {what} counts vs the K1 route on the same rows: "
               f"max_abs_err={err}")
@@ -1293,6 +1357,513 @@ def choice_timing(cap: Capture, card: str) -> None:
           f"{codec.ROWS_SAVED_BYTES_PER_CELL} LINK_BPS_FLOOR="
           f"{tb.LINK_BPS_FLOOR / 1e9:.1f} GB/s LINK_RT_SEC_CEIL="
           f"{tb.LINK_RT_SEC_CEIL * 1e6:.1f} us")
+
+
+# -- phase 10: failure handling on the card --------------------------------
+def fault_run(tmp: str, card: str, cap: Capture, name: str, path: str,
+              flags: list, label: str, extra: list, want: str) -> tuple:
+    """One CUDA run of ``name`` through ``cli.main`` with ``extra``
+    failure-handling flags; it must be byte-identical to the default CUDA
+    run (``want``).  Returns ``(stats.extra, launches by kernel)``."""
+    from sam2consensus_torch.kernels.build import all_kernels
+
+    kernels = all_kernels()
+    out = os.path.join(tmp, f"{name}_f10_{len(cap.stats)}")
+    before = {k.name: k.launches for k in kernels}
+    wall = run_cli(["-i", path, "-o", out, *flags, "--decoder", "native",
+                    "--pileup", "pallas", "--retry-backoff", "0.001",
+                    *extra], None)
+    st = cap.stats[-1]
+    launched = {k.name: k.launches - before[k.name] for k in kernels}
+    same = read_dir(out) == want
+    story = {k: v for k, v in st.extra.items()
+             if k.startswith(("resilience/", "fault/injected"))
+             or k in ("pileup_ladder", "resumed_from_line", "bad_records",
+                      "checkpoints_written")}
+    print(f"  {name} {label} [{card}]: wall={wall:.3f}s launches={launched} "
+          f"{story} byte-identical={same}")
+    if not same:
+        fail(f"{name} {label}: output differs from the default CUDA run")
+    return st.extra, launched
+
+
+def expect(ok: bool, what: str) -> None:
+    if not ok:
+        fail(f"phase 10: {what}")
+
+
+def failure_handling(tmp: str, card: str, cap: Capture, paths: dict) -> None:
+    """Phase 10: every fault run byte-identical to its input's default CUDA
+    run, on the rung the launch counts and the registry say."""
+    from sam2consensus_torch.kernels import build
+    from sam2consensus_torch.resilience import ladder
+
+    flags_of = {"ecoli_scale": ["-c", "0.25"],
+                "amplicon_deep": ["-c", "0.25", "-m", "10"],
+                "longread_sv": ["-c", "0.25,0.75"]}
+    want = {n: read_dir(os.path.join(tmp, n + "_cuda")) for n in flags_of}
+    eco, eco_flags = paths["ecoli_scale"], flags_of["ecoli_scale"]
+    _x, base = fault_run(tmp, card, cap, "ecoli_scale", eco, eco_flags,
+                         "(no fault)", [], want["ecoli_scale"])
+
+    # transient faults on the K1 dispatch: retried, K1 on every slab
+    ex, got = fault_run(tmp, card, cap, "ecoli_scale", eco, eco_flags,
+                        "--fault-inject pileup_dispatch:rpc:1:2",
+                        ["--fault-inject", "pileup_dispatch:rpc:1:2"],
+                        want["ecoli_scale"])
+    expect(ex.get("resilience/retries", 0) >= 2, "pileup_dispatch:rpc:1:2 "
+           "retried fewer than 2 times")
+    expect(got["pileup_rows"] == base["pileup_rows"], "the retried run's "
+           "K1 launches differ from the default run's")
+
+    # a persistent fault: the ladder walks K1 -> scatter -> host; K1's
+    # launches stop at the demotion, staging stops, no slot stays held
+    at_demotion = {}
+    orig_demote = ladder.demote_pileup
+
+    def demote(acc, total_len):
+        out = orig_demote(acc, total_len)
+        at_demotion[out[1]] = build.all_kernels()[0].launches
+        return out
+
+    ladder.demote_pileup = demote
+    try:
+        k1_0 = build.all_kernels()[0].launches
+        ex, got = fault_run(
+            tmp, card, cap, "ecoli_scale", eco, eco_flags,
+            "--on-device-error fallback --fault-inject accumulate:fatal:2:inf",
+            ["--on-device-error", "fallback", "--fault-inject",
+             "accumulate:fatal:2:inf"], want["ecoli_scale"])
+    finally:
+        ladder.demote_pileup = orig_demote
+    print(f"    K1 launches at each demotion: "
+          f"{ {k: v - k1_0 for k, v in at_demotion.items()} } staged: "
+          f"{ex.get('pipeline_started')} batches, "
+          f"{ex.get('pipeline_started_at_demotion')} before the last "
+          f"demotion; slots held at the end: "
+          f"{ex.get('pipeline_slots_held')}")
+    expect(ex.get("pileup_ladder") == "host", "the run did not land on host")
+    expect(got["pileup_rows"] > 0 and at_demotion.get("host", -1) - k1_0
+           == got["pileup_rows"], "K1 launched after the demotion")
+    expect(ex.get("pipeline_started") == ex.get(
+        "pipeline_started_at_demotion") is not None,
+        "a slab was staged after the demotion to host")
+    expect(ex.get("pipeline_slots_held") == 0, "a staging slot stayed held")
+
+    # ecoli_scale has three native slabs, all staged before the third
+    # unit fails; the Python decoder's 15 batches show staging stop there
+    ex, got = fault_run(
+        tmp, card, cap, "ecoli_scale", eco, eco_flags,
+        "--decoder py --chunk-reads 10000, the same fault",
+        ["--decoder", "py", "--chunk-reads", "10000", "--on-device-error",
+         "fallback", "--fault-inject", "accumulate:fatal:2:inf"],
+        want["ecoli_scale"])
+    print(f"    staged: {ex.get('pipeline_started')} of 15 batches, "
+          f"{ex.get('pipeline_started_at_demotion')} before the demotion "
+          f"to host; slots held at the end: {ex.get('pipeline_slots_held')}")
+    expect(ex.get("pileup_ladder") == "host" and got["pileup_rows"] == 2,
+           "the 15-batch run did not stop K1 after two batches")
+    expect(ex.get("pipeline_started") == ex.get(
+        "pipeline_started_at_demotion") is not None
+        and ex["pipeline_started"] < 15, "staging did not stop at the "
+        "demotion to host")
+    expect(ex.get("pipeline_slots_held") == 0, "a staging slot stayed held")
+
+    ck = os.path.join(tmp, "f10_ck")
+    ex, _got = fault_run(
+        tmp, card, cap, "ecoli_scale", eco, eco_flags,
+        "the same with --checkpoint-dir",
+        ["--on-device-error", "fallback", "--fault-inject",
+         "accumulate:fatal:2:inf", "--checkpoint-dir", ck],
+        want["ecoli_scale"])
+    expect(ex.get("resilience/emergency_checkpoints") == 1,
+           "no emergency checkpoint was written")
+
+    ex, _got = fault_run(tmp, card, cap, "ecoli_scale", eco, eco_flags,
+                         "--fault-inject pileup_dispatch:oom:1:1",
+                         ["--fault-inject", "pileup_dispatch:oom:1:1"],
+                         want["ecoli_scale"])
+    expect(ex.get("resilience/capacity_splits", 0) >= 1,
+           "an OOM split nothing")
+    # the split halves are staged on the consumer while the prefetch
+    # thread stages the batches after them through the same pinned slots
+    ex, _got = fault_run(
+        tmp, card, cap, "ecoli_scale", eco, eco_flags,
+        "--decoder py --chunk-reads 10000 --fault-inject "
+        "pileup_dispatch:oom:3:1",
+        ["--decoder", "py", "--chunk-reads", "10000", "--fault-inject",
+         "pileup_dispatch:oom:3:1"], want["ecoli_scale"])
+    expect(ex.get("resilience/capacity_splits", 0) >= 1,
+           "the 15-batch run's OOM split nothing")
+
+    # the tail: a persistent fault demotes it to the host tail (the
+    # vote site fires once per tail attempt, so the fault is on call 0)
+    ex, got = fault_run(
+        tmp, card, cap, "amplicon_deep", paths["amplicon_deep"],
+        flags_of["amplicon_deep"],
+        "--on-device-error fallback --fault-inject vote:fatal:0:inf",
+        ["--on-device-error", "fallback", "--fault-inject",
+         "vote:fatal:0:inf"], want["amplicon_deep"])
+    expect(ex.get("resilience/demotions/tail") == 1 and ex.get(
+        "tail_device") == "cpu", "the tail did not demote to the host")
+    expect(got["insertion_vote"] == 0, "K2 launched on the demoted tail")
+    _x, base_sv = fault_run(tmp, card, cap, "longread_sv",
+                            paths["longread_sv"], flags_of["longread_sv"],
+                            "(no fault)", [], want["longread_sv"])
+    ex, got = fault_run(
+        tmp, card, cap, "longread_sv", paths["longread_sv"],
+        flags_of["longread_sv"],
+        "--fault-inject insertion_build:rpc:0:1",
+        ["--fault-inject", "insertion_build:rpc:0:1"], want["longread_sv"])
+    expect(ex.get("resilience/retries/tail") == 1
+           and got["insertion_table"] == base_sv["insertion_table"] > 0,
+           "the insertion_build retry did not run K3 again")
+
+    real_oom(card)
+    failed_build(tmp, card)
+    failed_launch(tmp, card)
+    crash_resume(tmp, card, cap, eco, eco_flags, want["ecoli_scale"])
+    tolerant_full_size(tmp, card, cap, eco, eco_flags)
+    dispatch_cost(tmp, eco, card)
+
+
+def real_oom(card: str) -> None:
+    """A real ``torch.cuda.OutOfMemoryError`` (an allocation larger than
+    the card), raised inside ``RetryPolicy.run``: CAPACITY."""
+    from sam2consensus_torch.resilience import policy
+
+    seen = []
+
+    def on_capacity(exc):
+        seen.append(exc)
+        return "split"
+
+    too_big = torch.cuda.get_device_properties(0).total_memory * 2
+    got = policy.RetryPolicy().run(
+        lambda: torch.empty(too_big, dtype=torch.uint8, device="cuda"),
+        site="pileup", on_capacity=on_capacity)
+    torch.cuda.empty_cache()
+    kind = policy.classify(seen[0]) if seen else None
+    print(f"  real OOM [{card}]: {type(seen[0]).__name__ if seen else None}"
+          f" ({str(seen[0]).splitlines()[0][:60] if seen else ''}...) "
+          f"classified {kind}, on_capacity -> {got}")
+    expect(seen and isinstance(seen[0], torch.cuda.OutOfMemoryError)
+           and kind == policy.CAPACITY, "a real CUDA OOM was not CAPACITY")
+
+
+def failed_build(tmp: str, card: str) -> None:
+    """A kernel build that fails (``kernels.build.extension`` replaced by
+    one that raises) under ``--on-device-error fallback``: the run ends
+    with the build's error, and nothing is demoted."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.kernels import build
+    from sam2consensus_torch.resilience import ladder
+
+    demotions = []
+    orig_ext, orig_demote = build.extension, ladder.demote_pileup
+
+    def broken():
+        raise RuntimeError("Error building extension 's2c_torch_kernels': "
+                           "nvcc failed (a build failure made on purpose)")
+
+    def demote(acc, total_len):
+        demotions.append(1)
+        return orig_demote(acc, total_len)
+
+    build.extension, ladder.demote_pileup = broken, demote
+    err = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-i", os.path.join(DATA, "formats_short.sam"), "-o",
+                      os.path.join(tmp, "f10_build"), "--pileup", "pallas",
+                      "--on-device-error", "fallback"], device=None)
+    except RuntimeError as exc:
+        err = exc
+    finally:
+        build.extension, ladder.demote_pileup = orig_ext, orig_demote
+    print(f"  failed kernel build under fallback [{card}]: "
+          f"{type(err).__name__ if err else None}: "
+          f"{str(err)[:60] if err else 'the run completed'}; "
+          f"demotions={len(demotions)}")
+    expect(err is not None and "Error building extension" in str(err)
+           and not demotions, "a failed kernel build was demoted past")
+
+
+def failed_launch(tmp: str, card: str) -> None:
+    """A K1 launch that its entry point refuses under ``--on-device-error
+    fallback``: a wrapper bug (``plan_rows`` hands the sort's permutation
+    over as int32, which ``pileup_rows``'s contract check rejects) raised
+    inside ``accumulate_rows``.  The run ends with the entry point's
+    error, marked ``kernel_launch``; nothing is demoted and K1 counts no
+    launch."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.ops import pileup_kernel
+    from sam2consensus_torch.resilience import ladder
+
+    demotions = []
+    orig_plan, orig_demote = pileup_kernel.plan_rows, ladder.demote_pileup
+
+    def int32_order(starts):
+        plan = orig_plan(starts)
+        return pileup_kernel.RowPlan(plan.starts, plan.order.int())
+
+    def demote(acc, total_len):
+        demotions.append(1)
+        return orig_demote(acc, total_len)
+
+    pileup_kernel.plan_rows, ladder.demote_pileup = int32_order, demote
+    k1_0 = pileup_kernel.K1.launches
+    err = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-i", os.path.join(DATA, "formats_short.sam"), "-o",
+                      os.path.join(tmp, "f10_launch"), "--pileup", "pallas",
+                      "--on-device-error", "fallback"], device=None)
+    except RuntimeError as exc:
+        err = exc
+    finally:
+        pileup_kernel.plan_rows, ladder.demote_pileup = orig_plan, orig_demote
+    first = str(err).splitlines()[0][:60] if err else "the run completed"
+    print(f"  refused K1 launch under fallback [{card}]: "
+          f"{type(err).__name__ if err else None}: {first}; "
+          f"kernel_launch={getattr(err, 'kernel_launch', False)} "
+          f"demotions={len(demotions)} "
+          f"K1 launches={pileup_kernel.K1.launches - k1_0}")
+    expect(err is not None and "order: must be Long" in str(err)
+           and getattr(err, "kernel_launch", False) and not demotions
+           and pileup_kernel.K1.launches == k1_0,
+           "a refused K1 launch was demoted past")
+
+
+def crash_resume(tmp: str, card: str, cap: Capture, path: str, flags: list,
+                 want: str) -> None:
+    """Crash and resume at ``ecoli_scale``: the input's blocks stop with an
+    error mid-input under ``--checkpoint-dir --checkpoint-every 5000``,
+    then a second run resumes; the same from a checkpoint the port wrote
+    on the CPU."""
+    from sam2consensus_torch.io import sam
+
+    orig_blocks = sam.ReadStream.blocks
+
+    def crashing(self, max_bytes=1 << 22):
+        for k, block in enumerate(orig_blocks(self, max_bytes)):
+            if k == 5:
+                raise RuntimeError("the input died mid-stream (on purpose)")
+            yield block
+
+    for where in (None, "cpu"):
+        ck = os.path.join(tmp, f"f10_resume_{where}")
+        sam.ReadStream.blocks = crashing
+        try:
+            try:
+                run_cli(["-i", path, "-o", ck + "_out", *flags, "--pileup",
+                         "pallas", "--checkpoint-dir", ck,
+                         "--checkpoint-every", "5000"], where)
+                fail("the crashing run completed")
+            except RuntimeError as exc:
+                if "on purpose" not in str(exc):
+                    raise
+        finally:
+            sam.ReadStream.blocks = orig_blocks
+        ex, _got = fault_run(
+            tmp, card, cap, "ecoli_scale", path, flags,
+            f"resumed from a checkpoint written on {where or 'cuda'}",
+            ["--checkpoint-dir", ck, "--checkpoint-every", "5000"], want)
+        expect(ex.get("resumed_from_line", 0) > 0, "the run did not resume")
+
+
+def _damage(text: str, seed: int, bam_safe: bool) -> tuple:
+    """``text`` with about 1 in 10,000 body lines damaged (seeded): an
+    out-of-range POS (BAM-safe), and in text also a bad POS, a cut line
+    and an unknown reference.  Returns ``(text, damaged lines)``."""
+    rng = np.random.RandomState(seed)
+    lines = text.split("\n")
+    body = [i for i, ln in enumerate(lines) if ln and not ln.startswith("@")]
+    picks = sorted(rng.choice(len(body), len(body) // 10_000, replace=False))
+    for j, k in enumerate(picks):
+        f = lines[body[k]].split("\t")
+        kind = 0 if bam_safe else j % 4
+        if kind == 0:
+            f[3] = str(ECOLI_LEN * 3)
+        elif kind == 1:
+            f[3] = "x" + f[3]
+        elif kind == 2:
+            f = f[:4]
+        else:
+            f[2] = "no_such_ref"
+        lines[body[k]] = "\t".join(f)
+    return "\n".join(lines), len(picks)
+
+
+def tolerant_full_size(tmp: str, card: str, cap: Capture, path: str,
+                       flags: list) -> None:
+    """``ecoli_scale`` with about 1 in 10,000 lines damaged under
+    ``--on-bad-record quarantine``: SAM at ``--decode-threads`` 1 and 0 and
+    BAM on CUDA, each equal to the port's CPU run; the SAM rungs' sidecars
+    identical."""
+    from sam2consensus_torch.formats.bam import sam_text_to_bam
+
+    text = open(path).read()
+    runs = []
+    for fmt, bam_safe in (("sam", False), ("bam", True)):
+        dirty, n_bad = _damage(text, 99, bam_safe)
+        src = os.path.join(tmp, f"f10_dirty.{fmt}")
+        if fmt == "sam":
+            with open(src, "w") as fh:
+                fh.write(dirty)
+        else:
+            sam_text_to_bam(dirty, src)
+        cpu_out = os.path.join(tmp, f"f10_dirty_{fmt}_cpu")
+        run_cli(["-i", src, "-o", cpu_out, *flags, "--decoder", "py",
+                 "--pileup", "pallas", "--on-bad-record", "quarantine",
+                 "--quarantine-out", cpu_out + ".q.jsonl"], "cpu")
+        want = read_dir(cpu_out)
+        for threads in ("1", "0") if fmt == "sam" else ("1",):
+            side = os.path.join(tmp, f"f10_dirty_{fmt}_{threads}.q.jsonl")
+            ex, _got = fault_run(
+                tmp, card, cap, "ecoli_scale(damaged)", src, flags,
+                f"{fmt} --on-bad-record quarantine --decode-threads "
+                f"{threads}",
+                ["--on-bad-record", "quarantine", "--quarantine-out", side,
+                 "--decode-threads", threads], want)
+            expect(ex.get("bad_records") == n_bad, f"{fmt} at threads "
+                   f"{threads} counted {ex.get('bad_records')} bad records, "
+                   f"not {n_bad}")
+            body = open(side).read().replace(side, "<sidecar>")
+            runs.append((fmt, threads, body))
+    sides = {body for fmt, _t, body in runs if fmt == "sam"}
+    print(f"  damaged ecoli_scale [{card}]: SAM sidecars identical across "
+          f"rungs={len(sides) == 1}")
+    expect(len(sides) == 1, "the SAM rungs' sidecars differ")
+
+
+def staging_race(acc, batches, total_len: int, card: str,
+                 reps: int = 4) -> None:
+    """Two threads stage into one accumulator at once, as the prefetch
+    thread and a consumer-side stage (a split half, a replay, a batch
+    delivered unstaged) do: a helper thread stages ``reps`` copies of the
+    slabs while this thread stages and counts ``reps`` others; then the
+    helper's are counted.  The counts must equal numpy's exactly."""
+    from sam2consensus_torch.encoder.events import SegmentBatch
+
+    copies = [[SegmentBatch(buckets=b.buckets) for _r in range(reps)
+               for b in batches] for _side in range(2)]
+    errs = []
+
+    def producer():
+        try:
+            for b in copies[0]:
+                acc.stage(b)
+        except BaseException as exc:   # re-raised below
+            errs.append(exc)
+
+    acc.set_counts(np.zeros((total_len, 6), np.int32))
+    t = threading.Thread(target=producer)
+    t.start()
+    for b in copies[1]:
+        acc.add(b)
+    t.join()
+    if errs:
+        raise errs[0]
+    for b in copies[0]:
+        acc.add(b)
+    want = np.zeros((total_len + 1) * 6, np.int64)
+    for b in batches:
+        for starts, codes in b.buckets.values():
+            rows, cols = np.nonzero(codes != 255)
+            want += np.bincount((starts[rows].astype(np.int64) + cols) * 6
+                                + codes[rows, cols], minlength=len(want))
+    want = want.reshape(-1, 6)[:-1] * (2 * reps)
+    got = acc.counts_host()
+    err = int(np.abs(got.astype(np.int64) - want).max())
+    print(f"  two threads staging {len(copies[0])} + {len(copies[1])} "
+          f"ecoli_scale slabs into one accumulator [{card}]: "
+          f"max_abs_err={err}")
+    expect(err == 0, "concurrent staging corrupted the counts")
+
+
+def _spread(xs) -> str:
+    q = 1e6 * np.percentile(xs, [25, 50, 75])
+    return f"median {q[1]:.2f} us [p25 {q[0]:.2f}, p75 {q[2]:.2f}]"
+
+
+def dispatch_cost(tmp: str, path: str, card: str, reps: int = 100) -> None:
+    """The host cost of ``ResilientDispatcher.add`` per dispatch (no fault
+    spec; host clock): its own work around an accumulator that does
+    nothing, and ``acc.add`` against ``disp.add(acc, .)`` over ``reps``
+    passes of ``ecoli_scale``'s slabs (staged as the prefetch thread
+    stages them; enqueue time), the two in alternating order, each with
+    its spread.  Then the time of one checkpoint write of
+    ``ecoli_scale``'s counts.  Before them, :func:`staging_race`."""
+    from sam2consensus_torch.backends.torch_backend import TorchBackend
+    from sam2consensus_torch.config import RunConfig
+    from sam2consensus_torch.encoder.events import GenomeLayout
+    from sam2consensus_torch.encoder.native_encoder import NativeReadEncoder
+    from sam2consensus_torch.io.sam import ReadStream, opener, read_header
+    from sam2consensus_torch.ops.pileup import PileupAccumulator
+    from sam2consensus_torch.resilience import ladder, policy
+
+    handle = opener(path, binary=True)
+    contigs, _n, first = read_header(handle)
+    layout = GenomeLayout(contigs)
+    stream = ReadStream(handle, first)
+    enc = NativeReadEncoder(layout)
+    batches = list(enc.encode_blocks_from(stream))
+    handle.close()
+    acc = PileupAccumulator(layout.total_len, "cuda")
+    staging_race(acc, batches, layout.total_len, card)
+
+    class _NoOp:
+        def add(self, batch):
+            pass
+
+    disp = ladder.ResilientDispatcher(policy.RetryPolicy(),
+                                      layout.total_len)
+    noop = _NoOp()
+    own = []
+    for _rep in range(reps):
+        for batch in batches:
+            t0 = time.perf_counter()
+            disp.add(noop, batch)
+            own.append(time.perf_counter() - t0)
+    plain, wrapped = [], []
+    pair = ((lambda b: acc.add(b), plain),
+            (lambda b: disp.add(acc, b), wrapped))
+    for rep in range(reps):
+        for batch in batches:
+            for fn, into in pair if rep % 2 == 0 else pair[::-1]:
+                batch.staged.clear()
+                acc.stage(batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(batch)
+                into.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+    diff = 1e6 * (float(np.median(wrapped)) - float(np.median(plain)))
+    resolved = (np.percentile(wrapped, 25) > np.percentile(plain, 75)
+                or np.percentile(plain, 25) > np.percentile(wrapped, 75))
+    print(f"  dispatch cost [{card}]: the dispatcher's own work (no-op "
+          f"accumulator, {len(own)} dispatches): {_spread(own)}")
+    print(f"  dispatch cost [{card}]: {len(plain)} ecoli_scale slab "
+          f"dispatches each, alternating order: acc.add {_spread(plain)}; "
+          f"ResilientDispatcher.add {_spread(wrapped)}; difference of the "
+          f"medians {diff:.2f} us, "
+          f"{'resolved' if resolved else 'not resolved (inside the spread)'}")
+    writes = []
+    ck = os.path.join(tmp, "f10_write")
+    cfg = RunConfig(checkpoint_dir=ck)
+    stats = type("S", (), {"extra": {}, "aligned_bases": 0})()
+    for _rep in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        TorchBackend._write_checkpoint(cfg, stream, acc, enc, stats, 0, 0,
+                                       [])
+        writes.append(time.perf_counter() - t0)
+    size = os.path.getsize(os.path.join(ck, "sam2consensus_ckpt.npz"))
+    print(f"  checkpoint write [{card}]: ecoli_scale counts "
+          f"{layout.total_len} x 6 int32 ({layout.total_len * 24} B) + "
+          f"{len(enc.insertions)} insertions -> {size} B npz: "
+          f"{[round(w, 3) for w in writes]} s (min {min(writes):.3f} s)")
 
 
 # -- phase 9: the C++ decoder against the Python encoder --------------------
@@ -1604,6 +2175,9 @@ def main() -> int:
         print(f"phase 9: NativeReadEncoder vs ReadEncoder at full size "
               f"[{card}]")
         encoder_parity(paths, card)
+
+        print(f"phase 10: failure handling on the card [{card}]")
+        failure_handling(tmp, card, cap, paths)
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

@@ -57,10 +57,21 @@ the shard decoder's counters; the device pileup's slabs by strategy
 (``tail_fetch_bytes``).  A gate that prices the link probes it only when
 the link can change its choice (:func:`_decide_link`).
 
-No decision is taken because something failed: ``--pileup host`` and
-``--pileup pallas`` are obeyed as given, a device accumulator keeps its
-whole tail on the device, and on CUDA nothing carries on on the CPU after
-an error.
+The failure contract (the JAX backend's ``run`` and ``_run``,
+``jax_backend.py:577-1150``) wraps that path: a fresh metrics registry and
+fault injector per run (``observability``, ``resilience.faultinject``),
+checkpoint load and resume (``utils.checkpoint``; ``--incremental``),
+tolerant decode (``ingest.badrecords``), ``--paranoid`` re-validation, the
+retry policy and degradation ladder around each batch and around the tail
+(``resilience.policy``, ``resilience.ladder``), periodic and emergency
+checkpoints.  With none of its options set it adds no decision and no host
+synchronisation: ``--pileup host`` and ``--pileup pallas`` are obeyed as
+given, a device accumulator keeps its whole tail on the device, and a
+failure ends the run.  Only ``--on-device-error fallback`` steps down to
+the device scatter, the host counts or the host tail, and only for a
+failure the policy classifies as a device failure: a kernel that did not
+build or load, a contract error and malformed input end the run under
+every mode, and so does a sticky CUDA error (the context is lost).
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from typing import Dict, Iterable, List
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..config import RunConfig, resolve_decode_threads
 from ..constants import NUM_SYMBOLS, SYM32_ASCII
 from ..device import resolve_device
@@ -83,6 +95,7 @@ from ..encoder.events import (GenomeLayout, ReadEncoder, group_insertions,
                               resolve_segment_width)
 from ..encoder.parallel_decode import ParallelFusedDecoder
 from ..formats.bgzf import BgzfReader, inflated_bytes
+from ..ingest.badrecords import sink_from_config
 from ..io.fasta import FastaRecord
 from ..io.sam import Contig, ReadStream, SamRecord
 from ..ops import fused
@@ -90,6 +103,9 @@ from ..ops.insertions import insertion_tail_host
 from ..ops.pileup import (HostPileupAccumulator, PileupAccumulator,
                           host_pileup_bound)
 from ..ops.vote import device_fill_code, vote_positions_native
+from ..resilience import faultinject
+from ..resilience import ladder as rladder
+from ..resilience.policy import DATA, PASSTHROUGH, RetryPolicy, classify
 from ..wire.codec import resolve_codec
 from ..wire.pipeline import StageSlots
 from .base import BackendResult, BackendStats, format_header
@@ -133,6 +149,8 @@ def _probed_link(device=None):
     from ..utils.linkprobe import probe_link
 
     probe = probe_link(None if device is None else torch.device(device))
+    if probe is None:               # an injected probe failure
+        return None
     return probe.rt_sec, probe.bps
 
 
@@ -364,6 +382,27 @@ def _input_bytes(records, cap: int):
     return None
 
 
+#: ``RunConfig`` fields the port does not run yet, with their defaults:
+#: ``shards`` and ``shard_mode`` (multi-GPU), the observability outputs
+#: and logging (ROADMAP §A)
+UNPORTED_FIELDS = (("shards", 0), ("shard_mode", "auto"),
+                   ("profile_dir", None), ("json_metrics", None),
+                   ("trace_out", None), ("metrics_out", None),
+                   ("log_level", None), ("log_format", "text"))
+
+
+def reject_unported(cfg) -> None:
+    """Refuse a ``RunConfig`` that sets a field the port does not run
+    (:data:`UNPORTED_FIELDS`) away from its default, naming the field: no
+    field is silently ignored."""
+    for name, default in UNPORTED_FIELDS:
+        value = getattr(cfg, name, default)
+        if value != default:
+            raise ValueError(
+                f"RunConfig.{name}={value!r}: not supported by the torch "
+                f"backend yet (leave it at {default!r})")
+
+
 def _timed(batches, stats: BackendStats):
     """Yield from ``batches`` on the calling thread, adding the time spent
     in the generator to ``stats.extra["decode_sec"]`` (the serial loop of
@@ -390,15 +429,23 @@ class _Prefetcher:
     then claims a staging slot for the batch (outside the stage clock:
     that wait is backpressure) and stages it: on CUDA the pinned copy, the
     host-to-device copy on a side stream and its event run here, on the
-    producer.  Every other torch call stays on the consumer.  Exceptions,
-    strict decode errors and staging failures alike, are re-raised in the
-    consumer at the point of consumption with their type and message
-    unchanged; unlike the reference, a batch whose staging failed is
-    never delivered unstaged.  ``close()`` stops the producer when the
-    consumer leaves early.
+    producer.  Every other torch call stays on the consumer.  Staging is an
+    optimization: a staging failure that the retry policy classifies as a
+    device failure (``resilience.policy.classify``: transient, capacity or
+    fatal, e.g. an injected ``device_put`` fault) clears the batch's staged
+    operands and delivers it unstaged, so the consumer ships it again
+    under its retry policy and ladder, counted
+    ``resilience/stage_failures``; after ``MAX_STAGE_FAILURES`` in a row
+    staging stops for the run.  Any other exception (strict decode errors,
+    contract errors of the staging itself) is re-raised in the consumer at
+    the point of consumption with its type and message unchanged, and the
+    producer stops.  A stager whose ``stage_fn`` was rebound to None (the
+    ladder's host rung) lets batches pass unstaged.  ``close()`` stops the
+    producer when the consumer leaves early.
     """
 
     _DONE = object()
+    MAX_STAGE_FAILURES = 3
 
     def __init__(self, gen, stats: BackendStats, depth: int = 2,
                  stager=None):
@@ -406,6 +453,7 @@ class _Prefetcher:
         self._exc = None
         self._stats = stats
         self._stager = stager
+        self._stage_failures = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(
             target=self._work, args=(gen,), name="decode-prefetch",
@@ -433,15 +481,30 @@ class _Prefetcher:
                 finally:
                     self._stats.extra["decode_sec"] += \
                         time.perf_counter() - t0
-                if self._stager is not None:
-                    if not self._stager.acquire(batch):
+                if self._stager is not None \
+                        and self._stage_failures < self.MAX_STAGE_FAILURES:
+                    if self._stager.acquire(batch):
+                        self._stage(batch)
+                    elif self._stager._stop.is_set():
                         return             # consumer gone; drop the rest
-                    self._stager.run(batch)
                 if not self._put(batch):
                     return                 # consumer gone; drop the rest
         except BaseException as exc:  # re-raised on the consumer side
             self._exc = exc
         self._put(self._DONE)
+
+    def _stage(self, batch) -> None:
+        """Stage one acquired batch; a device failure delivers it
+        unstaged (see the class docstring), anything else raises."""
+        try:
+            self._stager.run(batch)
+            self._stage_failures = 0
+        except Exception as exc:
+            if classify(exc) in (PASSTHROUGH, DATA):
+                raise
+            self._stage_failures += 1
+            batch.staged.clear()
+            obs.metrics().add("resilience/stage_failures", 1)
 
     def close(self) -> None:
         """Unblock and join the producer (consumer exited early)."""
@@ -472,6 +535,33 @@ class TorchBackend:
 
     def run(self, contigs: List[Contig], records: Iterable[SamRecord],
             cfg: RunConfig) -> BackendResult:
+        """One run under a fresh metrics registry and fault injector (the
+        JAX backend's ``run``): the registry's counters land in
+        ``stats.extra`` (``observability.publish_stats_extra``), the
+        injector counts each site's calls from zero.  A blown bad-record
+        budget leaves its evidence (sidecar, counters) before it
+        propagates.  A ``RunConfig`` field the port does not run yet is
+        refused (:func:`reject_unported`)."""
+        from ..ingest.badrecords import (BadRecordBudgetExceeded,
+                                         abort_bookkeeping)
+        from ..observability.metrics import pop_run, push_run
+
+        reject_unported(cfg)
+        registry = push_run()
+        faultinject.configure(getattr(cfg, "fault_inject", "") or None)
+        try:
+            result = self._run(contigs, records, cfg)
+            obs.publish_stats_extra(result.stats.extra)
+            return result
+        except BadRecordBudgetExceeded as exc:
+            abort_bookkeeping(exc, obs.metrics())
+            raise
+        finally:
+            faultinject.configure("")
+            pop_run(registry)
+
+    def _run(self, contigs: List[Contig], records: Iterable[SamRecord],
+             cfg: RunConfig) -> BackendResult:
         stats = BackendStats()
         for key in ("decode_sec", "pileup_sec", "tail_sec", "assemble_sec",
                     "stage_sec", "overlap_sec", "backpressure_sec"):
@@ -481,25 +571,69 @@ class TorchBackend:
             return BackendResult(fastas={}, stats=stats)
 
         acc = self._make_accumulator(layout, records, cfg, stats)
+        ck, skip_input, prior_sources = self._resume(layout, records, cfg,
+                                                     acc, stats)
+        base_mapped = ck.reads_mapped if ck else 0
+        base_skipped = ck.reads_skipped if ck else 0
+        base_aligned = ck.aligned_bases if ck else 0
         encoder, batches = self._make_encoder(layout, records, cfg, stats,
                                               acc)
+        if skip_input:
+            # an input the checkpoint already holds: decode nothing
+            batches = iter(())
+        if ck is not None:
+            encoder.insertions.array_chunks.extend(
+                ck.insertions.array_chunks)
+        stats.aligned_bases = base_aligned
         stats.extra["counts_fused"] = bool(getattr(encoder, "counts_fused",
                                                    False))
         stager = prefetch = None
-        if stats.extra["counts_fused"]:
-            # the count rides the decode pass: the loop only tallies, so
-            # a prefetch thread would buy no overlap
+        if cfg.checkpoint_dir or stats.extra["counts_fused"]:
+            # serial decode: a checkpoint must see the stream exactly at
+            # the batches already counted (a decode thread would run
+            # ahead), and a fused count rides the decode pass, so a
+            # prefetch thread would buy no overlap
             source = _timed(batches, stats)
         else:
-            # staging is for the card: the CPU consumer ships its own rows
+            # staging is for the card: the CPU consumer ships its own
+            # rows; --paranoid re-validates a batch before it ships
             if isinstance(acc, PileupAccumulator) \
-                    and self.device.type == "cuda":
+                    and self.device.type == "cuda" and not cfg.paranoid:
                 stager = StageSlots(acc.stage)
             source = prefetch = _Prefetcher(batches, stats, stager=stager)
+
+        policy = RetryPolicy.from_config(cfg)
+        row_width = [ck.max_row_width if ck else 0]
+
+        def checkpoint(acc_, sources=prior_sources):
+            self._write_checkpoint(cfg, records, acc_, encoder, stats,
+                                   base_mapped, base_skipped, sources,
+                                   row_width[0])
+
+        def rebind_stage(acc_):
+            # a demoted accumulator re-routes (rung 1: the same
+            # accumulator) or drops (rung 2: the host counts) the
+            # prefetch thread's staging; batches already staged are
+            # consumed from their host rows
+            if stager is not None:
+                with stager._lock:
+                    stager.stage_fn = getattr(acc_, "stage", None)
+                    stats.extra["pipeline_started_at_demotion"] = \
+                        stager.started
+
+        dispatcher = rladder.ResilientDispatcher(
+            policy, layout.total_len,
+            checkpoint_cb=checkpoint if cfg.checkpoint_dir else None,
+            on_demote=rebind_stage)
+        reads_at_ckpt = 0
         try:
             for batch in source:
+                if cfg.paranoid:
+                    self._paranoid_batch(batch, layout.total_len, stats)
+                if batch.buckets:
+                    row_width[0] = max(row_width[0], max(batch.buckets))
                 t0 = time.perf_counter()
-                acc.add(batch)
+                acc = dispatcher.add(acc, batch)
                 t1 = time.perf_counter()
                 stats.extra["pileup_sec"] += t1 - t0
                 if stager is not None:
@@ -507,6 +641,10 @@ class TorchBackend:
                     stager.note_consume(t0, t1)
                     stager.consumed(batch)
                 stats.aligned_bases += batch.n_events
+                if cfg.checkpoint_dir and (encoder.n_reads - reads_at_ckpt
+                                           >= cfg.checkpoint_every):
+                    checkpoint(acc)
+                    reads_at_ckpt = encoder.n_reads
         finally:
             # a consumer-side failure must not leave the decode thread
             # blocked on a full queue (or a backpressured staging slot)
@@ -520,28 +658,233 @@ class TorchBackend:
             stats.extra["stage_sec"] = stager.stage_sec()
             stats.extra["overlap_sec"] = stager.overlap_sec()
             stats.extra["backpressure_sec"] = stager.backpressure_sec
+            stats.extra["pipeline_started"] = stager.started
+            stats.extra["pipeline_slots_held"] = len(stager._held)
+        if dispatcher.demotions:
+            # the tail follows the accumulator the ladder landed on
+            stats.extra["pileup_ladder"] = rladder.pileup_level(acc)
         t0 = time.perf_counter()
         acc.sync()
         stats.extra["pileup_sec"] += time.perf_counter() - t0
-        stats.reads_mapped = encoder.n_reads
-        stats.reads_skipped = encoder.n_skipped
+        stats.reads_mapped = base_mapped + encoder.n_reads
+        stats.reads_skipped = base_skipped + encoder.n_skipped
+        self._finish_bad_records(encoder, records, stats)
+        if ck is not None and "incremental_base" not in stats.extra:
+            stats.extra["resumed_from_line"] = ck.lines_consumed
 
         t0 = time.perf_counter()
-        syms, ins_syms, contig_sums, site_cov, ins, dash_counts = \
-            self._tail(acc, cfg, layout, encoder, stats)
+        acc, (syms, ins_syms, contig_sums, site_cov, ins, dash_counts) = \
+            self._tail_resilient(acc, cfg, layout, encoder, stats, policy,
+                                 checkpoint if cfg.checkpoint_dir else None)
         stats.extra["tail_sec"] = time.perf_counter() - t0
         stats.extra["pileup"] = dict(acc.strategy_used)
         if isinstance(acc, HostPileupAccumulator):
             stats.extra["counts_uploads"] = acc.uploads
             stats.extra["counts_h2d_bytes"] = acc.bytes_h2d
-        else:
+        if getattr(acc, "account", None) is not None:
             stats.extra.update(acc.account.extra())
+        if cfg.paranoid:
+            self._paranoid_result(acc, contig_sums, layout, stats, ins=ins,
+                                  site_cov=site_cov)
 
         t0 = time.perf_counter()
         fastas = self._assemble(layout, syms, contig_sums, ins, ins_syms,
                                 site_cov, cfg, stats, dash_counts=dash_counts)
         stats.extra["assemble_sec"] = time.perf_counter() - t0
+        if cfg.checkpoint_dir:
+            self._end_checkpoint(cfg, prior_sources,
+                                 lambda done: checkpoint(acc, done))
         return BackendResult(fastas=fastas, stats=stats)
+
+    # -- checkpoints -------------------------------------------------------
+    @staticmethod
+    def _resume(layout, records, cfg: RunConfig, acc, stats):
+        """Checkpoint load and resume (the JAX backend's, ``:782-861``):
+        ``(ck, skip_input, prior_sources)``.  Without ``--incremental`` a
+        checkpoint is the current input's: the stream skips its consumed
+        lines (``skip_to`` the byte offset, else ``skip_lines``).  With it,
+        the checkpoint's source identity picks one of three cases: an input
+        already absorbed adds nothing; the input in flight resumes; any
+        other input starts at line 0 on the accumulated counts (refused
+        while a crashed input is half absorbed)."""
+        from ..utils import checkpoint as ckpt
+
+        incremental = cfg.incremental
+        source_id = cfg.source_id
+        if incremental and not source_id:
+            raise RuntimeError(
+                "incremental mode needs a non-empty source_id identifying "
+                "the input (the CLI passes the input file's absolute path)")
+        if not cfg.checkpoint_dir:
+            return None, False, []
+        if not isinstance(records, ReadStream):
+            raise RuntimeError(
+                "--checkpoint-dir requires a file-backed SAM input "
+                "stream (BAM inputs do not support checkpoint resume "
+                "yet — convert to SAM/SAM.gz or drop the checkpoint)")
+        ck = ckpt.load(cfg.checkpoint_dir, layout.total_len)
+        if ck is None:
+            return None, False, []
+        skip_input = False
+        prior_sources = list(ck.sources or [])
+        if incremental and source_id != ck.source \
+                and ck.lines_consumed > 0 and ck.source \
+                and ck.source not in prior_sources:
+            raise RuntimeError(
+                f"checkpoint contains a partially absorbed input "
+                f"{ck.source!r} (crashed mid-shard); rerun that "
+                f"input to completion before adding "
+                f"{source_id!r}, or delete the checkpoint")
+        if incremental and source_id in prior_sources:
+            skip_input = True
+            stats.extra["incremental_duplicate"] = source_id
+        elif not incremental or source_id == ck.source:
+            stats.extra["resume_mode"] = records.skip_to(
+                ck.byte_offset, ck.lines_consumed)
+        else:
+            stats.extra["incremental_base"] = prior_sources
+        acc.set_counts(ck.counts)
+        return ck, skip_input, prior_sources
+
+    @staticmethod
+    def _write_checkpoint(cfg, stream, acc, encoder, stats, base_mapped,
+                          base_skipped, sources, max_row_width: int = 0):
+        """Persist the run's state at a batch boundary (copy of the JAX
+        backend's ``_write_checkpoint``): the counts (fetched from the card
+        for a device accumulator), the insertion log, the consumed lines
+        and their byte offset."""
+        from ..utils import checkpoint as ckpt
+
+        # a fused decode keeps in-flight counts in a uint8 shadow: the
+        # checkpoint snapshots the merged int32 counts
+        merge = getattr(encoder, "merge_shadow", None)
+        if merge is not None:
+            merge()
+        ckpt.save(cfg.checkpoint_dir, ckpt.CheckpointState(
+            counts=acc.counts_host(),
+            lines_consumed=stream.n_lines,
+            reads_mapped=base_mapped + encoder.n_reads,
+            reads_skipped=base_skipped + encoder.n_skipped,
+            aligned_bases=stats.aligned_bases,
+            insertions=encoder.insertions,
+            source=getattr(cfg, "source_id", ""),
+            sources=list(sources),
+            byte_offset=stream.byte_offset(),
+            max_row_width=max_row_width))
+        stats.extra["checkpoints_written"] = (
+            stats.extra.get("checkpoints_written", 0) + 1)
+
+    @staticmethod
+    def _end_checkpoint(cfg, prior_sources, write) -> None:
+        """A completed run's checkpoint: under ``--incremental`` the final
+        state (``write(sources)``), with this input recorded as absorbed;
+        else removed, so a rerun starts from scratch."""
+        from ..utils import checkpoint as ckpt
+
+        if cfg.incremental:
+            done = list(prior_sources)
+            if cfg.source_id and cfg.source_id not in done:
+                done.append(cfg.source_id)
+            write(done)
+        else:
+            p = ckpt.path_for(cfg.checkpoint_dir)
+            if os.path.exists(p):
+                os.unlink(p)
+
+    # -- tolerant decode, the tail's ladder, --paranoid ----------------------
+    @staticmethod
+    def _finish_bad_records(encoder, records, stats) -> None:
+        """Decode is complete: the sink enforces the percent budget
+        against the real record total, writes the quarantine sidecar and
+        publishes its counters (the JAX backend's ``:1046-1064``); a blown
+        budget raises here, before any tail work."""
+        bad_sink = getattr(encoder, "bad_sink", None)
+        if bad_sink is None:
+            return
+        total = int(getattr(records, "n_lines", 0) or 0)
+        if total <= 0:
+            total = encoder.n_reads + encoder.n_skipped
+        summary = bad_sink.finish(total)
+        bad_sink.publish(obs.metrics())
+        if summary["bad_records"]:
+            stats.extra["bad_records"] = summary["bad_records"]
+            if summary.get("sidecar"):
+                stats.extra["quarantine_sidecar"] = summary["sidecar"]
+
+    def _tail_resilient(self, acc, cfg: RunConfig, layout, encoder, stats,
+                        policy, checkpoint_cb=None):
+        """The tail under the retry policy (the JAX backend's
+        ``_finish_consensus`` loop): a pure function of the counts, so a
+        transient failure recomputes it whole; under ``--on-device-error
+        fallback`` a persistent one demotes it to the host tail
+        (``ladder.demote_tail_and_record``: emergency checkpoint first),
+        which runs with injection suppressed.  Returns ``(acc, tail)``."""
+        demoted = False
+        while True:
+            try:
+                out = policy.run(
+                    lambda: self._tail(acc, cfg, layout, encoder, stats,
+                                       suppress_faults=demoted),
+                    site="tail")
+                return acc, out
+            except BaseException as exc:
+                if (demoted or classify(exc) in (PASSTHROUGH, DATA)
+                        or policy.on_error != "fallback"):
+                    raise
+                acc = rladder.demote_tail_and_record(
+                    acc, layout.total_len, exc, checkpoint_cb=checkpoint_cb)
+                demoted = True
+
+    @staticmethod
+    def _paranoid_batch(batch, total_len: int, stats) -> None:
+        """Re-validate a batch's rows before they reach the device (copy
+        of the JAX backend's ``_paranoid_batch``)."""
+        for w, (starts, codes) in batch.buckets.items():
+            rows, cols = np.nonzero(codes < NUM_SYMBOLS)
+            pos = starts[rows].astype(np.int64) + cols
+            if len(pos) and (pos.min() < 0 or pos.max() >= total_len):
+                raise RuntimeError(
+                    "paranoid: scatter position out of bounds "
+                    f"(width-{w} bucket, range [{pos.min()}, {pos.max()}], "
+                    f"genome length {total_len})")
+            bad = (codes > NUM_SYMBOLS - 1) & (codes != 255)
+            if bad.any():
+                raise RuntimeError(
+                    f"paranoid: {int(bad.sum())} invalid symbol codes in "
+                    f"width-{w} bucket")
+        stats.extra["paranoid_batches"] = (
+            stats.extra.get("paranoid_batches", 0) + 1)
+
+    @staticmethod
+    def _paranoid_result(acc, contig_sums: np.ndarray, layout, stats,
+                         ins=None, site_cov=None) -> None:
+        """Fetch the count tensor and hold the tail's contig sums and
+        per-site coverage against a host recomputation (copy of the JAX
+        backend's ``_paranoid_result``)."""
+        counts = acc.counts_host()
+        if (counts < 0).any():
+            raise RuntimeError("paranoid: negative pileup count")
+        cov = counts.sum(axis=-1, dtype=np.int64)
+        if int(cov.sum()) != stats.aligned_bases:
+            raise RuntimeError(
+                f"paranoid: device event total {int(cov.sum())} != host "
+                f"accounting {stats.aligned_bases}")
+        want = np.asarray([
+            cov[int(layout.offsets[i]):int(layout.offsets[i + 1])].sum()
+            for i in range(len(layout.names))], dtype=np.int64)
+        if not np.array_equal(np.asarray(contig_sums, dtype=np.int64), want):
+            raise RuntimeError(
+                "paranoid: device per-contig coverage sums diverge from "
+                "host recomputation")
+        if ins is not None and site_cov is not None:
+            kf = ins["key_flat"]
+            want_sc = np.where(kf >= 0, cov[np.maximum(kf, 0)], 0)
+            if not np.array_equal(np.asarray(site_cov, dtype=np.int64),
+                                  want_sc.astype(np.int64)):
+                raise RuntimeError(
+                    "paranoid: device per-site coverage diverges from "
+                    "host recomputation")
+        stats.extra["paranoid_result_ok"] = True
 
     def _make_accumulator(self, layout, records, cfg: RunConfig,
                           stats: BackendStats):
@@ -602,12 +945,19 @@ class TorchBackend:
         branch, counting as it decodes when ``acc`` holds host counts);
         returns ``(encoder, batch iterator)`` and records the choice in
         ``stats.extra`` (``decoder``; for the C++ SAM decoder also the
-        thread policy ``decode_threads`` and the rung ``decode_rung``)."""
-        fuse = isinstance(acc, HostPileupAccumulator)
+        thread policy ``decode_threads`` and the rung ``decode_rung``).
+        The run's one quarantine sink (``--on-bad-record skip|quarantine``;
+        None under the strict default) rides on the encoder as
+        ``bad_sink``.  ``--paranoid`` keeps the row path (no fused count)
+        so batches can be re-validated, and it and ``--checkpoint-dir``
+        keep the serial decoder (ordered batches and stream offsets)."""
+        fuse = isinstance(acc, HostPileupAccumulator) and not cfg.paranoid
+        bad_sink = sink_from_config(cfg)
         if hasattr(records, "make_encoder"):
             # binary formats (formats/bam.BamReadStream): the stream owns
             # its record decode and hands back the same surface
-            enc, batches = records.make_encoder(layout, cfg, acc)
+            enc, batches = records.make_encoder(layout, cfg, acc,
+                                                bad_sink=bad_sink)
             stats.extra["decoder"] = "native" if isinstance(
                 enc, native_encoder.NativeReadEncoder) else "py"
             return enc, batches
@@ -618,7 +968,8 @@ class TorchBackend:
                 # one thread budget: the shard workers, the BGZF inflate
                 # pool and the native vote
                 threads = resolve_decode_threads(cfg)
-                parallel = threads > 1
+                parallel = (threads > 1 and not cfg.checkpoint_dir
+                            and not cfg.paranoid)
                 stats.extra["decode_threads"] = threads if parallel else 1
                 stats.extra["decode_rung"] = "fused" if fuse else "slab"
                 counts = acc.counts_host() if fuse else None
@@ -629,12 +980,14 @@ class TorchBackend:
                     enc = ParallelFusedDecoder(
                         layout, counts, threads, maxdel=cfg.maxdel,
                         strict=cfg.strict, on_lines=records.add_lines,
-                        on_bytes=records.add_bytes, segment_width=seg_w)
+                        on_bytes=records.add_bytes, segment_width=seg_w,
+                        bad_sink=bad_sink)
                     return enc, enc.encode_input(records)
                 enc = native_encoder.NativeReadEncoder(
                     layout, maxdel=cfg.maxdel, strict=cfg.strict,
                     on_lines=records.add_lines, on_bytes=records.add_bytes,
-                    accumulate_into=counts, segment_width=seg_w)
+                    accumulate_into=counts, segment_width=seg_w,
+                    bad_sink=bad_sink)
                 return enc, enc.encode_blocks_from(records)
             if cfg.decoder == "native":
                 raise RuntimeError("--decoder native requested but the C++ "
@@ -642,20 +995,44 @@ class TorchBackend:
                                    f"{native.load_error()}")
         stats.extra["decoder"] = "py"
         enc = ReadEncoder(layout, maxdel=cfg.maxdel, strict=cfg.strict,
-                          segment_width=seg_w)
-        source = records.records() if isinstance(records, ReadStream) \
-            else records
+                          segment_width=seg_w, bad_sink=bad_sink)
+        on_bad = None
+        if bad_sink is not None:
+            def on_bad(line, exc):
+                # the Python rung's parse errors: the same sink, one
+                # stream-order partition, counted as skips
+                bad_sink.record(line, exc)
+                enc.n_skipped += 1
+        source = records.records(on_bad=on_bad) \
+            if isinstance(records, ReadStream) else records
         return enc, enc.encode_segments(source, cfg.chunk_reads)
 
-    def _tail(self, acc, cfg: RunConfig, layout, encoder, stats):
-        """The tail: one fused device call and one device-to-host copy, or
-        for host counts placed on the host the native vote.  Returns
-        ``(syms, ins_syms, contig_sums, site_cov, ins, dash_counts)`` as
-        host arrays."""
+    def _tail(self, acc, cfg: RunConfig, layout, encoder, stats,
+              suppress_faults: bool = False):
+        """One attempt of the tail: one fused device call and one
+        device-to-host copy, or for host counts placed on the host the
+        native vote.  Returns ``(syms, ins_syms, contig_sums, site_cov,
+        ins, dash_counts)`` as host arrays.  Pure with respect to the
+        counts, so the retry policy can run it again; the ``vote`` and
+        ``insertion_build`` fault sites fire here, except on the demoted
+        attempt (``suppress_faults``: the host rung is the ladder's
+        bottom)."""
+        if suppress_faults:
+            with faultinject.suppress():
+                return self._tail_attempt(acc, cfg, layout, encoder, stats)
+        return self._tail_attempt(acc, cfg, layout, encoder, stats)
+
+    def _tail_attempt(self, acc, cfg: RunConfig, layout, encoder, stats):
         ins = group_insertions(encoder.insertions, layout)
+        faultinject.fault_check("vote")
+        if ins is not None:
+            faultinject.fault_check("insertion_build")
         tail_dev = self.device
         if isinstance(acc, HostPileupAccumulator):
-            if self.device.type == "cpu":
+            if acc.tail_device == "cpu":
+                # the ladder's tail rung: the host tail
+                placement = {"chosen": "cpu", "demoted": True}
+            elif self.device.type == "cpu":
                 placement = {"chosen": "cpu", "link_free": True}
             elif cfg.ins_kernel == "pallas":
                 # the kernels run on the card: the reference keeps the

@@ -6,7 +6,14 @@ keep their names, defaults and post-processing (``:108-138``), plus the
 reference package's one-shot flags ``--py2-compat``, ``--permissive``,
 ``--segment-width``, ``--quiet``, ``--format``, ``--pileup``, ``--wire``,
 ``--insertion-kernel``, ``--decode-threads``, ``--decoder`` and
-``--chunk-reads``; the progress messages match.  Input is SAM, gzip or
+``--chunk-reads``, and its failure-handling flags ``--on-bad-record``,
+``--max-bad-records``, ``--quarantine-out``, ``--checkpoint-dir``,
+``--checkpoint-every``, ``--incremental``, ``--paranoid``, ``--retries``,
+``--retry-backoff``, ``--on-device-error`` and ``--fault-inject`` (with
+the environment settings ``S2C_FAULT_INJECT``, ``S2C_FAULT_SEED`` and
+``S2C_QUARANTINE_MAX``; the reference's ``S2C_ON_DEVICE_ERROR`` and
+``S2C_ATTEMPT_DEADLINE_S`` are not read);
+the progress messages match.  Input is SAM, gzip or
 BGZF SAM, or BAM, sniffed by magic bytes
 (``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 from typing import List, Optional
 
@@ -69,6 +77,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--permissive", action="store_true",
                    help="skip-and-count malformed/out-of-contract records "
                         "instead of erroring like the reference")
+    p.add_argument("--on-bad-record", dest="on_bad_record",
+                   choices=["fail", "skip", "quarantine"], default="fail",
+                   help="per-record malformation policy "
+                        "(ingest/badrecords.py): fail (default; strict "
+                        "reference semantics — first bad record kills the "
+                        "job with a typed error carrying the file offset), "
+                        "skip (drop + count as ingest/bad_records with a "
+                        "per-reason taxonomy), quarantine (skip + write "
+                        "the raw record and classified reason to a "
+                        "bounded JSONL sidecar).  Identical consensus "
+                        "bytes on every decode rung (serial/sharded/"
+                        "streaming/BAM)")
+    p.add_argument("--max-bad-records", dest="max_bad_records", default="",
+                   help="error budget for tolerant modes: N (absolute — "
+                        "the Nth bad record fails the job immediately) or "
+                        "x%% (fraction of all records, checked at stream "
+                        "end).  A blown budget is a clean job-level "
+                        "failure with a precise summary (DATA resilience "
+                        "class: never retried, never demotes a rung, "
+                        "never pins a serve tenant)")
+    p.add_argument("--quarantine-out", dest="quarantine_out", default=None,
+                   help="quarantine sidecar path (s2c-quarantine/1 JSONL; "
+                        "default <outfolder>/<prefix>_quarantine.jsonl); "
+                        "bounded by S2C_QUARANTINE_MAX stored records")
     p.add_argument("--quiet", action="store_true",
                    help="suppress progress output")
     # NOTE: long-form only — the reference already owns -f for --fill
@@ -80,6 +112,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "inflated block-parallel on --decode-threads "
                         "workers) or BAM (block-parallel BGZF + binary "
                         "record decode, no SAM text materialized)")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None,
+                   help="persist count-tensor checkpoints here and resume "
+                        "from them if present")
+    p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                   default=2_000_000,
+                   help="reads between checkpoint writes; default=2000000")
+    p.add_argument("--incremental", action="store_true",
+                   help="treat the checkpoint as an accumulated base: a new "
+                        "input file ADDS its reads on top (and the final "
+                        "state is persisted for the next shard) instead of "
+                        "resuming the same file; requires --checkpoint-dir")
+    p.add_argument("--paranoid", action="store_true",
+                   help="re-validate device inputs and outputs every batch "
+                        "(index bounds, symbol codes, count invariants)")
     p.add_argument("--pileup", choices=["auto", "pallas", "scatter", "host"],
                    default="auto",
                    help="pileup strategy: pallas (the CUDA histogram "
@@ -127,12 +173,49 @@ def build_parser() -> argparse.ArgumentParser:
                    default=262144,
                    help="reads per host->device batch of the python "
                         "decoder")
+    # --- resilience (resilience/) ---
+    p.add_argument("--retries", type=int, default=3,
+                   help="transient device-failure re-attempts per dispatch "
+                        "(RPC/link/timeout errors; exponential backoff + "
+                        "seeded jitter); default=3")
+    p.add_argument("--retry-backoff", dest="retry_backoff", type=float,
+                   default=0.25,
+                   help="base backoff seconds between retries (doubles per "
+                        "attempt, capped at 8 s); default=0.25")
+    p.add_argument("--on-device-error", dest="on_device_error",
+                   choices=["fail", "retry", "fallback"], default="retry",
+                   help="mid-run device failure policy: fail (raise "
+                        "immediately), retry (transient errors retry, OOM "
+                        "splits the slab, then raise), or fallback (after "
+                        "retries, step down the degradation ladder — device "
+                        "kernel -> scatter -> host pileup, device tail -> "
+                        "host tail — writing an emergency checkpoint at "
+                        "each demotion; counts are never lost). "
+                        "default=retry")
+    p.add_argument("--fault-inject", dest="fault_inject", default="",
+                   help="deterministic fault injection for the device path "
+                        "(tests/chaos): comma-separated "
+                        "site:kind:after_n[:times] specs — sites "
+                        "device_put|pileup_dispatch|accumulate|vote|"
+                        "insertion_build|link_probe|wire_encode|"
+                        "serve_decode_ahead|journal_write|job_hang, kinds "
+                        "rpc|timeout|oom|"
+                        "fatal|trace, after_n an integer call count or "
+                        "pP probability (seeded by S2C_FAULT_SEED), times "
+                        "an integer or inf. job_hang SLEEPS "
+                        "S2C_FAULT_HANG_S before raising (a wedged "
+                        "dispatch); serve_decode_ahead/journal_write are "
+                        "serve-runner-scope sites. Env S2C_FAULT_INJECT "
+                        "also activates it")
     return p
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
     """Post-processing copied from ``sam2consensus_tpu/cli.config_from_args``
-    for these flags, including the clean ``-c`` rejection."""
+    for these flags, including the clean ``-c`` rejection and the up-front
+    validation of the bad-record policy, ``--incremental`` and
+    ``--fault-inject`` (the reference's ``config_from_args`` and
+    ``main``)."""
     try:
         thresholds = [float(i) for i in args.thresholds.split(",")]
     except ValueError:
@@ -144,6 +227,25 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
             "error: consensus thresholds must be finite, > 0 and <= 100, "
             f"got {args.thresholds}")
     prefix = args.prefix if args.prefix != "" else default_prefix(args.filename)
+    # --on-bad-record / --max-bad-records / --quarantine-out cross-checks
+    # fail the run at parse time, through the one authority that API
+    # callers meet at run start
+    from .ingest.badrecords import policy_from_config
+
+    try:
+        policy_from_config(args)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
+    if args.incremental and not args.checkpoint_dir:
+        raise SystemExit("--incremental requires --checkpoint-dir")
+    if args.fault_inject:
+        # a typo'd spec must fail the run, not silently inject nothing
+        from .resilience.faultinject import parse_spec
+
+        try:
+            parse_spec(args.fault_inject)
+        except ValueError as exc:
+            raise SystemExit(f"error: {exc}") from None
     if args.maxdel is None:
         maxdel: Optional[int] = 150
     elif args.py2_compat:
@@ -171,6 +273,18 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         ins_kernel=args.ins_kernel,
         decode_threads=args.decode_threads,
         chunk_reads=args.chunk_reads,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        paranoid=args.paranoid,
+        incremental=args.incremental,
+        source_id=os.path.abspath(args.filename),
+        retries=args.retries,
+        retry_backoff=args.retry_backoff,
+        on_device_error=args.on_device_error,
+        fault_inject=args.fault_inject,
+        on_bad_record=args.on_bad_record,
+        max_bad_records=args.max_bad_records,
+        quarantine_out=args.quarantine_out,
     )
 
 
@@ -180,6 +294,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     from .backends.torch_backend import TorchBackend
     from .config import resolve_decode_threads
     from .formats import open_alignment_input
+    from .ingest.badrecords import BadRecordBudgetExceeded
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -206,10 +321,30 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
              + " references found.\n")
         stream = ai.stream
         result = backend.run(ai.contigs, stream, cfg)
+    except BadRecordBudgetExceeded as exc:
+        # rotten input: a clean job-level failure with the precise
+        # summary (counts per reason + sidecar path), not a traceback
+        s = exc.summary
+        lines = [f"error: {exc}"]
+        if s.get("reasons"):
+            lines.append("  reasons: " + ", ".join(
+                f"{why}={n}" for why, n in s["reasons"].items()))
+        if s.get("sidecar"):
+            lines.append(f"  quarantine sidecar: {s['sidecar']}")
+        raise SystemExit("\n".join(lines)) from None
     finally:
         ai.close()
     echo("A total of " + str(stream.n_lines) + " reads were processed, out of "
          "which, " + str(result.stats.reads_mapped) + " reads were mapped.\n")
+    n_bad = result.stats.extra.get("bad_records", 0)
+    if n_bad:
+        msg = (f"{n_bad} malformed record(s) "
+               + ("quarantined" if cfg.on_bad_record == "quarantine"
+                  else "skipped") + f" (--on-bad-record {cfg.on_bad_record})")
+        sidecar = result.stats.extra.get("quarantine_sidecar")
+        if sidecar:
+            msg += f"; sidecar: {sidecar}"
+        echo(msg + "\n")
     write_outputs(result.fastas, cfg.outfolder, cfg.prefix, cfg.nchar,
                   cfg.thresholds, echo=echo)
     echo("Done.\n")

@@ -133,6 +133,17 @@ class InsertionEvents:
                 np.concatenate(mlens), np.concatenate(chars))
 
 
+def render_record(rec) -> str:
+    """Canonical raw-record rendering for quarantine sidecars when the
+    original line/bytes are not in hand (parsed-record paths: the pure-
+    python rung, the BAM slow lane): the four consensus-relevant fields
+    as a minimal SAM-ish line.  Raw-line paths store the real line."""
+    try:
+        return (f"{rec.refname}\t{rec.pos + 1}\t{rec.cigar}\t{rec.seq}")
+    except Exception:       # a record too broken to render still counts
+        return repr(rec)
+
+
 class EncodeError(ValueError):
     """Base for encoder-contract violations (strict errors raise the
     oracle's exact KeyError / IndexError instead)."""
@@ -169,12 +180,21 @@ class ReadEncoder:
     """Streaming encoder: SamRecords in, SegmentBatches + InsertionEvents out."""
 
     def __init__(self, layout: GenomeLayout, maxdel: Optional[int] = 150,
-                 strict: bool = True, segment_width: int = 0):
+                 strict: bool = True, segment_width: int = 0,
+                 bad_sink=None, bad_partition=(0,)):
         self.layout = layout
         self.maxdel = maxdel
         self.strict = strict
         #: >0 = split rows wider than this at exact W boundaries; 0 = off.
         self.segment_width = segment_width
+        #: tolerant decode (``--on-bad-record skip|quarantine``): a
+        #: :class:`~..ingest.badrecords.QuarantineSink` shared run-wide.
+        #: When set, :meth:`encode_segments` absorbs per-record failures
+        #: into it instead of raising (or silently counting, in legacy
+        #: permissive mode).  ``bad_partition`` keys this encoder's
+        #: records in the sink's deterministic merge order.
+        self.bad_sink = bad_sink
+        self.bad_partition = tuple(bad_partition)
         self.n_reads = 0
         self.n_skipped = 0
         self.insertions = InsertionEvents()
@@ -188,7 +208,14 @@ class ReadEncoder:
             try:
                 # encode_record validates fully before committing anything
                 new_rows = self.encode_record(rec)
-            except (EncodeError, KeyError, IndexError):
+            except (EncodeError, KeyError, IndexError) as exc:
+                if self.bad_sink is not None:
+                    # tolerant decode: quarantine/count the record (the
+                    # sink raises the budget error when it is spent)
+                    self.bad_sink.record(render_record(rec), exc,
+                                         partition=self.bad_partition)
+                    self.n_skipped += 1
+                    continue
                 if self.strict:
                     raise
                 self.n_skipped += 1

@@ -21,6 +21,10 @@ orchestration the C side deliberately doesn't do:
   int literals Python accepts — the read is committed via the Python
   fallback and decoding continues); a strict error carries the line's
   input offset (``ingest.badrecords.mark_offset``);
+* tolerant decode (``--on-bad-record``): with a ``bad_sink`` the C
+  decoder runs in its line-flagging mode and the replay absorbs each
+  flagged record into the sink (:meth:`NativeReadEncoder._quarantine`)
+  instead of raising;
 * merging native row matrices with Python-fallback rows into one
   power-of-two-padded SegmentBatch per slab;
 * the fused host count (``accumulate_into``, the host-counts pileup):
@@ -43,7 +47,8 @@ import numpy as np
 
 from .. import native
 from ..constants import PAD_CODE
-from ..ingest.badrecords import RECORD_ERRORS, mark_offset
+from ..ingest.badrecords import (C_REASONS, RECORD_ERRORS, classify_reason,
+                                 mark_offset)
 from ..io.sam import iter_records
 from .events import (EncodeError, GenomeLayout, MIN_BUCKET_W, ReadEncoder,
                      SegmentBatch, _bucket_width)
@@ -107,7 +112,8 @@ class NativeReadEncoder:
     def __init__(self, layout: GenomeLayout, maxdel: Optional[int] = 150,
                  strict: bool = True, on_lines=None, on_bytes=None,
                  accumulate_into: Optional[np.ndarray] = None,
-                 segment_width: int = 0, private_counts: bool = False):
+                 segment_width: int = 0, private_counts: bool = False,
+                 bad_sink=None, bad_partition=(0,)):
         lib = native.load()
         if lib is None:  # pragma: no cover - callers check available()
             raise RuntimeError(f"native decoder unavailable: "
@@ -116,7 +122,16 @@ class NativeReadEncoder:
         self.layout = layout
         self.maxdel = maxdel
         self.strict = strict
-        self._c_strict = 1 if strict else 0
+        #: tolerant decode (--on-bad-record): when a sink is attached,
+        #: the C decoder runs in line-FLAGGING mode (strict=1 on the C
+        #: side: its clean fast path is byte-identical to strict runs)
+        #: and the python replay below absorbs each flagged record into
+        #: the sink instead of raising.  ``bad_partition`` keys this
+        #: encoder's records in the sink's deterministic merge order;
+        #: the rung schedulers re-key it (shard index / block index).
+        self.bad_sink = bad_sink
+        self.bad_partition = tuple(bad_partition)
+        self._c_strict = 1 if (strict or bad_sink is not None) else 0
         #: absolute input offset of the block currently being decoded
         #: (set by ``encode_blocks_from``; None = offsets unknown): the
         #: base of the offsets strict errors carry
@@ -186,6 +201,8 @@ class NativeReadEncoder:
         self._banked = 0
         # python twin for overflow/error-replay fallback; shares counters
         # and the insertion store so fallback reads land in the same place
+        # (NOT the sink: _fallback_line/_fallback_record own the tolerant
+        # catch around encode_record, so the twin never double-records)
         self._py = ReadEncoder(layout, maxdel=maxdel, strict=strict,
                                segment_width=segment_width)
         self.insertions = self._py.insertions
@@ -337,7 +354,8 @@ class NativeReadEncoder:
                     line_end = _line_end(data, offset)
                     self._fallback_line(
                         data, offset, line_end=line_end,
-                        abs_off=None if base is None else base + offset)
+                        abs_off=None if base is None else base + offset,
+                        c_reason=int(out[14]))
                     self._count_lines(1)
                     self._count_bytes(min(line_end + 1, len(data)) - offset)
                     offset = line_end + 1
@@ -484,17 +502,22 @@ class NativeReadEncoder:
 
     def _fallback_line(self, data: np.ndarray, start: int,
                        line_end: Optional[int] = None,
-                       abs_off: Optional[int] = None) -> None:
+                       abs_off: Optional[int] = None,
+                       c_reason: int = 0) -> None:
         """Encode one raw line via the Python path into the pending batch.
 
-        A line the C decoder flagged (or a wide/overflow read) replays
-        through the Python encoder; in strict mode any error the replay
-        raises is the Python path's own, with the line's absolute input
-        offset stamped on it (``s2c_offset``).
+        This is the tolerance point of every native text rung: a line the
+        C decoder flagged (or a wide/overflow read) replays through the
+        Python encoder; with a sink attached, any strict-mode error the
+        replay raises (parse or encode level, the exact oracle types) is
+        classified and absorbed per record.  In strict mode any error the
+        replay raises is the Python path's own, with the line's absolute
+        input offset stamped on it (``s2c_offset``).
         """
         if line_end is None:
             line_end = _line_end(data, start)
         raw = bytes(data[start:min(line_end + 1, len(data))])
+        sink = self.bad_sink
         try:
             # include the trailing newline so even an empty line replays
             # as the truthy "\n" string the pure-python path would have
@@ -503,12 +526,18 @@ class NativeReadEncoder:
             line = raw.decode("ascii")
             recs = list(iter_records(iter(()), line))
         except RECORD_ERRORS as exc:
+            if sink is not None:
+                self._quarantine(sink, raw, exc, abs_off, c_reason)
+                return
             mark_offset(exc, abs_off)
             raise
         for rec in recs:
             try:
                 rows = self._py.encode_record(rec)
             except (EncodeError, KeyError, IndexError) as exc:
+                if sink is not None:
+                    self._quarantine(sink, raw, exc, abs_off, c_reason)
+                    continue
                 if self.strict:
                     mark_offset(exc, abs_off)
                     raise
@@ -533,6 +562,20 @@ class NativeReadEncoder:
                     self._fallback_rows.append((start_flat, row))
                     self._batch_events += (len(row)
                                            - int((row == PAD_CODE).sum()))
+
+    def _quarantine(self, sink, raw: bytes, exc: BaseException,
+                    abs_off: Optional[int], c_reason: int) -> None:
+        """Absorb one flagged record into the sink (counts a skip like
+        legacy permissive mode).  The C decoder's reason-code hint
+        refines classification only when the python-side classifier
+        cannot name the failure: python classification is the
+        authority, so the pure-python rung can never disagree."""
+        reason = classify_reason(exc)
+        if reason == "malformed":
+            reason = C_REASONS.get(int(c_reason), reason)
+        sink.record(raw, exc, partition=self.bad_partition,
+                    offset=abs_off, reason=reason)
+        self._py.n_skipped += 1
 
     def _build_batch(self, native_parts, fallback_rows, n_reads, n_events
                      ) -> Optional[SegmentBatch]:

@@ -2,10 +2,11 @@
 
 Copy of ``sam2consensus_tpu/encoder/parallel_decode.py``
 (``ParallelFusedDecoder``, held equal to it by
-``tests/test_torch_parallel_decode.py``), without the reference's
-observability, fault-injection site and tolerant-decode sink; its
-counters land in :attr:`ParallelFusedDecoder.counters`, which the backend
-copies into ``stats.extra``.  One difference: in slab mode the last
+``tests/test_torch_parallel_decode.py``), with its fault-injection site
+(``ingest_decode_shard``, per fused shard attempt) and its run-wide
+tolerant-decode sink, without its tracer spans; its counters land in
+:attr:`ParallelFusedDecoder.counters`, which the backend copies into
+``stats.extra``.  One difference: in slab mode the last
 worker to end puts an end marker on the hand-off queue, so the consumer
 stops at once instead of at its next 0.1 s poll.
 
@@ -25,10 +26,15 @@ stops at once instead of at its next 0.1 s poll.
   first error first.  Workers past a failed shard stop at their next
   window (the serial path would not have read further); workers before
   it run on, so that an earlier error still wins.  Decode errors (the
-  replayed Python exception types) re-raise as they are; anything else
-  retries the shard once on a fresh encoder and then demotes the whole
-  ingest to the serial rung (a fresh pass over the input against zeroed
-  counts), counted as ``ingest_demoted``.
+  replayed Python exception types) re-raise as they are, and so does a
+  blown bad-record budget (a DATA-class error: a property of the input);
+  anything else retries the shard once on a fresh encoder and then demotes
+  the whole ingest to the serial rung (a fresh pass over the input against
+  zeroed counts), counted as ``ingest_demoted``;
+* tolerant decode: one run-wide sink shared by every worker encoder,
+  partition-keyed (shard index on the shard rung, block index on the
+  streaming rung), cleared whole on a shard retry and reset whole on a
+  demotion, so its merged entries are stream order on every rung.
 
 Two output modes share the machinery:
 
@@ -58,6 +64,8 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from ..ingest import DEFAULT_MIN_SHARD_BYTES, ShardPlan, snap_line_start
+from ..ingest.badrecords import is_data_error
+from ..resilience.faultinject import fault_check
 from .events import EncodeError, GenomeLayout, InsertionEvents, SegmentBatch
 from .native_encoder import NativeReadEncoder, fused_direct_mode
 
@@ -88,8 +96,14 @@ class ParallelFusedDecoder:
                  counts: Optional[np.ndarray], n_threads: int,
                  maxdel: Optional[int] = 150,
                  strict: bool = True, on_lines=None, on_bytes=None,
-                 segment_width: int = 0):
+                 segment_width: int = 0, bad_sink=None):
         self._segment_width = segment_width
+        #: tolerant decode (--on-bad-record): ONE run-wide sink shared by
+        #: every worker encoder.  Shard workers record into partition
+        #: ``(shard_idx,)`` (cleared whole on a shard retry, reset whole
+        #: on an ingest demotion), streaming workers re-key per block
+        #: index; the sink's sorted-partition merge is stream order.
+        self.bad_sink = bad_sink
         self.layout = layout
         self._counts = counts
         self.maxdel = maxdel
@@ -141,7 +155,8 @@ class ParallelFusedDecoder:
             return False
         return not self._direct or idx > 0
 
-    def _mk_encoder(self, st: dict, private: bool) -> NativeReadEncoder:
+    def _mk_encoder(self, st: dict, private: bool,
+                    partition=(0,)) -> NativeReadEncoder:
         """A fresh worker encoder counting lines and bytes into ``st``."""
 
         def _tally(key):
@@ -154,7 +169,8 @@ class ParallelFusedDecoder:
             accumulate_into=self._counts,
             on_lines=_tally("lines"), on_bytes=_tally("bytes"),
             segment_width=self._segment_width,
-            private_counts=private and self._counts is not None)
+            private_counts=private and self._counts is not None,
+            bad_sink=self.bad_sink, bad_partition=partition)
 
     def _finish(self, encoders: List[NativeReadEncoder],
                 n_lines: int, n_bytes: int) -> None:
@@ -259,7 +275,10 @@ class ParallelFusedDecoder:
                 if enc is None:
                     # inside the try: a retry's allocation failure is an
                     # infrastructure fault and takes the same protocol
-                    enc = self._mk_encoder(st, self._private_for(shard_idx))
+                    enc = self._mk_encoder(st, self._private_for(shard_idx),
+                                           partition=(shard_idx,))
+                if self.counts_fused:
+                    fault_check("ingest_decode_shard")
                 for batch in enc.encode_blocks(
                         self._shard_blocks(data, lo, hi, shard_idx,
                                            horizon, enc)):
@@ -284,9 +303,18 @@ class ParallelFusedDecoder:
                     horizon[0] = min(horizon[0], shard_idx)
                 break
             except Exception as exc:
-                # infrastructure fault (MemoryError, an OS error, ...):
-                # retry the shard once on a fresh encoder, then leave the
-                # decision to the coordinator
+                if is_data_error(exc):
+                    # the run's bad-record budget blew on this worker's
+                    # records: a property of the input, never retried,
+                    # never demoted (the serial rung would fail alike)
+                    st["error"] = (shard_idx, exc)
+                    with hlock:
+                        horizon[0] = min(horizon[0], shard_idx)
+                    break
+                # infrastructure fault (an injected ingest_decode_shard,
+                # MemoryError, an OS error, ...): retry the shard once on
+                # a fresh encoder, then leave the decision to the
+                # coordinator
                 if (shard_idx == 0 and self._direct
                         and self._counts is not None):
                     # direct-mode worker 0 writes the shared tensor in
@@ -298,6 +326,11 @@ class ParallelFusedDecoder:
                     with hlock:
                         horizon[0] = min(horizon[0], shard_idx)
                     break
+                if self.bad_sink is not None:
+                    # the failed attempt's quarantine partition rolls back
+                    # whole with its count partition: the fresh attempt
+                    # records again, so nothing counts twice
+                    self.bad_sink.clear_partition((shard_idx,))
                 self._count("ingest_shard_retries", 1)
         self._count("ingest_worker_sec", time.perf_counter() - t0)
 
@@ -314,7 +347,8 @@ class ParallelFusedDecoder:
             # attempt-1 encoders built here, before any worker runs: their
             # allocations would otherwise contend for the GIL with the
             # other workers right at the start of the parallel phase
-            st["enc0"] = self._mk_encoder(st, self._private_for(st["idx"]))
+            st["enc0"] = self._mk_encoder(st, self._private_for(st["idx"]),
+                                          partition=(st["idx"],))
         claims: "queue.Queue" = queue.Queue()
         for st in states:
             claims.put(st)
@@ -371,6 +405,11 @@ class ParallelFusedDecoder:
             # is exactly the serial path
             self._count("ingest_demoted", 1)
             self._counts[:] = 0
+            if self.bad_sink is not None:
+                # the whole input replays on the serial rung: every shard
+                # partition rolls back, so the fresh pass's records
+                # (partition (0,)) are the only ones counted
+                self.bad_sink.reset()
             st = {"lines": 0, "bytes": 0}
             enc = self._mk_encoder(st, private=False)
             enc.block_base = plan.start
@@ -535,6 +574,9 @@ class ParallelFusedDecoder:
                 if item is self._DONE:
                     return
                 current_idx[0] = item[0]
+                # per-block re-key: quarantine partition = block index
+                # (the sorted-partition merge is stream order)
+                enc.bad_partition = (item[0],)
                 enc.block_base = item[2]
                 yield item[1]
 
@@ -544,5 +586,10 @@ class ParallelFusedDecoder:
         except PARITY_ERRORS as exc:
             st["error"] = (current_idx[0], exc)
         except Exception as exc:
-            st["fault"] = exc
+            if is_data_error(exc):
+                # budget blown mid-block: input-shaped, takes the parity
+                # path (smallest block index wins)
+                st["error"] = (current_idx[0], exc)
+            else:
+                st["fault"] = exc
         self._count("ingest_worker_sec", time.perf_counter() - t0)

@@ -3,8 +3,9 @@
 Copy of ``FormatError``, ``AlignmentInput``, ``detect_format``,
 ``sibling_sam``, ``open_alignment_input`` and ``_bgzf_open_failed`` from
 ``sam2consensus_tpu/formats/__init__.py`` (pinned by
-``tests/test_torch_copies.py``), without the reference's metrics gauges
-and fault-injection hook.  ``open_alignment_input(path, fmt="auto")``
+``tests/test_torch_copies.py``), without the reference's ``format/input``
+gauges; the ``bam_inflate`` fault-injection site and the
+``format/bgzf_corrupt`` counter reach the BGZF reader as there.  ``open_alignment_input(path, fmt="auto")``
 returns an :class:`AlignmentInput` whose ``contigs``/``stream`` pair goes
 into ``TorchBackend.run(contigs, stream, cfg)``.
 
@@ -116,6 +117,18 @@ def sibling_sam(path: str) -> Optional[str]:
     return None
 
 
+def _metrics():
+    from .. import observability as obs
+
+    return obs.metrics()
+
+
+def _fault_check(site: str) -> None:
+    from ..resilience.faultinject import fault_check
+
+    fault_check(site)
+
+
 def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
                          threads: int = 1,
                          fallback: bool = True) -> AlignmentInput:
@@ -134,7 +147,9 @@ def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
 
     if resolved == "bam":
         try:
-            reader = _bgzf.BgzfReader(path, threads=threads)
+            reader = _bgzf.BgzfReader(path, threads=threads,
+                                      fault_check=_fault_check,
+                                      metrics=_metrics())
         except _bgzf.BgzfError as exc:
             return _bgzf_open_failed(path, on_lines, threads, fallback,
                                      exc)
@@ -156,7 +171,9 @@ def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
             fmt == "sam.gz" and _bgzf.is_bgzf(path))
         if bgzf_file:
             try:
-                handle = _bgzf.BgzfReader(path, threads=threads)
+                handle = _bgzf.BgzfReader(path, threads=threads,
+                                          fault_check=_fault_check,
+                                          metrics=_metrics())
             except _bgzf.BgzfError as exc:
                 return _bgzf_open_failed(path, on_lines, threads, fallback,
                                          exc)

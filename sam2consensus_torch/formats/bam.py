@@ -1,10 +1,12 @@
 """BAM record decode: binary alignment records -> the encoder's segment rows.
 
 Copy of ``sam2consensus_tpu/formats/bam.py`` (pinned by
-``tests/test_torch_copies.py`` and ``tests/test_torch_formats.py``), strict
-decode only: the reference's tolerant hooks (``bad_sink``, ``on_bad``,
-``collect_bad``) and its checkpoint-resume record skip (``skip_to``,
-``skip_lines``) are not ported.
+``tests/test_torch_copies.py`` and ``tests/test_torch_formats.py``), with
+its tolerant-decode hooks (``bad_sink``, ``on_bad``, ``collect_bad``,
+``_absorb_record``) and its checkpoint-resume record skip
+(``byte_offset``, ``skip_to``, ``skip_lines``).  One difference: the
+native lane counts a replayed record's row in C (``_count_row``) where
+the reference uses ``np.add.at``.
 
 BAM (SAM spec §4) is the binary twin of SAM inside a BGZF container
 (``formats/bgzf.py``): records carry CIGAR as packed ``u32`` ops and SEQ as
@@ -44,8 +46,8 @@ NIB_TO_CHAR = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8).copy()
 
 #: BAM nibble -> consensus symbol code (constants.ALPHABET); anything
 #: outside uppercase ACGTN is INVALID (255), which triggers the oracle's
-#: exact strict-mode KeyError downstream, as the same character in SAM
-#: text would
+#: exact strict-mode KeyError downstream — identical to how the same
+#: character in SAM text would fail.
 NIB_TO_CODE = np.full(16, 255, dtype=np.uint8)
 NIB_TO_CODE[1] = 1   # A
 NIB_TO_CODE[2] = 2   # C
@@ -67,8 +69,9 @@ class BamRecord:
     """One mapped alignment, fields pre-split from the binary record.
 
     Quacks like :class:`~..io.sam.SamRecord` (``refname``/``pos``/
-    ``cigar``/``seq``) and carries ``ops`` pre-parsed, so the encoder
-    never rebuilds or re-regexes CIGAR text."""
+    ``cigar``/``seq``) for the oracle and the golden encoder, but carries
+    ``ops`` pre-parsed so the encoder's binary fast path never rebuilds
+    or re-regexes CIGAR text."""
 
     refname: str
     pos: int                              # 0-based leftmost position
@@ -77,15 +80,16 @@ class BamRecord:
 
     @property
     def cigar(self) -> str:
-        """CIGAR text, rendered on demand."""
+        """CIGAR text, rendered on demand (oracle/walker compatibility)."""
         return render_ops(self.ops)
 
 
 def read_bam_header(fh) -> Tuple[List[Contig], str]:
     """Parse the BAM header from a binary stream positioned at byte 0:
-    magic, embedded SAM header text, and the binary reference table (the
-    authoritative one: it is what refIDs index).  Returns (contigs,
-    sam_header_text); the stream is left at the first alignment record."""
+    magic, embedded SAM header text, and the binary reference table
+    (the authoritative one — it is what refIDs index).  Returns
+    (contigs, sam_header_text); the stream is left at the first
+    alignment record."""
     magic = fh.read(4)
     if magic != BAM_MAGIC:
         raise BamParseError(
@@ -120,26 +124,35 @@ def _read_exact(fh, n: int, what: str) -> bytes:
 
 
 #: fixed BAM record prefix: block_size, refID, pos, l_read_name, mapq,
-#: bin, n_cigar_op, flag, l_seq
+#: bin, n_cigar_op, flag, l_seq  (bin_mq_nl and flag_nc split into their
+#: little-endian component fields)
 _REC_FIXED = struct.Struct("<iiiBBHHHi")
 
 
 class _RecordIndex:
     """Offsets + fixed fields for the complete records in one buffer.
 
-    Raises :class:`BamParseError` on framing loss (block_size < 32) and on
-    a record whose fields overrun its block_size."""
+    With ``collect_bad``, record-bounded structural damage (fields
+    overrun a block_size whose extent IS known) becomes an index ENTRY
+    flagged in ``bad`` (exception in ``bad_exc``) instead of a raise —
+    keeping the index a faithful walk of the raw record stream, so
+    checkpoint-resume record-count skips stay exact (the native lane's
+    ``_skip_whole_records`` semantics).  Framing loss (block_size < 32)
+    raises in every mode.
+    """
 
     __slots__ = ("off", "refid", "pos", "l_rn", "n_cig", "l_seq",
-                 "consumed", "n", "base")
+                 "consumed", "n", "base", "bad", "bad_exc")
 
-    def __init__(self, buf, base_offset: int):
+    def __init__(self, buf, base_offset: int, collect_bad: bool = False):
         off: List[int] = []
         refid: List[int] = []
         pos: List[int] = []
         l_rn: List[int] = []
         n_cig: List[int] = []
         l_seq: List[int] = []
+        bad: List[bool] = []
+        self.bad_exc: Dict[int, BamParseError] = {}
         p = 0
         size = len(buf)
         self.base = base_offset
@@ -158,19 +171,25 @@ class _RecordIndex:
             # fields must fit the record (the C lane's identical check,
             # decoder.cpp): without it a corrupt l_seq/n_cigar makes the
             # decode lanes read the NEXT record's bytes as SEQ
-            if (lsq < 0 or 32 + lrn + 4 * nc + (lsq + 1) // 2 + lsq
-                    > block_size):
-                raise BamParseError(
+            is_bad = (lsq < 0 or 32 + lrn + 4 * nc + (lsq + 1) // 2 + lsq
+                      > block_size)
+            if is_bad:
+                exc = BamParseError(
                     f"BAM record at offset {base_offset + p}: fields "
                     f"overrun the record (block_size {block_size}, "
                     f"l_read_name {lrn}, n_cigar {nc}, l_seq {lsq})",
                     base_offset + p)
+                exc.rec_len = 4 + int(block_size)
+                if not collect_bad:
+                    raise exc
+                self.bad_exc[len(off)] = exc
             off.append(p)
             refid.append(rid)
             pos.append(ps)
             l_rn.append(lrn)
             n_cig.append(nc)
             l_seq.append(lsq)
+            bad.append(is_bad)
             p += 4 + block_size
         self.consumed = p
         self.n = len(off)
@@ -180,6 +199,7 @@ class _RecordIndex:
         self.l_rn = np.asarray(l_rn, dtype=np.int64)
         self.n_cig = np.asarray(n_cig, dtype=np.int64)
         self.l_seq = np.asarray(l_seq, dtype=np.int64)
+        self.bad = np.asarray(bad, dtype=bool)
 
 
 def _gather(buf: np.ndarray, offs: np.ndarray, width: int) -> np.ndarray:
@@ -190,7 +210,7 @@ def _gather(buf: np.ndarray, offs: np.ndarray, width: int) -> np.ndarray:
 
 
 def decode_seq(buf: np.ndarray, seq_off: int, l_seq: int) -> str:
-    """One record's SEQ as text (slow lane)."""
+    """One record's SEQ as text (slow lane / oracle path)."""
     nb = (l_seq + 1) // 2
     packed = buf[seq_off:seq_off + nb]
     chars = np.empty(nb * 2, dtype=np.uint8)
@@ -201,7 +221,7 @@ def decode_seq(buf: np.ndarray, seq_off: int, l_seq: int) -> str:
 
 def decode_ops(buf: np.ndarray, cig_off: int,
                n_cig: int) -> Tuple[Tuple[int, str], ...]:
-    """One record's CIGAR as ((length, op), ...) (slow lane)."""
+    """One record's CIGAR as ((length, op), ...) (slow lane path)."""
     raw = buf[cig_off:cig_off + 4 * n_cig]
     if len(raw) != 4 * n_cig:
         raise BamParseError(
@@ -219,10 +239,10 @@ class BamRecordReader:
     """Streaming BAM record iterator over an inflated byte source.
 
     ``source`` is any binary file-like already positioned past the BAM
-    header (``read_bam_header``).  Iterates :class:`BamRecord` for mapped
-    records (``n_cigar_op > 0``), counting EVERY record (the binary
-    analogue of a SAM body line) through ``count_cb``, so progress totals
-    match the text path's."""
+    header (``read_bam_header``).  Iterates :class:`BamRecord` for
+    mapped records (``n_cigar_op > 0``), counting EVERY record — the
+    binary analogue of a SAM body line — through ``count_cb`` so
+    progress totals match the text path's semantics."""
 
     CHUNK = 1 << 22
 
@@ -233,7 +253,10 @@ class BamRecordReader:
 
     def chunks(self) -> Iterator[Tuple[np.ndarray, "_RecordIndex"]]:
         """Yield (buffer, record-index) pairs spanning the whole stream;
-        records never straddle a yielded buffer."""
+        records never straddle a yielded buffer.  With ``on_bad`` set,
+        record-bounded structural damage becomes flagged INDEX ENTRIES
+        (``idx.bad``) — still counted, still skippable by position —
+        instead of a raise."""
         pending = b""
         base = 0
         while True:
@@ -245,7 +268,8 @@ class BamRecordReader:
                         f"({len(pending)} dangling bytes)", base)
                 return
             buf = pending + data if pending else data
-            idx = _RecordIndex(buf, base)
+            idx = _RecordIndex(buf, base,
+                               collect_bad=self.on_bad is not None)
             if idx.consumed == 0 and len(buf) > self.CHUNK * 4:
                 raise BamParseError(
                     f"BAM record at offset {base} larger than "
@@ -266,14 +290,37 @@ class BamRecordReader:
             for k in range(idx.n):
                 if self._count_cb is not None:
                     self._count_cb(1)
+                if idx.bad[k]:
+                    # flagged at index time: fields overrun the record's
+                    # block_size, so decoding would read the NEXT
+                    # record's bytes — absorb the INDEX exception, never
+                    # walk the entry (idx.bad is always all-False in
+                    # strict mode: the index raised instead)
+                    self.on_bad(int(idx.base + idx.off[k]),
+                                idx.bad_exc[k])
+                    continue
                 if idx.n_cig[k] == 0:
                     continue                      # CIGAR "*" analogue
-                yield record_at(buf, idx, k, int(cig_off[k]),
-                                int(seq_off[k]), self.refname_fn)
+                try:
+                    rec = record_at(buf, idx, k, int(cig_off[k]),
+                                    int(seq_off[k]), self.refname_fn)
+                except BamParseError as exc:
+                    # bad CIGAR op / refID outside the table: bounded
+                    # to this indexed record, so tolerant mode skips
+                    # exactly it
+                    if self.on_bad is not None:
+                        self.on_bad(int(idx.base + idx.off[k]), exc)
+                        continue
+                    raise
+                yield rec
             del buf
 
     #: patched by the owning stream: refid -> display name ("*" for -1)
     refname_fn = staticmethod(lambda refid: "*")
+
+    #: tolerant hook: ``on_bad(abs_offset, exc)`` absorbs record-bounded
+    #: damage (None = strict raise, the default)
+    on_bad = None
 
 
 def record_at(buf: np.ndarray, idx: "_RecordIndex", k: int,
@@ -288,11 +335,17 @@ def record_at(buf: np.ndarray, idx: "_RecordIndex", k: int,
 class BamReadStream:
     """BAM-side twin of :class:`~..io.sam.ReadStream`.
 
-    The same counting surface (``n_lines``/``n_bytes``/``add_lines``/
-    ``on_lines``), so the CLI's progress accounting and the backend's
-    stats work unchanged; ``records()`` gives parsed records, and
-    ``make_encoder`` (called by ``TorchBackend._make_encoder``) builds the
-    stream's own encoder over the raw record stream."""
+    Same counting surface (``n_lines``/``n_bytes``/``add_lines``/
+    ``on_lines``) so the CLI's progress accounting and the backends'
+    stats work unchanged; ``records()`` feeds the oracle / pure-python
+    encoder, and ``make_encoder`` (consumed by
+    ``JaxBackend._make_encoder``) builds the vectorized
+    :class:`BamSegmentEncoder` over the raw record stream.  Checkpoint
+    resume (``skip_to``) is a record-count skip — BGZF reads are
+    re-inflated up to the resume point, in parallel on a pool host.
+    """
+
+    format = "bam"
 
     def __init__(self, handle, refnames: List[str], on_lines=None):
         self.handle = handle
@@ -300,6 +353,7 @@ class BamReadStream:
         self.on_lines = on_lines
         self.n_lines = 0
         self.n_bytes = 0
+        self._skip_records = 0
 
     def refname(self, refid: int) -> str:
         if refid < 0:
@@ -320,23 +374,58 @@ class BamReadStream:
         if k:
             self.n_bytes += k
 
+    def byte_offset(self) -> int:
+        """Uncompressed BAM offset matching ``n_lines`` — not meaningful
+        across the fast-lane batching, so checkpoint resume uses record
+        counts (-1 = use ``skip_lines``)."""
+        return -1
+
+    def skip_to(self, byte_offset: int, k: int) -> str:
+        self.skip_lines(k)
+        return "lines" if k > 0 else "none"
+
+    def skip_lines(self, k: int) -> None:
+        """Arrange for the next ``records()`` / encoder pass to drop the
+        first ``k`` records (they still count toward ``n_lines``)."""
+        if k > 0:
+            self._skip_records = k
+            self.n_lines = 0
+
     def _reader(self) -> BamRecordReader:
         rd = BamRecordReader(self.handle, count_cb=self.add_lines,
                              bytes_cb=self.add_bytes)
         rd.refname_fn = self.refname
         return rd
 
-    def records(self) -> Iterator[BamRecord]:
-        """Mapped records in file order."""
-        yield from self._reader()
+    def records(self, on_bad=None) -> Iterator[BamRecord]:
+        """Mapped records in file order (oracle / python-encoder lane).
 
-    def make_encoder(self, layout, cfg, acc=None):
-        """``(encoder, batch iterator)`` for this stream: the C++ record
-        decoder (:class:`NativeBamEncoder`) when the library loads and
-        ``cfg.decoder`` is not ``py``, counting straight into the host
-        counts when ``acc`` is a ``HostPileupAccumulator``; ``--decoder
-        native`` raises without it; else the pure-Python
-        :class:`BamSegmentEncoder`."""
+        ``on_bad(raw, exc)``: tolerant hook matching the text
+        ``ReadStream.records`` signature — record-bounded structural
+        damage reports a rendered placeholder instead of raising."""
+        skip = self._skip_records
+        self._skip_records = 0
+        rd = self._reader()
+        if on_bad is not None:
+            rd.on_bad = lambda abs_off, exc: on_bad(
+                f"<bam record at offset {abs_off}>", exc)
+        for rec in rd:
+            if skip > 0:
+                skip -= 1
+                continue
+            yield rec
+
+    def make_encoder(self, layout, cfg, acc=None, bad_sink=None):
+        """The jax backend's decode hook.
+
+        Preferred path: the C++ binary record decoder
+        (``native/decoder.cpp s2c_decode_bam`` via
+        :class:`NativeBamEncoder`) — same slab protocol and fused
+        host-counting as the native SAM text path, minus the text
+        tokenization it never needed.  Falls back to the pure-python
+        :class:`BamSegmentEncoder` (the portable semantics twin) when
+        the native library is unavailable or ``--decoder py`` forces it.
+        """
         from .. import native as _native
         from ..encoder.events import resolve_segment_width
         from ..ops.pileup import HostPileupAccumulator
@@ -344,12 +433,14 @@ class BamReadStream:
         decoder = getattr(cfg, "decoder", "auto")
         lib = _native.load() if decoder != "py" else None
         if lib is not None and hasattr(lib, "s2c_decode_bam"):
-            fuse = isinstance(acc, HostPileupAccumulator)
+            fuse = (isinstance(acc, HostPileupAccumulator)
+                    and not getattr(cfg, "paranoid", False))
             enc = NativeBamEncoder(
                 layout, self, maxdel=cfg.maxdel, strict=cfg.strict,
                 segment_width=resolve_segment_width(
                     getattr(cfg, "segment_width", 0)),
-                accumulate_into=acc.counts_host() if fuse else None)
+                accumulate_into=acc.counts_host() if fuse else None,
+                bad_sink=bad_sink)
             return enc, enc.encode_batches()
         if decoder == "native":
             raise RuntimeError(
@@ -358,28 +449,38 @@ class BamReadStream:
         enc = BamSegmentEncoder(
             layout, self, maxdel=cfg.maxdel, strict=cfg.strict,
             chunk_reads=getattr(cfg, "chunk_reads", 262144),
-            segment_width=getattr(cfg, "segment_width", 0))
+            segment_width=getattr(cfg, "segment_width", 0),
+            bad_sink=bad_sink)
         return enc, enc.encode_batches()
 
 
 class BamSegmentEncoder:
-    """Vectorized BAM -> :class:`SegmentBatch` encoder.
+    """Vectorized BAM → :class:`SegmentBatch` encoder.
 
     The fast lane turns a whole chunk's single-op-M reads into segment
-    rows with numpy gathers (no per-read Python); everything else (indels,
-    clips, wrapped POS, invalid nibbles, unknown refs) replays per record
-    through the Python :class:`ReadEncoder`.  Output batches are
-    bucket-compatible with the SAM paths."""
+    rows with numpy gathers (no per-read python); everything else —
+    indels, clips, wrapped POS, invalid nibbles, unknown refs — replays
+    per record through the golden :class:`ReadEncoder`, which is the
+    single owner of validation semantics, the maxdel gate, insertion
+    events and long-read segmentation.  Output batches are
+    bucket-compatible with the SAM paths, so every accumulator and
+    wire codec downstream runs unchanged.
+    """
 
     def __init__(self, layout, stream: BamReadStream,
                  maxdel: Optional[int] = 150, strict: bool = True,
-                 chunk_reads: int = 262144, segment_width: int = 0):
+                 chunk_reads: int = 262144, segment_width: int = 0,
+                 bad_sink=None):
         from ..encoder.events import ReadEncoder, resolve_segment_width
 
         self.layout = layout
         self.stream = stream
         self.strict = strict
         self.chunk_reads = max(1, chunk_reads)
+        #: tolerant decode: absorbed in _encode_slow (the replay lane
+        #: every malformed record routes through; the fast lane's
+        #: filters re-route to slow before anything could raise)
+        self.bad_sink = bad_sink
         # config policy -> concrete width (0 = segmentation off)
         seg_w = resolve_segment_width(segment_width)
         self._py = ReadEncoder(layout, maxdel=maxdel, strict=strict,
@@ -393,9 +494,9 @@ class BamSegmentEncoder:
         lens = []
         for name in stream.refnames:
             ci = layout.index.get(name)
-            if ci is None:          # unreachable for a layout built from
-                offs.append(-1)     # this same table; stay total
-                lens.append(-1)
+            if ci is None:          # dup name pruned — cannot happen for
+                offs.append(-1)     # layout built from this same table,
+                lens.append(-1)     # but stay total
             else:
                 offs.append(int(layout.offsets[ci]))
                 lens.append(int(layout.lengths[ci]))
@@ -410,15 +511,43 @@ class BamSegmentEncoder:
     def n_skipped(self) -> int:
         return self._py.n_skipped
 
+    counts_fused = False
+
     def encode_batches(self):
-        """Yield SegmentBatches of about ``chunk_reads`` reads each."""
-        mats: List[Tuple[np.ndarray, np.ndarray, int]] = []
+        """Yield SegmentBatches of ≲``chunk_reads`` reads each."""
+        skip = self.stream._skip_records
+        self.stream._skip_records = 0
+
+        mats: List[Tuple[np.ndarray, np.ndarray, int]] = []  # (starts, mat, n_real_cells)
         rows: List[Tuple[int, np.ndarray]] = []
         batch_reads = 0
-        for buf, idx in self.stream._reader().chunks():
+        reader = self.stream._reader()
+        if self.bad_sink is not None:
+            reader.on_bad = self._absorb_record
+        for buf, idx in reader.chunks():
             self.stream.add_lines(idx.n)
-            sel = np.arange(idx.n, dtype=np.int64)
-            mapped = sel[idx.n_cig > 0]      # CIGAR "*" analogue dropped
+            lo = 0
+            if skip > 0:
+                lo = min(skip, idx.n)
+                skip -= lo
+            sel = np.arange(lo, idx.n, dtype=np.int64)
+            if len(sel) == 0:
+                continue
+            bad = idx.bad[sel]
+            if bad.any():
+                # index-flagged structural damage (fields overrun the
+                # record): absorb the INDEX exception and drop the entry
+                # before the lane split — walking it would read the next
+                # record's bytes as CIGAR/SEQ (strict mode never gets
+                # here: the index raised at build time)
+                for k in sel[bad]:
+                    self._absorb_record(int(idx.base + idx.off[k]),
+                                        idx.bad_exc[int(k)])
+                sel = sel[~bad]
+                if len(sel) == 0:
+                    continue
+            n_cig = idx.n_cig[sel]
+            mapped = sel[n_cig > 0]          # CIGAR "*" analogue dropped
             if len(mapped) == 0:
                 continue
             cig_off = idx.off[mapped] + 36 + idx.l_rn[mapped]
@@ -427,8 +556,8 @@ class BamSegmentEncoder:
             fast, slow = self._split_fast(buf, idx, mapped, cig_off)
             if len(fast):
                 f_sel = np.searchsorted(mapped, fast)
-                extra_slow = self._encode_fast(buf, idx, fast,
-                                               seq_off[f_sel], mats)
+                n_rows, n_cells, extra_slow = self._encode_fast(
+                    buf, idx, fast, seq_off[f_sel], mats)
                 batch_reads += len(fast) - len(extra_slow)
                 if len(extra_slow):
                     slow = np.sort(np.concatenate([slow, extra_slow]))
@@ -439,12 +568,11 @@ class BamSegmentEncoder:
                     rec = record_at(buf, idx, int(k), int(cig_off[ks]),
                                     int(seq_off[ks]), self.stream.refname)
                 except BamParseError as exc:
-                    # bad CIGAR op / refID outside the table: raises in
-                    # both modes, with the record's offset
-                    from ..ingest.badrecords import mark_offset
-
-                    mark_offset(exc, abs_off)
-                    raise
+                    # bad CIGAR op / refID outside the table — bounded
+                    # to this already-indexed (and already-counted)
+                    # record
+                    self._absorb_record(abs_off, exc)
+                    continue
                 if self._encode_slow(rec, rows, offset=abs_off):
                     batch_reads += 1
             if batch_reads >= self.chunk_reads:
@@ -458,13 +586,15 @@ class BamSegmentEncoder:
         """Partition mapped record indices into (fast, slow) lanes."""
         n_cig = idx.n_cig[mapped]
         cand = n_cig == 1
-        good = np.zeros(len(mapped), dtype=bool)
         if cand.any():
             first = np.ascontiguousarray(
                 _gather(buf, cig_off[cand], 4)).view("<u4").reshape(-1)
             op_m = (first & 0xF) == 0
             len_ok = (first >> 4) == idx.l_seq[mapped][cand]
+            good = np.zeros(len(mapped), dtype=bool)
             good[np.nonzero(cand)[0]] = op_m & len_ok
+        else:
+            good = np.zeros(len(mapped), dtype=bool)
         refid = idx.refid[mapped]
         pos = idx.pos[mapped]
         in_table = (refid >= 0) & (refid < len(self._ref_off))
@@ -476,11 +606,12 @@ class BamSegmentEncoder:
                 & (idx.l_seq[mapped] > 0)
         return mapped[good], mapped[~good]
 
-    def _encode_fast(self, buf, idx, fast, seq_off, mats) -> np.ndarray:
-        """Vectorized nibble decode for same-length groups; returns the
-        indices re-routed to the slow lane."""
+    def _encode_fast(self, buf, idx, fast, seq_off, mats):
+        """Vectorized nibble decode for same-length groups; returns
+        (rows_emitted, cells, indices re-routed to the slow lane)."""
         l_seq = idx.l_seq[fast]
         extra_slow: List[int] = []
+        n_rows = n_cells = 0
         for L in np.unique(l_seq):
             grp = l_seq == L
             g_idx = fast[grp]
@@ -492,8 +623,8 @@ class BamSegmentEncoder:
             codes = codes[:, :int(L)]
             bad = (codes == 255).any(axis=1)
             if bad.any():
-                # invalid nibble -> the slow-lane replay raises the
-                # oracle's exact KeyError (strict) / counts a skip
+                # invalid nibble → slow-lane replay raises the oracle's
+                # exact KeyError (strict) / counts a skip (permissive)
                 extra_slow.extend(int(i) for i in g_idx[bad])
                 good = ~bad
                 g_idx = g_idx[good]
@@ -504,19 +635,46 @@ class BamSegmentEncoder:
                       + idx.pos[g_idx]).astype(np.int64)
             self._py.n_reads += len(g_idx)
             if self._seg_w and int(L) > self._seg_w:
-                starts, codes = _segment_matrix(starts, codes, self._seg_w)
+                starts, codes = _segment_matrix(starts, codes,
+                                                self._seg_w)
             mats.append((starts, codes, len(g_idx) * int(L)))
-        return np.asarray(sorted(extra_slow), dtype=np.int64)
+            n_rows += len(codes)
+            n_cells += len(g_idx) * int(L)
+        return n_rows, n_cells, np.asarray(sorted(extra_slow),
+                                           dtype=np.int64)
+
+    def _absorb_record(self, abs_off: int, exc: BaseException) -> None:
+        """One record-bounded BAM failure (structural overrun, bad
+        CIGAR op, refID outside the table): quarantine / skip /
+        strict-raise — the python twin of the native lane's
+        ``_fallback_record`` tolerance protocol."""
+        from ..ingest.badrecords import mark_offset
+
+        if self.bad_sink is not None:
+            self.bad_sink.record(f"<bam record at offset {abs_off}>",
+                                 exc, offset=abs_off)
+            self._py.n_skipped += 1
+            return
+        # no sink: structural parse damage raises in BOTH modes —
+        # legacy permissive mode tolerates encode-level contract errors
+        # only, matching the native lane's _fallback_record
+        mark_offset(exc, abs_off)
+        raise exc
 
     def _encode_slow(self, rec: BamRecord,
                      rows: List[Tuple[int, np.ndarray]],
                      offset: Optional[int] = None) -> bool:
-        from ..encoder.events import EncodeError
+        from ..encoder.events import EncodeError, render_record
         from ..ingest.badrecords import mark_offset
 
         try:
             new_rows = self._py.encode_record(rec)
         except (EncodeError, KeyError, IndexError) as exc:
+            if self.bad_sink is not None:
+                self.bad_sink.record(render_record(rec), exc,
+                                     offset=offset)
+                self._py.n_skipped += 1
+                return False
             if self.strict:
                 mark_offset(exc, offset)
                 raise
@@ -529,7 +687,7 @@ class BamSegmentEncoder:
     # -- batch assembly ----------------------------------------------------
     def _flush(self, mats, rows, batch_reads):
         """Merge fast matrices + slow rows into one padded SegmentBatch
-        (the bucket invariants of ``pack_rows``)."""
+        (same bucket invariants as ``pack_rows``)."""
         from ..encoder.events import SegmentBatch, _bucket_width
 
         per_w = {}
@@ -568,23 +726,23 @@ class BamSegmentEncoder:
 
 
 class NativeBamEncoder(NativeReadEncoder):
-    """C++ binary record decode: BGZF-inflated bytes -> SegmentBatches.
+    """C++ binary record decode: BGZF-inflated bytes → SegmentBatches.
 
-    A :class:`~..encoder.native_encoder.NativeReadEncoder` whose byte feed
-    is whole BAM records instead of text lines: slab persistence, width
-    adaptation, the fused host count, the Python twin and batch assembly
-    are inherited, with
-    ``s2c_decode_bam`` doing the per-record work and three replay lanes
-    handled here:
+    A :class:`~..encoder.native_encoder.NativeReadEncoder` whose byte
+    feed is whole BAM records instead of text lines: slab persistence,
+    width adaptation, fused uint8-shadow counting, the python twin and
+    batch assembly are all inherited, with ``s2c_decode_bam`` doing the
+    per-record work and three replay lanes handled here:
 
-    * ``status 2`` (flagged record): the one record replays through the
-      Python encoder, so strict-mode exception type and message are the
-      oracle's (corrupt framing raises :class:`BamParseError` with the
-      record offset);
-    * overflow records (negative-POS wraps): replayed per record through
-      the Python twin;
-    * a trailing partial record at stream end: :class:`BamParseError`
-      (mid-record truncation, with its offset).
+    * ``status 2`` (flagged record): the ONE record replays through the
+      golden python encoder, so strict-mode exception type/message are
+      oracle-identical (corrupt framing raises :class:`BamParseError`
+      with the record offset);
+    * overflow records (``span > width`` — the segmented long-read
+      lane — and negative-POS wraps): replayed per record through the
+      python twin, whose segmentation splits them into W-wide rows;
+    * trailing partial record at stream end: :class:`BamParseError`
+      (mid-record truncation, precise offset).
     """
 
     #: bytes pulled per read() from the (block-parallel) BGZF reader
@@ -592,12 +750,14 @@ class NativeBamEncoder(NativeReadEncoder):
 
     def __init__(self, layout, stream: BamReadStream,
                  maxdel: Optional[int] = 150, strict: bool = True,
-                 segment_width: int = 0, accumulate_into=None):
+                 segment_width: int = 0, accumulate_into=None,
+                 bad_sink=None):
         super().__init__(layout, maxdel=maxdel, strict=strict,
                          on_lines=stream.add_lines,
                          on_bytes=stream.add_bytes,
                          accumulate_into=accumulate_into,
-                         segment_width=segment_width)
+                         segment_width=segment_width,
+                         bad_sink=bad_sink)
         self.stream = stream
         ci = []
         off = []
@@ -627,6 +787,8 @@ class NativeBamEncoder(NativeReadEncoder):
         chars_cap = 1 << 20
         ovf_cap = 4096
         out = np.zeros(16, dtype=np.int64)
+        skip = self.stream._skip_records
+        self.stream._skip_records = 0
 
         pending = b""
         src = self.stream.handle
@@ -644,6 +806,13 @@ class NativeBamEncoder(NativeReadEncoder):
             data = np.frombuffer(buf, dtype=np.uint8)
             offset = 0
             while offset < len(data):
+                if skip > 0:
+                    adv, skip = self._skip_whole_records(data, offset,
+                                                         skip)
+                    if adv == 0:
+                        break               # need more bytes
+                    offset += adv
+                    continue
                 chunk = data[offset:]
                 ic = np.empty(ins_cap, dtype=np.int32)
                 il = np.empty(ins_cap, dtype=np.int32)
@@ -669,7 +838,7 @@ class NativeBamEncoder(NativeReadEncoder):
                     1 if self._acc_direct else 0)
 
                 (n_rows, n_reads, n_skipped, consumed, n_ins, n_chars,
-                 status, _err_off, n_events, n_lines, n_overflow,
+                 status, err_off, n_events, n_lines, n_overflow,
                  _max_span) = out[:12]
                 self._banked += int(out[12])
 
@@ -686,7 +855,7 @@ class NativeBamEncoder(NativeReadEncoder):
                 self._count_lines(int(n_lines))
 
                 for k in range(int(n_overflow)):
-                    # negative-POS wrap lane: Python replay (segmented
+                    # negative-POS wrap lane: python replay (segmented
                     # there too; wide positive reads are segmented in C)
                     self._fallback_record(
                         data, int(ovf[k]) + offset,
@@ -709,14 +878,15 @@ class NativeBamEncoder(NativeReadEncoder):
                 self._count_bytes(int(consumed))
                 if status == 2:
                     rec_len = self._fallback_record(
-                        data, offset, flagged_at=stream_off + offset)
+                        data, offset, flagged_at=stream_off + offset,
+                        c_reason=int(out[14]))
                     self._count_lines(1)
                     self._count_bytes(rec_len)
                     offset += rec_len
                 elif status == 1:
                     # capacity: a segmented wide read may need MANY free
                     # rows (ceil(span/width), not <=2 like the text
-                    # path), so any partially-filled slab flushes;
+                    # path), so any partially-filled slab flushes —
                     # growing the insertion buffers instead would spin
                     # forever against the row constraint
                     if self._fill > 0:
@@ -726,9 +896,9 @@ class NativeBamEncoder(NativeReadEncoder):
                     elif consumed == 0:
                         if ins_cap >= (1 << 22):
                             # empty slab, generous buffers, still stuck:
-                            # one record wider than the whole slab;
-                            # replay it through the Python twin (its row
-                            # list is unbounded)
+                            # one record wider than the whole slab —
+                            # replay it through the python twin (its
+                            # row list is unbounded)
                             rec_len = self._fallback_record(
                                 data, offset,
                                 flagged_at=stream_off + offset)
@@ -745,9 +915,10 @@ class NativeBamEncoder(NativeReadEncoder):
             stream_off += offset
             pending = bytes(buf[offset:]) if offset < len(buf) else b""
             if len(pending) > self.CHUNK * 4:
-                # a "partial record" that keeps growing past 4 chunks is
-                # a corrupt block_size, not a long read: fail with the
-                # offset instead of buffering the rest of the file
+                # same guard as the python twin: a "partial record" that
+                # keeps growing past 4 chunks is a corrupt block_size,
+                # not a long read — fail with the offset instead of
+                # buffering the rest of the file quadratically
                 raise BamParseError(
                     f"BAM record at offset {stream_off} larger than "
                     f"{len(pending)} bytes — corrupt block_size?",
@@ -770,9 +941,10 @@ class NativeBamEncoder(NativeReadEncoder):
     def _record_at_offset(self, data: np.ndarray, off: int,
                           flagged_at: Optional[int] = None
                           ) -> Tuple[BamRecord, int]:
-        """Parse ONE record at ``off`` for Python replay; raises
+        """Parse ONE record at ``off`` for python replay; raises
         :class:`BamParseError` (with the stream offset when known) on
-        structural damage, as a pure-Python decode of it would."""
+        structural damage — the same surface a pure-python decode of
+        this record would hit."""
         where = off if flagged_at is None else flagged_at
         if off + 24 > len(data):
             raise BamParseError(
@@ -783,34 +955,65 @@ class NativeBamEncoder(NativeReadEncoder):
             raise BamParseError(
                 f"BAM record at offset {where} claims block_size "
                 f"{block_size} past the stream", where)
+        # from here the record's extent IS known (4 + block_size): any
+        # damage below is bounded to this one record, so tolerant mode
+        # can skip exactly it — mark the errors with rec_len so
+        # _fallback_record knows how far to advance
         rec_len = 4 + int(block_size)
         cig_off = off + 36 + l_rn
         seq_off = cig_off + 4 * n_cig
-        if l_seq < 0 or 32 + l_rn + 4 * n_cig + (l_seq + 1) // 2 \
-                + l_seq > block_size:
-            raise BamParseError(
-                f"BAM record at offset {where}: fields overrun the "
-                f"record (block_size {block_size}, l_read_name "
-                f"{l_rn}, n_cigar {n_cig}, l_seq {l_seq})", where)
-        rec = BamRecord(
-            refname=self.stream.refname(int(refid)),
-            pos=int(pos),
-            ops=decode_ops(data, cig_off, int(n_cig)),
-            seq=decode_seq(data, seq_off, int(l_seq)))
+        try:
+            if l_seq < 0 or 32 + l_rn + 4 * n_cig + (l_seq + 1) // 2 \
+                    + l_seq > block_size:
+                raise BamParseError(
+                    f"BAM record at offset {where}: fields overrun the "
+                    f"record (block_size {block_size}, l_read_name "
+                    f"{l_rn}, n_cigar {n_cig}, l_seq {l_seq})", where)
+            rec = BamRecord(
+                refname=self.stream.refname(int(refid)),
+                pos=int(pos),
+                ops=decode_ops(data, cig_off, int(n_cig)),
+                seq=decode_seq(data, seq_off, int(l_seq)))
+        except BamParseError as exc:
+            exc.rec_len = rec_len
+            raise
         return rec, rec_len
 
     def _fallback_record(self, data: np.ndarray, off: int,
-                         flagged_at: Optional[int] = None) -> int:
-        """Replay one record through the Python encoder (error parity,
-        wrap split, segmentation); returns the record's byte length."""
-        from ..encoder.events import EncodeError
+                         flagged_at: Optional[int] = None,
+                         c_reason: int = 0) -> int:
+        """Replay one record through the golden python encoder (error
+        parity / wrap split / segmentation); returns the record's total
+        byte length.
+
+        The BAM rung's tolerance point: with a sink attached
+        (``--on-bad-record skip|quarantine``), any record-bounded
+        failure — a replay-raised oracle error, or structural damage
+        whose extent is still known (``BamParseError.rec_len``) — is
+        absorbed per record; framing loss (truncation, a block_size
+        past the stream) stays job-level in every mode."""
+        from ..encoder.events import EncodeError, render_record
         from ..ingest.badrecords import mark_offset
 
+        sink = self.bad_sink
         where = off if flagged_at is None else flagged_at
-        rec, rec_len = self._record_at_offset(data, off, flagged_at)
+        try:
+            rec, rec_len = self._record_at_offset(data, off, flagged_at)
+        except BamParseError as exc:
+            bounded_len = getattr(exc, "rec_len", None)
+            if sink is not None and bounded_len is not None:
+                self._quarantine(
+                    sink, f"<bam record at offset {where}>", exc,
+                    where, c_reason)
+                return bounded_len
+            raise
         try:
             rows = self._py.encode_record(rec)
         except (EncodeError, KeyError, IndexError) as exc:
+            if sink is not None:
+                self._quarantine(sink, render_record(rec), exc,
+                                 where, c_reason)
+                return rec_len
             if self.strict:
                 mark_offset(exc, where)
                 raise
@@ -828,8 +1031,25 @@ class NativeBamEncoder(NativeReadEncoder):
                                        - int((row == PAD_CODE).sum()))
         return rec_len
 
+    def _skip_whole_records(self, data: np.ndarray, off: int,
+                            skip: int) -> Tuple[int, int]:
+        """Checkpoint-resume record skipping: advance over up to
+        ``skip`` complete records; returns (bytes advanced, skip left).
+        Skipped records still count as lines."""
+        adv = 0
+        while skip > 0 and off + adv + 4 <= len(data):
+            bs = int.from_bytes(
+                bytes(data[off + adv:off + adv + 4]), "little",
+                signed=True)
+            if bs < 32 or off + adv + 4 + bs > len(data):
+                break
+            adv += 4 + bs
+            skip -= 1
+            self._count_lines(1)
+        return adv, skip
 
-# -- writer (fixtures and tests; pure stdlib) -----------------------------
+
+# -- writer (fixtures / format-conversion tooling; pure stdlib) ------------
 #: ASCII char -> BAM seq nibble (strict: only the 16 spec chars)
 CHAR_TO_NIB = {chr(c): i for i, c in enumerate(NIB_TO_CHAR)}
 
@@ -893,17 +1113,19 @@ def bam_payload(contigs, records, header_text: str = "") -> bytes:
 
 
 def write_bam(contigs, records, path: str, level: int = 6) -> str:
-    """Write a BGZF-framed BAM file."""
+    """Write a BGZF-framed BAM file (fixtures/bench conversion)."""
     from .bgzf import write_bgzf
 
     return write_bgzf(bam_payload(contigs, records), path, level=level)
 
 
 def sam_text_to_records(text: str):
-    """Parse SAM text into ``(contigs, [(refname, pos0, cigar, seq)])``.
-    Every body line is kept, mapped or not (CIGAR ``"*"`` becomes the
-    zero-op record), so progress totals stay identical across
-    containers."""
+    """Parse SAM text into ``(contigs, [(refname, pos0, cigar, seq)])``
+    — the shared conversion front end for :func:`sam_text_to_bam` and
+    the fixture/bench tooling (one definition, so committed fixtures
+    can never drift from what the bench converter produces).  EVERY
+    body line is kept, mapped or not (CIGAR ``"*"`` becomes the zero-op
+    record), so progress totals stay identical across containers."""
     from ..io.sam import parse_sq_line
 
     contigs = []
@@ -921,8 +1143,8 @@ def sam_text_to_records(text: str):
 
 
 def sam_text_to_bam(text: str, path: str, level: int = 6) -> str:
-    """Convert in-memory SAM text to a BAM file (the SAM run and the BAM
-    run of one input then read the same records)."""
+    """Convert in-memory SAM text to a BAM file — the fixture/bench
+    bridge (oracle reads the SAM, the system under test reads the BAM)."""
     contigs, records = sam_text_to_records(text)
     return write_bam(contigs, records, path, level=level)
 
@@ -930,9 +1152,9 @@ def sam_text_to_bam(text: str, path: str, level: int = 6) -> str:
 def _segment_matrix(starts: np.ndarray, codes: np.ndarray,
                     seg_w: int) -> Tuple[np.ndarray, np.ndarray]:
     """Split an [n, L] row matrix into [(n*ceil(L/W)), W] segments with
-    starts advanced per segment: the fast-lane form of the encoder's
-    long-read segmentation (pileup addition commutes, so splitting a row
-    at any boundary is exact)."""
+    starts advanced per segment — the fast-lane form of the encoder's
+    long-read segmentation (pileup addition commutes, so splitting a
+    row at any boundary is exact)."""
     n, L = codes.shape
     n_seg = -(-L // seg_w)
     pad_to = n_seg * seg_w
@@ -944,4 +1166,7 @@ def _segment_matrix(starts: np.ndarray, codes: np.ndarray,
     seg_starts = (starts[:, None]
                   + (np.arange(n_seg, dtype=np.int64) * seg_w)[None, :]
                   ).reshape(-1)
+    # drop all-PAD tail segments (possible when L % seg_w leaves a
+    # segment entirely past the read) — none exist here because the pad
+    # is < seg_w by construction, but keep the invariant explicit
     return seg_starts, seg_codes

@@ -19,11 +19,11 @@ Failure semantics:
   re-read and re-inflated once, then raises :class:`BgzfCorruptBlock`
   with the block's compressed offset.
 
-The reference's ``fault_check=`` and ``metrics=`` hooks stay optional
-keyword arguments; the port passes neither (it has no fault injection or
-metrics registry yet).  ``BgzfReader.seek`` and ``read_blocks`` (checkpoint
-resume and a bulk reader) are not copied: no path of the port uses them.
-Everything here is stdlib.
+The ``fault_check=`` hook (the ``bam_inflate`` fault-injection site, per
+inflated block) and the ``metrics=`` registry (``format/bgzf_corrupt``)
+are passed by ``formats.open_alignment_input``.  ``BgzfReader.seek``
+serves checkpoint resume; the reference's ``read_blocks`` (a bulk reader)
+is not copied: no path of the port uses it.  Everything here is stdlib.
 """
 
 from __future__ import annotations
@@ -392,6 +392,32 @@ class BgzfReader(io.RawIOBase):
     def tell(self) -> int:
         """UNCOMPRESSED stream offset (checkpoint/resume coordinates)."""
         return self._upos + self._buf_pos
+
+    def seek(self, offset: int, whence: int = os.SEEK_SET) -> int:
+        """Seek in uncompressed coordinates: restart the block cursor and
+        skip (checkpoint resume to a recorded offset re-inflates only the
+        prefix it skips, in parallel on a pool host)."""
+        if whence == os.SEEK_CUR:
+            offset += self.tell()
+        elif whence == os.SEEK_END:
+            raise io.UnsupportedOperation("BGZF: SEEK_END unsupported")
+        if offset < 0:
+            raise ValueError("negative seek position")
+        # restart decode from block 0 and discard up to `offset`
+        self._drain_pool()
+        self._next_block = 0
+        self._next_submit = 0
+        self._buf = b""
+        self._buf_pos = 0
+        self._upos = 0
+        remaining = offset
+        while remaining > 0:
+            if not self._fill():
+                break
+            take = min(remaining, len(self._buf))
+            self._buf_pos = take
+            remaining -= take
+        return self.tell()
 
     def _drain_pool(self) -> None:
         for _i, fut in self._inflight:

@@ -9,8 +9,9 @@
   0-based POS, CIGAR and SEQ (``sam2consensus.py:195-206``);
 * :class:`ReadStream`, one pass over the body as parsed records (the
   Python encoder), as raw blocks of whole lines (the native decoder), or
-  as a byte-shard plan of an mmapped file (the sharded decoder).
-  ``skip_to`` and ``skip_lines`` (checkpoint resume) are not ported.
+  as a byte-shard plan of an mmapped file (the sharded decoder), with the
+  checkpoint-resume skip (``byte_offset``, ``skip_to``, ``skip_lines``) and
+  the tolerant-decode hook ``on_bad`` of :func:`iter_records`.
 """
 
 from __future__ import annotations
@@ -83,19 +84,32 @@ def read_header(handle) -> Tuple[List[Contig], int, str]:
     return contigs, n_header, ""
 
 
-def iter_records(handle: TextIO, first_line: str = "") -> Iterator[SamRecord]:
+def iter_records(handle: TextIO, first_line: str = "",
+                 on_bad=None) -> Iterator[SamRecord]:
     """Yield mapped records (CIGAR != "*"), skipping stray header lines.
 
     The CIGAR probe runs on the un-stripped field, like the reference: a
     6-field line ending ``"\\t*\\n"`` is not an unmapped skip and raises
     ``IndexError`` on the missing SEQ.
+
+    ``on_bad`` is the tolerant-decode hook (``--on-bad-record``): a line
+    whose positional parse raises (too few fields, unparsable POS) calls
+    ``on_bad(line, exc)`` and iteration continues; ``None`` (default)
+    keeps the strict semantics: the parse error propagates.
     """
     def make(line: str):
-        if line.split("\t")[5] == "*":
+        try:
+            if line.split("\t")[5] == "*":
+                return None
+            fields = line.rstrip("\n").split("\t")
+            return SamRecord(refname=fields[2].split()[0],
+                             pos=int(fields[3]) - 1,
+                             cigar=fields[5], seq=fields[9])
+        except (IndexError, ValueError) as exc:
+            if on_bad is None:
+                raise
+            on_bad(line, exc)
             return None
-        fields = line.rstrip("\n").split("\t")
-        return SamRecord(refname=fields[2].split()[0], pos=int(fields[3]) - 1,
-                         cigar=fields[5], seq=fields[9])
 
     if first_line and first_line[0] != "@":
         rec = make(first_line)
@@ -149,6 +163,44 @@ class ReadStream:
         if k:
             self.n_bytes += k
 
+    def byte_offset(self) -> int:
+        """Absolute input offset matching ``n_lines``; -1 if unknown."""
+        if self._body_start is None:
+            return -1
+        return self._body_start + self.n_bytes
+
+    def skip_to(self, byte_offset: int, k: int) -> str:
+        """Position after ``k`` body lines: seek straight to the recorded
+        byte offset when both sides can (O(1) resume), else re-read and
+        discard ``k`` lines.  Returns the mode used ("seek" or "lines")."""
+        if k <= 0:
+            return "none"
+        if byte_offset >= 0 and self._body_start is not None:
+            try:
+                self.handle.seek(byte_offset)
+            except (AttributeError, OSError, ValueError):
+                pass
+            else:
+                self.first = ""
+                self.n_lines = k
+                self.n_bytes = byte_offset - self._body_start
+                return "seek"
+        self.skip_lines(k)
+        return "lines"
+
+    def skip_lines(self, k: int) -> None:
+        """Skip ``k`` body lines (checkpoint resume); they still count."""
+        if k <= 0:
+            return
+        n = k
+        if self.first:
+            self.n_bytes += len(self.first)
+            self.first = ""
+            n -= 1
+        for _ in range(n):
+            self.n_bytes += len(self.handle.readline())
+        self.n_lines = k
+
     def shard_plan(self, n_shards: int, min_bytes: Optional[int] = None):
         """Byte-range shard plan over the remaining body, or None.
 
@@ -186,8 +238,9 @@ class ReadStream:
         return ingest.ShardPlan(data=mm, ranges=ranges, start=start,
                                 end=len(mm))
 
-    def records(self) -> Iterator[SamRecord]:
-        """Parsed mapped records, counting every body line."""
+    def records(self, on_bad=None) -> Iterator[SamRecord]:
+        """Parsed mapped records, counting every body line.  ``on_bad``
+        is :func:`iter_records`' tolerant-decode hook."""
         def counted() -> Iterator[str]:
             for line in self.handle:
                 self.add_lines(1)
@@ -201,7 +254,7 @@ class ReadStream:
         if first:
             self.add_lines(1)
             self.add_bytes(len(first))
-        yield from iter_records(counted(), first)
+        yield from iter_records(counted(), first, on_bad=on_bad)
 
     def blocks(self, max_bytes: int = 1 << 23):
         """Raw blocks of whole lines, str or bytes per the handle's mode

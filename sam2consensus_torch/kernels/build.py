@@ -7,7 +7,12 @@ plain CUDA, no PyTorch headers) and ``binding.cpp``, the one file that
 includes ``torch/extension.h`` and exposes a typed tensor entry point per
 kernel.  ``kernels.h`` states the entry points' parameters once for both
 sides.  A failed build raises: nothing here degrades to the plain PyTorch
-versions.
+versions.  A build or load failure is marked ``kernel_build``
+(:meth:`Kernel.function`), and any error a kernel's call raises (a refused
+launch, an entry point's contract check) ``kernel_launch``
+(:meth:`Kernel.launch`); the retry policy classifies both PASSTHROUGH, so
+no ``--on-device-error`` mode retries or demotes past a kernel that did
+not build, load or launch.
 
 :class:`Kernel` is one entry point and its launch count.
 """
@@ -53,10 +58,32 @@ class Kernel:
         self.launches = 0
 
     def function(self):
-        return getattr(extension(), self.name)
+        try:
+            return getattr(extension(), self.name)
+        except BaseException as exc:
+            # the build's own error, marked: never retried, never demoted
+            # past (resilience.policy.classify)
+            _mark(exc, "kernel_build")
+            raise
 
     def launch(self, *args) -> None:
-        self.launches += self.function()(*args)
+        fn = self.function()
+        try:
+            n = fn(*args)
+        except BaseException as exc:
+            # a refused launch or a failed contract check in the entry
+            # point: a fault of the kernel or its wrapper, which no rung
+            # may carry the run past (resilience.policy.classify)
+            _mark(exc, "kernel_launch")
+            raise
+        self.launches += n
+
+
+def _mark(exc: BaseException, marker: str) -> None:
+    try:
+        setattr(exc, marker, True)
+    except AttributeError:  # pragma: no cover - exotic exception
+        pass
 
 
 def all_kernels() -> List[Kernel]:

@@ -20,11 +20,22 @@ the counts accumulate on the host, in the C++ decode pass itself
 and cross to the card once, narrowed to the smallest dtype that holds
 them.  :func:`host_pileup_bound` is the ``--pileup auto`` gate between
 the two.
+
+Fault-injection sites (``resilience.faultinject``) sit where the
+reference places them: ``mem_alloc`` at the count tensor's allocation,
+``device_put`` where rows or counts start to cross to the card (staging,
+an unstaged batch's consumer-side shipping, the host counts' upload),
+``pileup_dispatch`` at each ``add``, and ``wire_encode`` in the delta8
+encode gate (``wire.encode_wire_slab``).  ``strategy`` and ``wire`` of a
+live :class:`PileupAccumulator` may be switched between batches (the
+degradation ladder's first rung), and :meth:`PileupAccumulator.counts_host`
+fetches the counts for the second.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -32,6 +43,7 @@ import torch
 
 from ..constants import NUM_SYMBOLS, PAD_CODE
 from ..encoder.events import SegmentBatch
+from ..resilience.faultinject import fault_check
 
 #: copy of ``sam2consensus_tpu/ops/mxu_pileup.TILE_POSITIONS``: the
 #: position-axis padding unit of the count tensor
@@ -215,6 +227,9 @@ class PileupAccumulator:
     tensor is updated in place; ``counts`` is the ``[total_len, 6]`` view.
     ``strategy_used`` counts ``<strategy>_w<W>`` a counted bucket and
     ``wire_delta8`` a delta8 slab; ``account`` is the link bill.
+    ``strategy`` and ``wire`` are read per bucket, so the ladder can switch
+    them on a live accumulator; :meth:`set_counts` seeds the counts (a
+    checkpoint resume) and :meth:`counts_host` fetches them.
     """
 
     #: pinned slots, taken in turn by the staged buckets
@@ -234,12 +249,20 @@ class PileupAccumulator:
         self.strategy_used: dict = {}
         self.account = WireAccount()
         self.padded_len = padded_total_len(total_len)
+        # the count tensor's allocation boundary: an ``oom`` rule here
+        # models memory exhaustion at allocation (CAPACITY)
+        fault_check("mem_alloc")
         self._counts = torch.zeros((self.padded_len, NUM_SYMBOLS),
                                    dtype=torch.int32, device=self.device)
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._slots = [_PinnedSlot() for _ in range(self.SLOTS)]
             self._next_slot = 0
+            # held across a bucket's slot choice, wait, fill and ship: the
+            # consumer stages too (a capacity split's halves, a replay
+            # after a demotion, a batch delivered unstaged) while the
+            # prefetch thread may be staging the next batch
+            self._stage_lock = threading.Lock()
 
     def _host_rows(self, starts: np.ndarray, codes: np.ndarray):
         """A bucket's real rows as they cross the link, ``(arrays, meta)``
@@ -270,10 +293,13 @@ class PileupAccumulator:
         encode under delta8), copy into the next pinned slot, copy to the
         device ``non_blocking`` on the copy stream and record an event
         there; the results land in ``batch.staged`` (``None`` for a bucket
-        with no real row).  Runs on the decode prefetch thread."""
+        with no real row).  Runs on the decode prefetch thread, or on the
+        consumer for a batch that arrives unstaged (both at once, so a
+        lock serialises the stagings: two threads never fill one slot)."""
         if self.device.type != "cuda":
             return
-        with torch.cuda.device(self.device):
+        fault_check("device_put")
+        with torch.cuda.device(self.device), self._stage_lock:
             for w, (starts, codes) in batch.buckets.items():
                 rows = self._host_rows(starts, codes)
                 if rows is None:
@@ -296,6 +322,7 @@ class PileupAccumulator:
         return StagedRows(ops, ready, meta)
 
     def add(self, batch: SegmentBatch) -> None:
+        fault_check("pileup_dispatch")
         if self.device.type == "cuda":
             if batch.buckets and not batch.staged:
                 self.stage(batch)
@@ -305,6 +332,8 @@ class PileupAccumulator:
                     self._consume(rows, stream)
             return
         for _w, (starts, codes) in sorted(batch.buckets.items()):
+            # the CPU consumer ships its own rows (no staging thread)
+            fault_check("device_put")
             rows = self._host_rows(starts, codes)
             if rows is not None:
                 self._count(tuple(map(torch.from_numpy, rows[0])), rows[1])
@@ -343,6 +372,17 @@ class PileupAccumulator:
     def sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def counts_host(self) -> np.ndarray:
+        """The counts fetched to the host, ``[total_len, 6]`` int32 (a
+        device-to-host copy that waits for the enqueued counts: the
+        ladder's host rung and checkpoint writes)."""
+        return self.counts.cpu().numpy()
+
+    def set_counts(self, counts) -> None:
+        """Seed the counts (checkpoint resume): ``[total_len, 6]``."""
+        src = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32))
+        self._counts[: self.total_len].copy_(src)
 
     @property
     def counts(self) -> torch.Tensor:
@@ -443,6 +483,12 @@ class HostPileupAccumulator:
         #: bytes of counts copied to a card, and the number of copies
         self.bytes_h2d = 0
         self.uploads = 0
+        #: ``"cpu"`` pins the tail to the host (the ladder's tail rung);
+        #: None lets the placement model choose
+        self.tail_device = None
+        #: a demoted device accumulator's link bill (``wire.WireAccount``),
+        #: carried so the pre-demotion transfers stay in the run's bill
+        self.account = None
 
     def add(self, batch: SegmentBatch) -> None:
         self._device_counts = None
@@ -486,6 +532,7 @@ class HostPileupAccumulator:
         if device.type == "cpu":
             return torch.from_numpy(self._counts)
         if self._device_counts is None:
+            fault_check("device_put")
             it = self.wire_itemsize()
             dtype = {1: torch.uint8, 2: torch.uint16, 4: torch.int32}[it]
             pinned = torch.empty(self._counts.shape, dtype=dtype,
@@ -501,6 +548,11 @@ class HostPileupAccumulator:
 
     def counts_host(self) -> np.ndarray:
         return self._counts
+
+    def invalidate_upload(self) -> None:
+        """Drop the cached device upload (the next ``counts_on`` copies
+        again)."""
+        self._device_counts = None
 
     def set_counts(self, counts) -> None:
         # in place: the fused decode path holds this buffer by reference

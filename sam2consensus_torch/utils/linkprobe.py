@@ -15,7 +15,11 @@ per process and device, and only when the placement needs them:
 
 ``S2C_LINK_PROBE=0`` turns the probe off (the backend then prices with its
 baked constants), and the ``S2C_TAIL_RT_MS`` / ``S2C_TAIL_LINK_MBPS``
-overrides skip it (``backends/torch_backend._link_constants``).  A failure
+overrides skip it (``backends/torch_backend._link_constants``).  The
+``link_probe`` fault-injection site fires first: an injected failure makes
+:func:`probe_link` return None, remembered for the device, and the backend
+then prices with its baked constants, as the reference falls back
+(``sam2consensus_tpu/utils/linkprobe.py`` ``_probe_into``).  A real failure
 of the probe is raised, not priced around.  The reference's stale-value
 cache file, rate card and decision ledger are not ported.
 """
@@ -23,7 +27,7 @@ cache file, rate card and decision ledger are not ported.
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional, Set
 
 import torch
 
@@ -44,18 +48,37 @@ class LinkProbe(NamedTuple):
 
 
 _cached: Dict[torch.device, LinkProbe] = {}
+#: devices whose probe met an injected fault: priced with the defaults
+_failed: Set[torch.device] = set()
 
 
-def probe_link(device=None) -> LinkProbe:
+def probe_link(device=None) -> Optional[LinkProbe]:
     """Measure the link of CUDA ``device`` (default: the current one),
-    once per process and device."""
+    once per process and device; None when the ``link_probe`` fault site
+    fired (remembered for the device)."""
+    from .. import observability as obs
+    from ..resilience.faultinject import InjectedFault, fault_check
+
     dev = torch.device("cuda" if device is None else device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     got = _cached.get(dev)
     if got is None:
+        if dev in _failed:
+            return None
+        try:
+            fault_check("link_probe")
+        except InjectedFault:
+            _failed.add(dev)
+            obs.metrics().gauge("link/probe_failed").set(1.0)
+            return None
         got = _cached[dev] = _measure(dev)
     return got
+
+
+def _reset_for_tests() -> None:
+    _cached.clear()
+    _failed.clear()
 
 
 def _measure(dev: torch.device) -> LinkProbe:

@@ -53,9 +53,14 @@ def encode_wire_slab(wire: str, starts: np.ndarray, codes: np.ndarray,
     """The delta8 encode gate (the reference's ``encode_wire_slab``): the
     canonical (sorted) rows encoded, or ``None`` to ship the rows raw
     (codec off, or an encoded slab that would not shrink: counted in
-    ``account.fallback_slabs``)."""
+    ``account.fallback_slabs``).  The ``wire_encode`` fault site fires
+    here, on whichever thread is encoding (the staging thread, or the
+    consumer for an unstaged batch)."""
     if wire != "delta8":
         return None
+    from ..resilience.faultinject import fault_check
+
+    fault_check("wire_encode")
     slab = encode_slab(*canonicalize_rows(starts, codes))
     if slab is None or not worthwhile(slab):
         account.fallback_slabs += 1

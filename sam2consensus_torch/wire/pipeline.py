@@ -3,7 +3,10 @@ of staging and consumption measured.
 
 Copy of ``StageSlots`` and ``intersect_sec`` from
 ``sam2consensus_tpu/wire/pipeline.py`` (pinned by
-``tests/test_torch_copies.py``).  The decode prefetch thread
+``tests/test_torch_copies.py``), with its rebindable ``stage_fn``: a
+ladder demotion re-routes or drops staging without tearing the pipeline
+down (``stage_fn = None`` stops it; the producer then delivers batches
+unstaged).  The decode prefetch thread
 (``backends.torch_backend._Prefetcher``) stages each batch through
 :meth:`StageSlots.run`: on CUDA that is ``PileupAccumulator.stage``, which
 copies the batch's rows into a pinned slot and issues their host-to-device
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 #: staging slots: slab N consuming + slab N+1 in flight
 DEFAULT_SLOTS = 2
@@ -54,13 +57,17 @@ class StageSlots:
     which blocks while every slot holds a staged, unconsumed batch
     (backpressure), then :meth:`run`, which stages the batch and, on a
     failure, releases the batch's slot and re-raises (the port's
-    prefetcher then re-raises the error on the consumer; no batch goes on
-    unstaged).  Consumer side calls :meth:`consumed` after dispatching
-    each batch (releasing its slot) and :meth:`note_consume` with the
-    dispatch interval.
+    prefetcher then delivers the batch unstaged when the failure is a
+    device failure, so it replays through the consumer's retry policy,
+    and re-raises any other error on the consumer).  Consumer side calls
+    :meth:`consumed` after dispatching each batch (releasing its slot)
+    and :meth:`note_consume` with the dispatch interval.  ``started``
+    counts the stagings begun; ``stage_fn`` is read under the lock, so
+    none begins after a rebind to None.
     """
 
-    def __init__(self, stage_fn: Callable, slots: int = DEFAULT_SLOTS):
+    def __init__(self, stage_fn: Optional[Callable],
+                 slots: int = DEFAULT_SLOTS):
         self.stage_fn = stage_fn
         self.slots = slots
         self._sem = threading.Semaphore(slots)
@@ -70,6 +77,8 @@ class StageSlots:
         self._stage_iv: List[Tuple[float, float]] = []
         self._consume_iv: List[Tuple[float, float]] = []
         self.backpressure_sec = 0.0
+        self.staged_batches = 0
+        self.started = 0
 
     # -- producer side (prefetch thread) --------------------------------
     def acquire(self, batch) -> bool:
@@ -77,7 +86,9 @@ class StageSlots:
         backpressure.  Split from :meth:`run` so that ``stage_sec``
         excludes the wait: backpressure is the consumer's dispatch time,
         already billed there.
-        False = the consumer closed the slots."""
+        False = staging unavailable (closed, or no stage_fn bound)."""
+        if self.stage_fn is None:
+            return False
         t_wait = time.perf_counter()
         while not self._stop.is_set():
             if self._sem.acquire(timeout=0.05):
@@ -90,9 +101,17 @@ class StageSlots:
     def run(self, batch) -> None:
         """Stage an acquired batch.  A failure releases the batch's slot
         here and re-raises."""
+        with self._lock:
+            fn = self.stage_fn
+            if fn is not None:
+                self.started += 1
+        if fn is None:                  # rebound to None after acquire
+            self._release(batch)
+            return
         t0 = time.perf_counter()
         try:
-            self.stage_fn(batch)
+            fn(batch)
+            self.staged_batches += 1
         except BaseException:
             self._release(batch)
             raise

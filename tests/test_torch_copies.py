@@ -600,3 +600,175 @@ def test_native_bindings(name):
                             for a in fn.argtypes]
 
     assert sig(t_lib) == sig(r_lib)
+
+
+# -- the failure-handling copies -------------------------------------------
+def test_faultinject_tables():
+    from sam2consensus_torch.resilience import faultinject as t_fi
+    from sam2consensus_tpu.resilience import faultinject as r_fi
+
+    assert t_fi.SITES == r_fi.SITES and t_fi.KINDS == r_fi.KINDS
+    assert t_fi.PERSISTENT == r_fi.PERSISTENT
+    for kind in r_fi.KINDS:
+        t_cls, t_msg = t_fi._KIND_EXC[kind]
+        r_cls, r_msg = r_fi._KIND_EXC[kind]
+        assert t_msg == r_msg
+        assert [c.__name__ for c in t_cls.__mro__] \
+            == [c.__name__ for c in r_cls.__mro__]
+
+
+@pytest.mark.parametrize("spec", [
+    "pileup_dispatch:rpc:3:2, vote:fatal:0:inf", "vote:rpc:p0.25",
+    "accumulate:oom:0:*", "bam_inflate:timeout:7:-1", "mem_alloc:trace:1"])
+def test_parse_spec_rules(spec):
+    from sam2consensus_torch.resilience import faultinject as t_fi
+    from sam2consensus_tpu.resilience import faultinject as r_fi
+
+    def rules(mod):
+        return [(r.site, r.kind, r.after_n, r.prob, r.times)
+                for r in mod.parse_spec(spec)]
+
+    assert rules(t_fi) == rules(r_fi)
+
+
+def test_policy_tables():
+    from sam2consensus_torch.resilience import policy as t_pol
+    from sam2consensus_tpu.resilience import policy as r_pol
+
+    for name in ("TRANSIENT", "CAPACITY", "FATAL", "PASSTHROUGH", "DATA",
+                 "_TRANSIENT_STATUS"):
+        assert getattr(t_pol, name) == getattr(r_pol, name)
+    assert t_pol._TRANSIENT_RE.pattern == r_pol._TRANSIENT_RE.pattern
+    assert t_pol._CAPACITY_RE.pattern == r_pol._CAPACITY_RE.pattern
+    assert t_pol._PASSTHROUGH_TYPES == r_pol._PASSTHROUGH_TYPES
+    for kw in (dict(), dict(retries=0, on_error="fail"),
+               dict(retries=5, backoff=0.5, on_error="fallback")):
+        a, b = t_pol.RetryPolicy(**kw), r_pol.RetryPolicy(**kw)
+        assert (a.retries, a.backoff, a.max_backoff, a.jitter, a.on_error) \
+            == (b.retries, b.backoff, b.max_backoff, b.jitter, b.on_error)
+
+
+def test_policy_from_config_env(monkeypatch):
+    from sam2consensus_torch.resilience import policy as t_pol
+    from sam2consensus_tpu.resilience import policy as r_pol
+
+    """The seed comes from S2C_FAULT_SEED as in the reference; the port
+    reads neither S2C_ON_DEVICE_ERROR nor S2C_ATTEMPT_DEADLINE_S, so the
+    configured mode stands and no attempt runs on a watchdog thread."""
+    monkeypatch.setenv("S2C_ON_DEVICE_ERROR", "fallback")
+    monkeypatch.setenv("S2C_ATTEMPT_DEADLINE_S", "2.5")
+    monkeypatch.setenv("S2C_FAULT_SEED", "9")
+    a = t_pol.RetryPolicy.from_config(
+        t_config.RunConfig(retries=4, on_device_error="fail"))
+    b = r_pol.RetryPolicy.from_config(
+        r_config.RunConfig(retries=4, on_device_error="retry"))
+    assert (a.on_error, a.retries, b.on_error) == ("fail", 0, "fallback")
+    a = t_pol.RetryPolicy.from_config(t_config.RunConfig(retries=4))
+    assert not hasattr(a, "deadline_s")
+    assert (a.retries, a.seed, [a.delay(i) for i in range(4)]) == \
+        (b.retries, b.seed, [b.delay(i) for i in range(4)])
+
+
+def test_checkpoint_constants():
+    from sam2consensus_torch.utils import checkpoint as t_ck
+    from sam2consensus_tpu.utils import checkpoint as r_ck
+
+    assert t_ck._FILE == r_ck._FILE
+    assert t_ck.path_for("d") == r_ck.path_for("d")
+    arrays = (np.arange(12, dtype=np.int32), np.zeros(3, np.uint8))
+    assert t_ck._payload_digest(arrays) == r_ck._payload_digest(arrays)
+    assert [f.name for f in dataclasses.fields(t_ck.CheckpointState)] == \
+        [f.name for f in dataclasses.fields(r_ck.CheckpointState)]
+
+
+@pytest.mark.parametrize("exc", [
+    UnicodeDecodeError("ascii", b"\xff", 0, 1, "bad"),
+    KeyError("unknown reference 'x'"), ValueError("outside reference"),
+    KeyError("'!' out-of-alphabet"), ValueError("BAM record at offset 3"),
+    ValueError("bad CIGAR op code 12"), ValueError("invalid literal for int"),
+    IndexError("list index out of range"), KeyError("Z"),
+    RuntimeError("other")], ids=lambda e: type(e).__name__ + str(e)[:12])
+def test_classify_reason(exc):
+    from sam2consensus_torch.ingest import badrecords as t_bad
+    from sam2consensus_tpu.ingest import badrecords as r_bad
+
+    assert t_bad.classify_reason(exc) == r_bad.classify_reason(exc)
+
+
+def test_badrecords_tables():
+    from sam2consensus_torch.ingest import badrecords as t_bad
+    from sam2consensus_tpu.ingest import badrecords as r_bad
+
+    assert t_bad.MODES == r_bad.MODES
+    assert t_bad.C_REASONS == r_bad.C_REASONS
+    assert t_bad.RECORD_ERRORS == r_bad.RECORD_ERRORS
+    assert t_bad.DEFAULT_SIDECAR_MAX == r_bad.DEFAULT_SIDECAR_MAX
+    for spec in ("", "7", "2.5%", "0"):
+        assert t_bad.parse_budget(spec) == r_bad.parse_budget(spec)
+
+
+def _fill_sink(bad, tmp_path, tag, sidecar_max):
+    pol = bad.BadRecordPolicy(mode="quarantine", max_pct=0.5,
+                              sidecar_path=str(tmp_path / tag / "q.jsonl"),
+                              sidecar_max=sidecar_max)
+    sink = bad.QuarantineSink(pol)
+    for k in range(12):
+        sink.record(f"line{k}\tx\n", KeyError(f"'{k}'"),
+                    partition=(k % 3,), offset=10 * k)
+    sink.clear_partition((2,))
+    summary = sink.finish(100)
+    text = open(tmp_path / tag / "q.jsonl").read().replace(
+        str(tmp_path / tag), "<d>")
+    return summary["bad_records"], summary["truncated"], text
+
+
+@pytest.mark.parametrize("sidecar_max", [3, 100])
+def test_quarantine_sink_sidecar_bytes(tmp_path, sidecar_max):
+    from sam2consensus_torch.ingest import badrecords as t_bad
+    from sam2consensus_tpu.ingest import badrecords as r_bad
+
+    assert _fill_sink(t_bad, tmp_path, "t", sidecar_max) == \
+        _fill_sink(r_bad, tmp_path, "r", sidecar_max)
+
+
+def test_metrics_registry():
+    import importlib
+
+    # the packages' ``metrics()`` functions shadow the submodule's name
+    t_m = importlib.import_module("sam2consensus_torch.observability.metrics")
+    r_m = importlib.import_module("sam2consensus_tpu.observability.metrics")
+    snaps = []
+    for mod in (t_m, r_m):
+        reg = mod.MetricsRegistry()
+        reg.add("a/b", 2)
+        reg.add("a/b", 3)
+        reg.gauge("g").set(4.5)
+        reg.gauge("g").set_info({"x": 1})
+        for v in range(50):
+            reg.observe("h", v * 0.5)
+        snaps.append((reg.snapshot(), reg.value("a/b"), reg.info("g")))
+    assert snaps[0] == snaps[1]
+
+
+def test_cli_failure_flags():
+    """The eleven failure-handling flags: the reference's names, dests,
+    defaults, choices, types and help (the port's checkpoint help drops
+    the reference's "(jax backend)", and its --on-device-error help the
+    S2C_ON_DEVICE_ERROR override, which the port does not read)."""
+    from sam2consensus_torch import cli as t_cli
+    from sam2consensus_tpu import cli as r_cli
+
+    flags = ("--on-bad-record", "--max-bad-records", "--quarantine-out",
+             "--checkpoint-dir", "--checkpoint-every", "--incremental",
+             "--paranoid", "--retries", "--retry-backoff",
+             "--on-device-error", "--fault-inject")
+
+    def table(parser):
+        acts = {s: a for a in parser._actions for s in a.option_strings}
+        return [(f, acts[f].dest, acts[f].default, acts[f].choices,
+                 acts[f].type, acts[f].nargs,
+                 acts[f].help.replace(" (jax backend)", "").replace(
+                     " Env S2C_ON_DEVICE_ERROR overrides.", ""))
+                for f in flags]
+
+    assert table(t_cli.build_parser()) == table(r_cli.build_parser())
