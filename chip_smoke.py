@@ -83,15 +83,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    Phase 8 also runs the K1 route under ``RetryPolicy().run`` and the
    staged K1 route through ``ResilientDispatcher.add`` (the default
    failure contract, no fault spec): they must make no host
-   synchronisation either;
+   synchronisation either; and the staged K1 route inside a default run's
+   instruments (``observability.start_run`` .. ``finish_run`` with no
+   destination: the registry, the capacity decision, the memory plane's
+   tracking and allocator sample, the ledger's join, the stats view),
+   where any synchronisation is fatal, then the same traced, whose host
+   synchronisations are counted: one, the ``accumulate_sync`` barrier;
 9. the C++ decoder (``NativeReadEncoder``) against the Python
    ``ReadEncoder`` on ``ecoli_scale`` and ``longread_sv`` at full size:
    pileup counts of the batches, reads, skipped, events, lines and every
    array of ``group_insertions`` equal; a difference is fatal;
 10. failure handling on the card, each run through ``cli.main`` on CUDA
-   (``--decoder native --pileup pallas``) byte-identical to its input's
-   default CUDA run, with the launch counts and the registry's counters
-   showing the rung: ``ecoli_scale`` under ``--fault-inject
+   (``--decoder native --pileup pallas --trace-out``) byte-identical to
+   its input's default CUDA run, with the launch counts and the
+   registry's counters showing the rung, and the trace's recovery events
+   printed (``resilience/retry``, ``resilience/demotion`` and
+   ``fault/injected``, as many as the counters count): ``ecoli_scale`` under ``--fault-inject
    pileup_dispatch:rpc:1:2`` (retried at least twice, K1 launched as in
    the default run), ``--on-device-error fallback --fault-inject
    accumulate:fatal:2:inf`` with the prefetch thread and stager live
@@ -125,7 +132,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    to ``acc.add`` over a few hundred ``ecoli_scale`` slab dispatches in
    alternating order, each with its spread) and the time of one
    checkpoint write of its counts, with the card's name and power limit
-   beside both.
+   beside both;
+11. observability on the card: ``ecoli_scale`` (K1), ``amplicon_deep``
+   (K2) and ``longread_sv`` (K3) through ``cli.main`` three times each,
+   byte-identical to their phase-7 runs: the default run and a traced
+   one (``--trace-out --metrics-out --json-metrics``), whose host
+   synchronisations are counted (the traced run's one more is the
+   accumulate barrier; anything else is fatal), and a profiled one (those
+   flags and ``--profile-dir --log-level info --log-format json``): its
+   input's kernel launched, every kernel it launched found by name with
+   device time in the ``torch.profiler`` trace, every phase span, one
+   ``accumulate_sync``, a ``pileup_dispatch`` span a staged batch and a
+   ``slab`` span a counted slab, a manifest naming the card,
+   ``mem/device_peak_bytes`` equal to ``torch.cuda.max_memory_allocated()``
+   at the backend's sample (the peak reset before the run), JSON log
+   lines; the three walls side by side, the capacity prediction against
+   the tracked and allocator peaks, and ``ecoli_scale``'s device idle
+   share in its profile.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -142,6 +165,7 @@ larger).  The line before the last is ``{"kernels": [...]}``; the last is
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -1250,6 +1274,102 @@ def sync_free(cap: Capture) -> None:
               f"route's: max_abs_err={err}")
         if err:
             fail(f"the host-count route's tail differs on {name}")
+    observed_route(counts, starts, packed, scratch)
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Counts the host synchronisations made while the block runs: the
+    ones ``torch.cuda.set_sync_debug_mode("warn")`` reports (a copy to
+    or from pageable memory, a stream or event wait, ...) and the explicit
+    ``torch.cuda.synchronize`` calls, which it does not report; yields
+    ``{"warned": n, "synchronize": n}``."""
+    import warnings
+
+    seen = {"warned": 0, "synchronize": 0}
+    orig = torch.cuda.synchronize
+
+    def synchronize(*args, **kwargs):
+        seen["synchronize"] += 1
+        return orig(*args, **kwargs)
+
+    torch.cuda.synchronize = synchronize
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+        seen["warned"] = sum("synchroniz" in str(w.message)
+                             for w in caught)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize = orig
+
+
+def observed_route(counts, starts, packed, want) -> None:
+    """Phase 8's observability checks: the staged K1 route inside a
+    default run's instruments (``start_run`` .. ``finish_run`` with no
+    destination: the registry, the ledger's capacity decision, the memory
+    plane's tracking and allocator sample, the join and the stats view)
+    under ``set_sync_debug_mode("error")``, where any synchronisation is
+    fatal; then the same traced, closing under the ``accumulate_sync``
+    barrier, whose synchronisations are counted: one, the barrier."""
+    from sam2consensus_torch import observability as obs
+    from sam2consensus_torch.config import RunConfig
+    from sam2consensus_torch.observability import memplane
+
+    for traced in (False, True):
+        acc, batch = staged_batch(counts, starts, packed)
+        acc.stage(batch)
+        torch.cuda.synchronize()
+
+        def route():
+            robs = obs.start_run(enabled=traced,
+                                 config=RunConfig(backend="torch"))
+            try:
+                memplane.record_capacity(acc.total_len, 1)
+                with obs.tracer().span("pileup_dispatch",
+                                       n_events=batch.n_events):
+                    acc.add(batch)
+                if obs.tracer().enabled:
+                    with obs.tracer().span("accumulate_sync"):
+                        acc.sync()
+                memplane.sample(device=counts.device)
+                obs.finalize_decisions()
+                obs.publish_stats_extra({})
+            finally:
+                obs.finish_run(robs, meta={"backend": "torch"})
+            return robs
+
+        if not traced:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                robs = route()
+            except RuntimeError as exc:
+                fail(f"the default run's instruments synchronised with "
+                     f"the host: {exc}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            print("  the staged K1 route inside a default run's "
+                  "instruments (start_run .. finish_run, capacity, "
+                  "memory plane, join, stats view) under "
+                  "set_sync_debug_mode('error'): no host synchronisation")
+        else:
+            with counted_syncs() as syncs:
+                robs = route()
+            spans = [sp.name for sp in robs.tracer.drain()]
+            print(f"  the same traced: spans {spans}; host "
+                  f"synchronisations {syncs} (expected: one synchronize, "
+                  f"the accumulate barrier)")
+            if syncs != {"warned": 0, "synchronize": 1} \
+                    or spans.count("accumulate_sync") != 1:
+                fail("the traced route did not synchronise exactly once, "
+                     "at the accumulate barrier")
+        torch.cuda.synchronize()
+        err = max_err(acc.counts, want[:acc.total_len])
+        if err:
+            fail(f"the observed staged route counts differently "
+                 f"(max_abs_err={err})")
 
 
 def staged_batch(counts, starts, packed, strategy="pallas", wire="packed5"):
@@ -1363,16 +1483,23 @@ def choice_timing(cap: Capture, card: str) -> None:
 def fault_run(tmp: str, card: str, cap: Capture, name: str, path: str,
               flags: list, label: str, extra: list, want: str) -> tuple:
     """One CUDA run of ``name`` through ``cli.main`` with ``extra``
-    failure-handling flags; it must be byte-identical to the default CUDA
-    run (``want``).  Returns ``(stats.extra, launches by kernel)``."""
+    failure-handling flags and ``--trace-out``; it must be byte-identical
+    to the default CUDA run (``want``).  The recovery events of its trace
+    (``resilience/*``, ``fault/*``, ``checkpoint/*``) are printed, and a
+    run whose counters show a retry, a demotion or an injected fault must
+    carry the matching events.  Returns ``(stats.extra, launches by
+    kernel)``."""
+    from collections import Counter
+
     from sam2consensus_torch.kernels.build import all_kernels
 
     kernels = all_kernels()
     out = os.path.join(tmp, f"{name}_f10_{len(cap.stats)}")
+    trace = out + ".trace.json"
     before = {k.name: k.launches for k in kernels}
     wall = run_cli(["-i", path, "-o", out, *flags, "--decoder", "native",
                     "--pileup", "pallas", "--retry-backoff", "0.001",
-                    *extra], None)
+                    "--trace-out", trace, *extra], None)
     st = cap.stats[-1]
     launched = {k.name: k.launches - before[k.name] for k in kernels}
     same = read_dir(out) == want
@@ -1380,10 +1507,22 @@ def fault_run(tmp: str, card: str, cap: Capture, name: str, path: str,
              if k.startswith(("resilience/", "fault/injected"))
              or k in ("pileup_ladder", "resumed_from_line", "bad_records",
                       "checkpoints_written")}
+    with open(trace) as fh:
+        events = Counter(
+            e["name"] for e in json.load(fh)["traceEvents"]
+            if e["ph"] == "i" and e["name"].startswith(
+                ("resilience/", "fault/", "checkpoint/")))
     print(f"  {name} {label} [{card}]: wall={wall:.3f}s launches={launched} "
           f"{story} byte-identical={same}")
+    print(f"    trace events: {dict(sorted(events.items()))}")
     if not same:
         fail(f"{name} {label}: output differs from the default CUDA run")
+    for counter, event in (("resilience/retries", "resilience/retry"),
+                           ("resilience/demotions", "resilience/demotion"),
+                           ("fault/injected", "fault/injected")):
+        if events[event] != st.extra.get(counter, 0):
+            fail(f"{name} {label}: {st.extra.get(counter, 0)} "
+                 f"{counter} counted, {events[event]} {event} events")
     return st.extra, launched
 
 
@@ -1866,6 +2005,227 @@ def dispatch_cost(tmp: str, path: str, card: str, reps: int = 100) -> None:
           f"{[round(w, 3) for w in writes]} s (min {min(writes):.3f} s)")
 
 
+# -- phase 11: observability on the card -----------------------------------
+#: the kernel function each phase-11 input must show in its profile
+PHASE11_KERNELS = {"ecoli_scale": "pileup_rows",
+                   "amplicon_deep": "insertion_vote",
+                   "longread_sv": "insertion_table"}
+
+
+@contextlib.contextmanager
+def peak_at_sample():
+    """Reads ``torch.cuda.max_memory_allocated()`` right after each
+    ``memplane.sample`` (the backend's end-of-run sample); yields the
+    list of readings."""
+    from sam2consensus_torch.observability import memplane
+
+    seen = []
+    orig = memplane.sample
+
+    def sample(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(torch.cuda.max_memory_allocated())
+        return out
+
+    memplane.sample = sample
+    try:
+        yield seen
+    finally:
+        memplane.sample = orig
+
+
+@contextlib.contextmanager
+def json_log_lines():
+    """A stream handler on the port's logger for the block (the CLI's
+    ``--log-format json`` formats it); yields the list of lines logged,
+    filled when the block ends, and removes the handler."""
+    import logging
+
+    logger = logging.getLogger("sam2consensus_torch")
+    saved = (list(logger.handlers), logger.level)
+    buf = io.StringIO()
+    logger.handlers = [logging.StreamHandler(buf)]
+    lines = []
+    try:
+        yield lines, logger
+    finally:
+        logger.handlers, logger.level = saved
+        lines.extend(buf.getvalue().splitlines())
+
+
+def profile_of(prof_dir: str) -> list:
+    (name,) = [n for n in os.listdir(prof_dir) if n.endswith(".json")]
+    with open(os.path.join(prof_dir, name)) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def device_idle_share(events: list):
+    """``(busy_ms, window_ms, idle share)`` of one profile: the union of
+    the device's kernel, copy and set intervals over the profiled window
+    (the first event's start to the last event's end, host or device)."""
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in timed
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    lo = min(e["ts"] for e in timed)
+    hi = max(e["ts"] + e["dur"] for e in timed)
+    busy, end = 0.0, lo
+    for a, b in dev:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    window = hi - lo
+    return busy / 1e3, window / 1e3, 1.0 - busy / window
+
+
+def observability_runs(tmp: str, card: str, cap: Capture,
+                       paths: dict) -> None:
+    """Phase 11: ``ecoli_scale`` (K1), ``amplicon_deep`` (K2) and
+    ``longread_sv`` (K3) through ``cli.main`` on CUDA three times each:
+    the default run, a traced one (``--trace-out --metrics-out
+    --json-metrics``) and a profiled one (those and ``--profile-dir
+    --log-level info --log-format json``), each byte-identical to the
+    input's phase-7 run.  The default and traced runs count their host
+    synchronisations (the traced one adds one, the accumulate barrier);
+    the profiled run must launch the input's kernel, show every kernel it
+    launched by name with device time in its profile, hold every phase
+    span, one ``accumulate_sync``, a ``pileup_dispatch`` span a
+    dispatched batch and a ``slab`` span a counted slab, a manifest that
+    names the card, and ``mem/device_peak_bytes`` equal to
+    ``torch.cuda.max_memory_allocated()`` at the backend's sample (peak
+    reset before the run).  The three walls are printed side by side,
+    with the capacity prediction against the tracked and allocator peaks
+    and, for ``ecoli_scale``, the device's idle share in the profile."""
+    from sam2consensus_torch.kernels.build import all_kernels
+    from sam2consensus_torch.observability import (PHASES,
+                                                   read_metrics_jsonl)
+    from sam2consensus_torch.observability.telemetry import \
+        JsonLogFormatter
+
+    kernels = all_kernels()
+    flags_of = {"ecoli_scale": ["-c", "0.25"],
+                "amplicon_deep": ["-c", "0.25", "-m", "10"],
+                "longread_sv": ["-c", "0.25,0.75"]}
+    for name, kernel in PHASE11_KERNELS.items():
+        want = read_dir(os.path.join(tmp, name + "_cuda"))
+        base = ["-i", paths[name], *flags_of[name], "--decoder", "native",
+                "--pileup", "pallas"]
+        walls, syncs = {}, {}
+        for kind in ("default", "traced"):
+            out = os.path.join(tmp, f"{name}_p11_{kind}")
+            obs_flags = [] if kind == "default" else [
+                "--trace-out", out + ".trace.json", "--metrics-out",
+                out + ".metrics.jsonl", "--json-metrics", out + ".json"]
+            with counted_syncs() as counted:
+                walls[kind] = run_cli(base + ["-o", out, *obs_flags], None)
+            syncs[kind] = counted
+            if read_dir(out) != want:
+                fail(f"phase 11: {name}'s {kind} run differs from its "
+                     f"default output")
+        out = os.path.join(tmp, f"{name}_p11_profiled")
+        prof_dir = out + ".profile"
+        before = {k.name: k.launches for k in kernels}
+        # the allocator's peak is process-wide: collect the earlier runs'
+        # garbage first, and print what is still allocated at the start
+        gc.collect()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with peak_at_sample() as peaks, json_log_lines() as (log, logger):
+            walls["profiled"] = run_cli(base + [
+                "-o", out, "--trace-out", out + ".trace.json",
+                "--metrics-out", out + ".metrics.jsonl", "--json-metrics",
+                out + ".json", "--profile-dir", prof_dir, "--log-level",
+                "info", "--log-format", "json"], None)
+            json_logger = isinstance(logger.handlers[0].formatter,
+                                     JsonLogFormatter)
+        launched = {k.name: k.launches - before[k.name] for k in kernels}
+        same = read_dir(out) == want
+        print(f"  {name} [{card}]: walls default={walls['default']:.3f}s "
+              f"traced={walls['traced']:.3f}s "
+              f"profiled={walls['profiled']:.3f}s (different quantities: "
+              f"compare untraced walls only) byte-identical={same} "
+              f"launches={launched}")
+        print(f"    host synchronisations: default {syncs['default']}, "
+              f"traced {syncs['traced']}")
+        if not same:
+            fail(f"phase 11: {name}'s profiled run differs from its "
+                 f"default output")
+        if syncs["traced"] != dict(syncs["default"], synchronize=syncs[
+                "default"]["synchronize"] + 1):
+            fail(f"phase 11: {name}: tracing added other than the one "
+                 f"accumulate barrier")
+        if not launched[kernel]:
+            fail(f"phase 11: {name} launched no {kernel}")
+        # every kernel the run launched, by name, with device time
+        prof = profile_of(prof_dir)
+        for k in kernels:
+            if not launched[k.name]:
+                continue
+            hits = [e for e in prof if e.get("cat") == "kernel"
+                    and k.name + "_kernel" in e.get("name", "")]
+            dev_ms = sum(e["dur"] for e in hits) / 1e3
+            print(f"    profile: {k.name}_kernel x{len(hits)} "
+                  f"({launched[k.name]} launched), device "
+                  f"{dev_ms:.4f} ms")
+            if not hits or dev_ms <= 0:
+                fail(f"phase 11: {name}: {k.name}_kernel has no device "
+                     f"time in the --profile-dir trace")
+        if name == "ecoli_scale":
+            busy, window, idle = device_idle_share(prof)
+            print(f"    device busy {busy:.3f} ms of the profiled "
+                  f"{window:.3f} ms: idle share {idle:.4f} [{card}]")
+        # the trace: every phase span, one barrier, the dispatches
+        with open(out + ".trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+        spans = [e["name"] for e in events if e["ph"] == "X"]
+        rows = read_metrics_jsonl(out + ".metrics.jsonl")
+        counters = {r["name"]: r["value"] for r in rows
+                    if r["kind"] == "counter"}
+        gauges = {r["name"]: r for r in rows if r["kind"] == "gauge"}
+        staged = gauges["pipeline/overlap"]["info"]["staged_batches"]
+        print(f"    trace: spans "
+              f"{ {n: spans.count(n) for n in sorted(set(spans))} } "
+              f"staged batches {staged} slabs {counters['pileup/slabs']}")
+        missing = [p for p in PHASES if p not in spans]
+        if missing or spans.count("accumulate_sync") != 1:
+            fail(f"phase 11: {name}: phase spans missing {missing} or "
+                 f"{spans.count('accumulate_sync')} accumulate_sync spans")
+        if spans.count("pileup_dispatch") != staged \
+                or spans.count("slab") != counters["pileup/slabs"]:
+            fail(f"phase 11: {name}: pileup_dispatch / slab spans differ "
+                 f"from the batches and slabs dispatched")
+        with open(out + ".metrics.jsonl.manifest.json") as fh:
+            man = json.load(fh)
+        if man["meta"].get("device") != torch.cuda.get_device_name(0):
+            fail(f"phase 11: {name}: the manifest names "
+                 f"{man['meta'].get('device')}")
+        # the memory plane against the allocator
+        dev_peak = gauges["mem/device_peak_bytes"]["value"]
+        cap_rec = next(d for d in man["decisions"]
+                       if d["decision"] == "capacity")
+        parts = {k: v for k, v in cap_rec["inputs"].items()
+                 if k.endswith("_bytes")}
+        print(f"    memory [{card}]: capacity predicted "
+              f"{cap_rec['predicted']['bytes'] / 2**20:.1f} MiB "
+              f"({parts}), "
+              f"tracked peak {counters['mem/peak_tracked_bytes'] / 2**20:.1f}"
+              f" MiB (residual {cap_rec['residual'].get('bytes')}), "
+              f"allocator peak {dev_peak / 2**20:.1f} MiB "
+              f"(max_memory_allocated at the sample "
+              f"{peaks[-1] / 2**20:.1f} MiB; {held / 2**20:.1f} MiB "
+              f"allocated before the run)")
+        if not peaks or dev_peak != peaks[-1]:
+            fail(f"phase 11: {name}: mem/device_peak_bytes {dev_peak} != "
+                 f"max_memory_allocated {peaks[-1:]}")
+        decided = {d["decision"]: d["chosen"] for d in man["decisions"]}
+        print(f"    decisions: {decided}; drift events "
+              f"{man['drift_events']}; json log lines {len(log)}")
+        if not json_logger or any(not line.startswith("{")
+                                  or "level" not in json.loads(line)
+                                  for line in log):
+            fail(f"phase 11: {name}: --log-format json did not log JSON")
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -2178,6 +2538,11 @@ def main() -> int:
 
         print(f"phase 10: failure handling on the card [{card}]")
         failure_handling(tmp, card, cap, paths)
+
+        print(f"phase 11: observability on the card: the tracer, the "
+              f"metrics, the manifest, the profile and the memory plane "
+              f"[{card}]")
+        observability_runs(tmp, card, cap, paths)
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

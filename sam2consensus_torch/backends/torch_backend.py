@@ -44,9 +44,11 @@ and ``stage_sec``, billed on the prefetch thread, so they overlap
 consumer was in ``add``; ``backpressure_sec``, the producer's waits for a
 free staging slot; ``tail_sec``, ``assemble_sec``), with
 ``stats.extra["decoder"]`` naming the decoder that ran (``native`` or
-``py``); on CUDA the pileup phase ends with a synchronize, so its time
-includes the device work.  The priced decisions land there with their
-inputs: ``pileup_path`` (with ``host_bound``, ``host_bytes_bound``,
+``py``); on CUDA ``pileup_sec`` is the consumer's enqueue time (the
+device's count finishes under the tail), except under ``--trace-out``,
+whose ``accumulate_sync`` span closes the pileup with a device
+synchronise, as the reference's does.  The priced decisions land there
+with their inputs: ``pileup_path`` (with ``host_bound``, ``host_bytes_bound``,
 ``input_bytes`` and ``host_bound_reason`` under ``auto``), ``wire``,
 ``tail_device`` with ``tail_placement`` (``cpu_sec``, ``chip_sec``,
 ``rt_sec``, ``link_bps``, ...), ``tail_encoding``, ``insertion_kernel``,
@@ -72,6 +74,18 @@ the device scatter, the host counts or the host tail, and only for a
 failure the policy classifies as a device failure: a kernel that did not
 build or load, a contract error and malformed input end the run under
 every mode, and so does a sticky CUDA error (the context is lost).
+
+Observability is the JAX backend's (``jax_backend.py:594-1822``): the run's
+own tracer, registry and decision ledger (``observability.start_run``);
+the reference's spans (``decode`` on every ``next`` of the batch stream,
+``stage``, ``pileup_dispatch`` a batch, ``accumulate`` and, when tracing,
+its ``accumulate_sync`` barrier, ``insertions``, ``vote``, ``render``) and
+``phase/*_sec`` counters; its decisions (``link_constants``,
+``tail_placement``, ``wire_codec``, ``capacity``, ``epilogue``,
+``host_pileup_bound``, ``decode_threads``, ``longread_layout``) and gauges
+(``dispatch/*``, ``wire/codec``, ``pipeline/overlap``); the memory plane
+(``observability.memplane``); and ``finish_run``'s trace, metrics JSONL
+and manifest.
 """
 
 from __future__ import annotations
@@ -88,7 +102,7 @@ import torch
 from .. import observability as obs
 from ..config import RunConfig, resolve_decode_threads
 from ..constants import NUM_SYMBOLS, SYM32_ASCII
-from ..device import resolve_device
+from ..device import device_name, resolve_device
 from .. import native
 from ..encoder import native_encoder
 from ..encoder.events import (GenomeLayout, ReadEncoder, group_insertions,
@@ -174,7 +188,41 @@ def _link_constants(device=None) -> tuple:
             source = "env+default" if partial else "default"
     rt = TAIL_RT_SEC_DEFAULT if rt is None else rt
     bps = TAIL_LINK_BPS_DEFAULT if bps is None else bps
+    _record_link_decision(rt, bps, source, device)
     return rt, bps, source
+
+
+#: wire bytes under which a link-rate residual never joins: below it the
+#: staging and dispatch windows are encode- or compute-bound, and the
+#: achieved rate says nothing of the link (the reference's default of
+#: ``S2C_DRIFT_MIN_WIRE_MB``, 8 MB)
+DRIFT_MIN_WIRE_BYTES = 8e6
+
+
+def _record_link_decision(rt: float, bps: float, source: str,
+                          device=None) -> None:
+    """The ``link_constants`` ledger decision (the reference's, made where
+    its ``_link_constants`` makes it): the constants priced and their
+    source, joined at the run's end against the achieved wire rate over
+    the staging and dispatch windows.  A link-free (CPU) device gets no
+    join: its "wire" is a host copy."""
+    from ..observability import ratecard
+    from ..utils import linkprobe
+
+    inputs = {"rt_ms": round(rt * 1e3, 3),
+              "link_mbps": round(bps / 1e6, 2), "source": source}
+    age = linkprobe.link_info().get("age_sec")
+    if age is not None:
+        inputs["age_sec"] = age
+    link_free = device is not None and torch.device(device).type == "cpu"
+    _bps, provenance = ratecard.consult("link_bps", bps)
+    obs.record_decision(
+        "link_constants", source, inputs=inputs, predicted={"bps": bps},
+        measured=None if link_free else
+        {"bps": {"num": ["wire/bytes"],
+                 "den": ["phase/stage_sec", "phase/pileup_dispatch_sec"],
+                 "min_num": DRIFT_MIN_WIRE_BYTES}},
+        provenance=provenance)
 
 
 # Measured by ``perf/gate_constants.py`` on an NVIDIA H100 80GB HBM3 at a
@@ -334,8 +382,22 @@ def tail_placement(total_len: int, n_thresholds: int, upload_bytes: int,
                  upload_bytes=int(upload_bytes), total_len=int(total_len),
                  n_thresholds=int(n_thresholds),
                  native_tail=bool(native_tail))
+    alternatives = {"cpu": cpu_sec}
     if "rt_sec" in link and "link_bps" in link:
-        place["chip_sec"] = chip_sec(link["rt_sec"], link["link_bps"])
+        place["chip_sec"] = alternatives["device"] = chip_sec(
+            link["rt_sec"], link["link_bps"])
+    # the verdict and its inputs as the reference records them: the
+    # dispatch/tail gauge, a trace event and the ledger decision, joined
+    # against the tail's wall (last-wins: the optimistic-then-exact
+    # double call leaves the decisive record)
+    obs.metrics().gauge("dispatch/tail").set_info(place)
+    obs.tracer().event("dispatch/tail", **place)
+    obs.record_decision(
+        "tail_placement", chosen, inputs=place,
+        predicted={"sec": alternatives.get(
+            "cpu" if chosen == "cpu" else "device")},
+        alternatives=alternatives,
+        measured={"sec": {"counters": ["phase/vote_sec"]}})
     return place
 
 
@@ -366,6 +428,102 @@ def _insertion_kernels(ins_kernel: str, device) -> bool:
     return ins_kernel == "pallas"
 
 
+#: the render epilogue's cost a character on the host (the fill
+#: substitution and dash count) and on the device (the fill inside the
+#: vote): the reference's model (``S2C_EPILOGUE_HOST_NS`` and
+#: ``S2C_EPILOGUE_DEV_NS`` defaults), not measured on the card.  The
+#: ``epilogue`` decision's residual is informational (band 0)
+EPILOGUE_HOST_NS = 1.0
+EPILOGUE_DEV_NS = 0.4
+
+
+def _record_epilogue(cfg, total_len: int, out_enc, device: bool) -> None:
+    """The ``epilogue`` ledger decision and counter (the reference's):
+    where the fill substitution and dash count ran, priced a character,
+    joined against the render's wall."""
+    chars = len(cfg.thresholds) * total_len
+    chosen = "device" if device else "host"
+    alternatives = {"device": chars * EPILOGUE_DEV_NS * 1e-9,
+                    "host": chars * EPILOGUE_HOST_NS * 1e-9}
+    obs.record_decision(
+        "epilogue", chosen,
+        inputs={"mode": "auto", "fill": cfg.fill, "out_enc": str(out_enc),
+                "donate": False, "sharded": False,
+                "total_len": int(total_len),
+                "n_thresholds": len(cfg.thresholds)},
+        predicted={"sec": alternatives[chosen]},
+        alternatives=alternatives,
+        measured={"sec": {"counters": ["phase/render_sec"]}}, band=0)
+    obs.metrics().add(f"epilogue/{chosen}_tails", 1)
+
+
+#: the decode model of the ``decode_threads`` decision: input megabytes a
+#: second a core and the parallel efficiency of each core past the first
+#: (the reference's defaults, ``S2C_DECODE_MBPS_PER_CORE`` and
+#: ``S2C_DECODE_PAR_EFF``; the rate card's learned rate wins where one is
+#: installed).  The residual against the measured decode is recorded
+DECODE_MBPS_PER_CORE = 330.0
+DECODE_PAR_EFF = 0.85
+
+
+def _record_decode_decision(cfg, records, threads: int, parallel: bool,
+                            fuse: bool) -> None:
+    """The ``decode_threads`` ledger decision (copy of the reference's
+    ``_record_decode_decision`` on the model's defaults): the predicted
+    decode seconds of a plain file's body at the chosen thread count,
+    joined against ``phase/decode_sec`` (informational on the slab rung,
+    whose decode hides under the pileup)."""
+    from ..observability import ratecard
+
+    rate_mbps, provenance = ratecard.consult("decode_mbps_per_core",
+                                             DECODE_MBPS_PER_CORE)
+    rate = rate_mbps * 1e6
+    cores = os.cpu_count() or 1
+    inputs = {"threads": int(threads),
+              "requested": int(getattr(cfg, "decode_threads", 1)),
+              "cores": int(cores), "parallel": bool(parallel),
+              "rate_mbps_per_core": round(rate_mbps, 2),
+              "rung": "fused" if fuse else "slab"}
+    body_bytes = None
+    probe = getattr(records, "body_bytes_total", None)
+    if probe is not None and not cfg.checkpoint_dir:
+        body_bytes = probe()
+    predicted = {}
+    alternatives = {}
+    if body_bytes is not None:
+        inputs["body_bytes"] = int(body_bytes)
+        serial_sec = body_bytes / rate
+
+        def _sec(n):
+            return serial_sec / (1.0 + (n - 1) * DECODE_PAR_EFF
+                                 if n > 1 else 1.0)
+
+        predicted["sec"] = _sec(min(threads, cores) if parallel else 1)
+        alternatives = {"1": serial_sec, str(cores): _sec(cores)}
+    obs.record_decision(
+        "decode_threads", str(threads if parallel else 1),
+        inputs=inputs, predicted=predicted, alternatives=alternatives,
+        measured={"sec": {"counters": ["phase/decode_sec"]}},
+        band=None if fuse or not parallel else 0.0,
+        provenance=provenance)
+
+
+def _record_layout_decision(cfg, seg_w: int) -> None:
+    """The ``longread_layout`` ledger decision (copy of the reference's):
+    segmented or fixed slab buckets for long reads, priced by the widest
+    bucket each allows; informational (band 0)."""
+    from ..encoder.events import DEFAULT_SEGMENT_W
+
+    obs.record_decision(
+        "longread_layout", "segmented" if seg_w else "fixed",
+        inputs={"segment_width": int(seg_w),
+                "configured": int(getattr(cfg, "segment_width", 0))},
+        predicted={"max_bucket_w": float(seg_w if seg_w else 1 << 16)},
+        alternatives={"fixed" if seg_w else "segmented": float(
+            (1 << 16) if seg_w else DEFAULT_SEGMENT_W)},
+        band=0.0)
+
+
 def _input_bytes(records, cap: int):
     """The input's decompressed bytes, where they are known without
     decoding it: a plain SAM file's body, or the blocks of a BGZF
@@ -383,12 +541,8 @@ def _input_bytes(records, cap: int):
 
 
 #: ``RunConfig`` fields the port does not run yet, with their defaults:
-#: ``shards`` and ``shard_mode`` (multi-GPU), the observability outputs
-#: and logging (ROADMAP §A)
-UNPORTED_FIELDS = (("shards", 0), ("shard_mode", "auto"),
-                   ("profile_dir", None), ("json_metrics", None),
-                   ("trace_out", None), ("metrics_out", None),
-                   ("log_level", None), ("log_format", "text"))
+#: ``shards`` and ``shard_mode`` (multi-GPU, ROADMAP §A)
+UNPORTED_FIELDS = (("shards", 0), ("shard_mode", "auto"))
 
 
 def reject_unported(cfg) -> None:
@@ -404,38 +558,49 @@ def reject_unported(cfg) -> None:
 
 
 def _timed(batches, stats: BackendStats):
-    """Yield from ``batches`` on the calling thread, adding the time spent
-    in the generator to ``stats.extra["decode_sec"]`` (the serial loop of
-    a fused count, where decode and count are one pass)."""
+    """Yield from ``batches`` on the calling thread, each ``next`` under a
+    ``decode`` span, adding the time spent in the generator to
+    ``stats.extra["decode_sec"]`` and ``phase/decode_sec`` (the serial
+    loop of a fused count, where decode and count are one pass)."""
     it = iter(batches)
+    reg = obs.metrics()
+    tr = obs.tracer()
     while True:
-        t0 = time.perf_counter()
-        try:
-            batch = next(it)
-        except StopIteration:
-            return
-        finally:
-            stats.extra["decode_sec"] += time.perf_counter() - t0
+        with tr.span("decode"):
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                dt = time.perf_counter() - t0
+                stats.extra["decode_sec"] += dt
+                reg.add("phase/decode_sec", dt)
         yield batch
 
 
 class _Prefetcher:
     """Bounded background decode and staging, ahead of the pileup.
 
-    Copy of the JAX backend's ``_Prefetcher``.  The producer thread drains
-    the encoder generator into a depth-2 queue, adding the time it spends
-    in the generator to ``stats.extra["decode_sec"]``.  With a ``stager``
+    Copy of the JAX backend's ``_Prefetcher``.  The producer thread, bound
+    to the run's instruments (``observability.bind_run_to_thread``) and
+    named ``decode-prefetch`` in the trace, drains the encoder generator
+    into a depth-2 queue, each ``next`` under a ``decode`` span, adding the
+    time it spends in the generator to ``stats.extra["decode_sec"]`` and
+    ``phase/decode_sec``.  With a ``stager``
     (``wire.pipeline.StageSlots`` around ``PileupAccumulator.stage``) it
     then claims a staging slot for the batch (outside the stage clock:
-    that wait is backpressure) and stages it: on CUDA the pinned copy, the
-    host-to-device copy on a side stream and its event run here, on the
-    producer.  Every other torch call stays on the consumer.  Staging is an
-    optimization: a staging failure that the retry policy classifies as a
+    that wait is backpressure) and stages it under a ``stage`` span
+    (``phase/stage_sec``): on CUDA the pinned copy, the host-to-device
+    copy on a side stream and its event run here, on the producer.  Every
+    other torch call stays on the consumer.  Staging is an optimization:
+    a staging failure that the retry policy classifies as a
     device failure (``resilience.policy.classify``: transient, capacity or
     fatal, e.g. an injected ``device_put`` fault) clears the batch's staged
     operands and delivers it unstaged, so the consumer ships it again
     under its retry policy and ladder, counted
-    ``resilience/stage_failures``; after ``MAX_STAGE_FAILURES`` in a row
+    ``resilience/stage_failures`` (and a ``resilience/stage_failure``
+    trace event); after ``MAX_STAGE_FAILURES`` in a row
     staging stops for the run.  Any other exception (strict decode errors,
     contract errors of the staging itself) is re-raised in the consumer at
     the point of consumption with its type and message unchanged, and the
@@ -455,6 +620,7 @@ class _Prefetcher:
         self._stager = stager
         self._stage_failures = 0
         self._stop = threading.Event()
+        self._run = obs.current_run()
         self._thread = threading.Thread(
             target=self._work, args=(gen,), name="decode-prefetch",
             daemon=True)
@@ -471,20 +637,35 @@ class _Prefetcher:
         return False
 
     def _work(self, gen) -> None:
+        with obs.bind_run_to_thread(self._run):
+            obs.tracer().name_thread("decode-prefetch")
+            self._produce(gen)
+
+    def _produce(self, gen) -> None:
+        reg = obs.metrics()
+        tr = obs.tracer()
         try:
             while True:
-                t0 = time.perf_counter()
-                try:
-                    batch = next(gen)
-                except StopIteration:
-                    break
-                finally:
-                    self._stats.extra["decode_sec"] += \
-                        time.perf_counter() - t0
+                with tr.span("decode"):
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(gen)
+                    except StopIteration:
+                        break
+                    finally:
+                        dt = time.perf_counter() - t0
+                        self._stats.extra["decode_sec"] += dt
+                        reg.add("phase/decode_sec", dt)
                 if self._stager is not None \
                         and self._stage_failures < self.MAX_STAGE_FAILURES:
                     if self._stager.acquire(batch):
-                        self._stage(batch)
+                        with tr.span("stage"):
+                            t0 = time.perf_counter()
+                            try:
+                                self._stage(batch)
+                            finally:
+                                reg.add("phase/stage_sec",
+                                        time.perf_counter() - t0)
                     elif self._stager._stop.is_set():
                         return             # consumer gone; drop the rest
                 if not self._put(batch):
@@ -505,6 +686,11 @@ class _Prefetcher:
             self._stage_failures += 1
             batch.staged.clear()
             obs.metrics().add("resilience/stage_failures", 1)
+            obs.tracer().event(
+                "resilience/stage_failure",
+                error=f"{type(exc).__name__}: {exc}",
+                consecutive=self._stage_failures,
+                disabled=self._stage_failures >= self.MAX_STAGE_FAILURES)
 
     def close(self) -> None:
         """Unblock and join the producer (consumer exited early)."""
@@ -535,34 +721,53 @@ class TorchBackend:
 
     def run(self, contigs: List[Contig], records: Iterable[SamRecord],
             cfg: RunConfig) -> BackendResult:
-        """One run under a fresh metrics registry and fault injector (the
-        JAX backend's ``run``): the registry's counters land in
-        ``stats.extra`` (``observability.publish_stats_extra``), the
-        injector counts each site's calls from zero.  A blown bad-record
-        budget leaves its evidence (sidecar, counters) before it
-        propagates.  A ``RunConfig`` field the port does not run yet is
-        refused (:func:`reject_unported`)."""
+        """One run under fresh instruments and a fresh fault injector (the
+        JAX backend's ``run``): ``observability.start_run`` installs the
+        run's tracer (enabled by ``cfg.trace_out``), metrics registry and
+        decision ledger; the injector counts each site's calls from zero.
+        On success the memory plane samples its watermarks, the ledger is
+        joined against the measured counters and the registry's view lands
+        in ``stats.extra`` (``observability.publish_stats_extra``).  A
+        blown bad-record budget leaves its evidence (sidecar, counters)
+        before it propagates; a CAPACITY-class failure writes
+        ``mem_dump.json`` beside ``cfg.metrics_out``.  ``finish_run``
+        writes the trace, the metrics JSONL and the manifest, whose meta
+        names the backend and the device.  A ``RunConfig`` field the port
+        does not run yet is refused (:func:`reject_unported`)."""
         from ..ingest.badrecords import (BadRecordBudgetExceeded,
                                          abort_bookkeeping)
-        from ..observability.metrics import pop_run, push_run
+        from ..observability import memplane
 
         reject_unported(cfg)
-        registry = push_run()
+        robs = obs.start_run(trace_out=cfg.trace_out,
+                             metrics_out=cfg.metrics_out, config=cfg)
         faultinject.configure(getattr(cfg, "fault_inject", "") or None)
         try:
             result = self._run(contigs, records, cfg)
+            memplane.sample(device=self.device)
+            obs.finalize_decisions()
             obs.publish_stats_extra(result.stats.extra)
             return result
-        except BadRecordBudgetExceeded as exc:
-            abort_bookkeeping(exc, obs.metrics())
+        except BaseException as exc:
+            if isinstance(exc, BadRecordBudgetExceeded):
+                abort_bookkeeping(exc, obs.metrics())
+            if robs.metrics_out:
+                memplane.dump_on_capacity(
+                    exc, os.path.dirname(os.path.abspath(robs.metrics_out)),
+                    registry=robs.registry, context={"backend": self.name})
             raise
         finally:
             faultinject.configure("")
-            pop_run(registry)
+            obs.finish_run(robs, meta={"backend": self.name,
+                                       "device": device_name(self.device)})
 
     def _run(self, contigs: List[Contig], records: Iterable[SamRecord],
              cfg: RunConfig) -> BackendResult:
+        from ..observability import memplane
+
         stats = BackendStats()
+        tr = obs.tracer()
+        reg = obs.metrics()
         for key in ("decode_sec", "pileup_sec", "tail_sec", "assemble_sec",
                     "stage_sec", "overlap_sec", "backpressure_sec"):
             stats.extra[key] = 0.0
@@ -571,6 +776,13 @@ class TorchBackend:
             return BackendResult(fastas={}, stats=stats)
 
         acc = self._make_accumulator(layout, records, cfg, stats)
+        # the run's predicted peak bytes (the ``capacity`` decision; the
+        # tail records it again with the insertion table's bytes)
+        memplane.record_capacity(
+            layout.total_len, n_thresholds=len(cfg.thresholds),
+            chunk_reads=cfg.chunk_reads,
+            segment_width=max(0, cfg.segment_width),
+            host_counts=isinstance(acc, HostPileupAccumulator))
         ck, skip_input, prior_sources = self._resume(layout, records, cfg,
                                                      acc, stats)
         base_mapped = ck.reads_mapped if ck else 0
@@ -626,6 +838,7 @@ class TorchBackend:
             checkpoint_cb=checkpoint if cfg.checkpoint_dir else None,
             on_demote=rebind_stage)
         reads_at_ckpt = 0
+        t_acc = time.perf_counter()
         try:
             for batch in source:
                 if cfg.paranoid:
@@ -633,9 +846,11 @@ class TorchBackend:
                 if batch.buckets:
                     row_width[0] = max(row_width[0], max(batch.buckets))
                 t0 = time.perf_counter()
-                acc = dispatcher.add(acc, batch)
+                with tr.span("pileup_dispatch", n_events=batch.n_events):
+                    acc = dispatcher.add(acc, batch)
                 t1 = time.perf_counter()
                 stats.extra["pileup_sec"] += t1 - t0
+                reg.add("phase/pileup_dispatch_sec", t1 - t0)
                 if stager is not None:
                     # K1's route is enqueued: release the batch's slot
                     stager.note_consume(t0, t1)
@@ -655,17 +870,36 @@ class TorchBackend:
                 prefetch.close()
         stats.extra.update(getattr(encoder, "counters", {}))
         if stager is not None:
-            stats.extra["stage_sec"] = stager.stage_sec()
-            stats.extra["overlap_sec"] = stager.overlap_sec()
+            ov, ssec = stager.overlap_sec(), stager.stage_sec()
+            stats.extra["stage_sec"] = ssec
+            stats.extra["overlap_sec"] = ov
             stats.extra["backpressure_sec"] = stager.backpressure_sec
             stats.extra["pipeline_started"] = stager.started
             stats.extra["pipeline_slots_held"] = len(stager._held)
+            reg.add("pipeline/overlap_sec", ov)
+            reg.add("pipeline/backpressure_sec", stager.backpressure_sec)
+            reg.gauge("pipeline/overlap").set_info({
+                "overlap_sec": round(ov, 4), "stage_sec": round(ssec, 4),
+                "slots": stager.slots,
+                "staged_batches": stager.staged_batches,
+                "overlap_frac": round(ov / ssec, 3) if ssec > 0 else 0.0})
         if dispatcher.demotions:
             # the tail follows the accumulator the ladder landed on
             stats.extra["pileup_ladder"] = rladder.pileup_level(acc)
-        t0 = time.perf_counter()
-        acc.sync()
-        stats.extra["pileup_sec"] += time.perf_counter() - t0
+        reg.add("reads/mapped", encoder.n_reads)
+        reg.add("reads/skipped", encoder.n_skipped)
+        reg.add("pileup/cells", stats.aligned_bases - base_aligned)
+        if tr.enabled:
+            # the one host synchronisation tracing adds (the reference's
+            # barrier): the accumulate span closes after the device
+            # counted, so the trace attributes the pileup's device time
+            t0 = time.perf_counter()
+            with tr.span("accumulate_sync"):
+                acc.sync()
+            stats.extra["pileup_sec"] += time.perf_counter() - t0
+            stats.extra["accumulate_synced"] = True
+        reg.add("phase/accumulate_sec", time.perf_counter() - t_acc)
+        tr.complete("accumulate", t_acc)
         stats.reads_mapped = base_mapped + encoder.n_reads
         stats.reads_skipped = base_skipped + encoder.n_skipped
         self._finish_bad_records(encoder, records, stats)
@@ -688,9 +922,12 @@ class TorchBackend:
                                   site_cov=site_cov)
 
         t0 = time.perf_counter()
-        fastas = self._assemble(layout, syms, contig_sums, ins, ins_syms,
-                                site_cov, cfg, stats, dash_counts=dash_counts)
+        with tr.span("render"):
+            fastas = self._assemble(layout, syms, contig_sums, ins, ins_syms,
+                                    site_cov, cfg, stats,
+                                    dash_counts=dash_counts)
         stats.extra["assemble_sec"] = time.perf_counter() - t0
+        reg.add("phase/render_sec", stats.extra["assemble_sec"])
         if cfg.checkpoint_dir:
             self._end_checkpoint(cfg, prior_sources,
                                  lambda done: checkpoint(acc, done))
@@ -915,6 +1152,14 @@ class TorchBackend:
                                input_bytes=size, host_bound_reason=reason)
         stats.extra["pileup_path"] = "host" if host else "device"
         wire = self._resolve_wire(cfg, stats)
+        info = {"path": stats.extra["pileup_path"], "strategy": strategy,
+                "total_len": int(layout.total_len)}
+        if host:
+            info.update(native_tail=_native_tail_possible(cfg),
+                        link_free=self.device.type == "cpu")
+        else:
+            info["wire"] = wire
+        obs.metrics().gauge("dispatch/pileup").set_info(info)
         if host:
             return HostPileupAccumulator(layout.total_len)
         return PileupAccumulator(
@@ -926,6 +1171,9 @@ class TorchBackend:
         ``resolve_codec`` on the link's rate, which :func:`_decide_link`
         gives without a probe unless it can change the choice; the CPU
         device is link-free.  Recorded as ``stats.extra["wire"]``."""
+        from ..observability import ratecard
+        from ..wire.codec import modeled_rows_ratio
+
         link_free = self.device.type == "cpu"
         info = {"requested": cfg.wire}
         if cfg.wire == "auto" and not link_free:
@@ -934,7 +1182,27 @@ class TorchBackend:
             info.update((k, v) for k, v in link.items() if k != "rt_sec")
         else:
             codec, reason = resolve_codec(cfg.wire, None, link_free)
-        stats.extra["wire"] = dict(info, chosen=codec, reason=reason)
+        winfo = stats.extra["wire"] = dict(info, chosen=codec, reason=reason)
+        obs.metrics().gauge("wire/codec").set_info(winfo)
+        obs.tracer().event("wire/codec", **winfo)
+        # the ledger: the codec's modelled compression (packed5-equivalent
+        # bytes over the bytes shipped) against the measured
+        # wire/raw_bytes / wire/bytes, and, where a link rate priced the
+        # choice, that rate against the achieved one
+        bps = winfo.get("link_bps")
+        predicted = {"ratio": modeled_rows_ratio(codec)}
+        provenance = None
+        if bps is not None:
+            predicted["bps"], provenance = ratecard.consult("wire_bps", bps)
+        obs.record_decision(
+            "wire_codec", codec, inputs=winfo, predicted=predicted,
+            measured={"ratio": {"num": ["wire/raw_bytes"],
+                                "den": ["wire/bytes"]},
+                      "bps": {"num": ["wire/bytes"],
+                              "den": ["phase/stage_sec",
+                                      "phase/pileup_dispatch_sec"],
+                              "min_num": DRIFT_MIN_WIRE_BYTES}},
+            provenance=provenance)
         return codec
 
     @staticmethod
@@ -952,6 +1220,8 @@ class TorchBackend:
         so batches can be re-validated, and it and ``--checkpoint-dir``
         keep the serial decoder (ordered batches and stream offsets)."""
         fuse = isinstance(acc, HostPileupAccumulator) and not cfg.paranoid
+        seg_w = resolve_segment_width(cfg.segment_width)
+        _record_layout_decision(cfg, seg_w)
         bad_sink = sink_from_config(cfg)
         if hasattr(records, "make_encoder"):
             # binary formats (formats/bam.BamReadStream): the stream owns
@@ -961,7 +1231,6 @@ class TorchBackend:
             stats.extra["decoder"] = "native" if isinstance(
                 enc, native_encoder.NativeReadEncoder) else "py"
             return enc, batches
-        seg_w = resolve_segment_width(cfg.segment_width)
         if isinstance(records, ReadStream) and cfg.decoder != "py":
             if native_encoder.available():
                 stats.extra["decoder"] = "native"
@@ -972,6 +1241,8 @@ class TorchBackend:
                             and not cfg.paranoid)
                 stats.extra["decode_threads"] = threads if parallel else 1
                 stats.extra["decode_rung"] = "fused" if fuse else "slab"
+                _record_decode_decision(cfg, records, threads, parallel,
+                                        fuse)
                 counts = acc.counts_host() if fuse else None
                 if parallel:
                     # shard-owned ingest: byte-range workers decode with
@@ -1023,10 +1294,32 @@ class TorchBackend:
         return self._tail_attempt(acc, cfg, layout, encoder, stats)
 
     def _tail_attempt(self, acc, cfg: RunConfig, layout, encoder, stats):
+        from ..observability import memplane
+
+        tr = obs.tracer()
+        reg = obs.metrics()
+        t0 = time.perf_counter()
         ins = group_insertions(encoder.insertions, layout)
+        reg.add("phase/insertions_sec", time.perf_counter() - t0)
+        tr.complete("insertions", t0)
+        t0 = time.perf_counter()
         faultinject.fault_check("vote")
         if ins is not None:
             faultinject.fault_check("insertion_build")
+            # residency: the [kp, cp, 6] int32 table and the padded event
+            # lanes, tracked against the accumulator (the table lives as
+            # long as the tail); the capacity prediction gains them
+            table_bytes = (
+                fused.next_pow2(len(ins["key_flat"]) + 1)
+                * fused.next_pow2(ins["max_cols"]) * NUM_SYMBOLS * 4
+                + 3 * 4 * fused.next_pow2(max(len(ins["ev_key"]), 1)))
+            memplane.track_obj("insertion_table", acc, table_bytes)
+            memplane.record_capacity(
+                layout.total_len, n_thresholds=len(cfg.thresholds),
+                chunk_reads=cfg.chunk_reads,
+                segment_width=max(0, cfg.segment_width),
+                host_counts=isinstance(acc, HostPileupAccumulator),
+                insertion_table_bytes=table_bytes)
         tail_dev = self.device
         if isinstance(acc, HostPileupAccumulator):
             if acc.tail_device == "cpu":
@@ -1043,9 +1336,22 @@ class TorchBackend:
             if placement["chosen"] == "cpu":
                 tail_dev = torch.device("cpu")
             stats.extra["tail_placement"] = placement
+            if "cpu_sec" not in placement:
+                # a placement the model did not price (the ladder's tail
+                # rung, the link-free device, the insertion kernels): the
+                # ledger still shows where the tail ran and what it took
+                obs.record_decision(
+                    "tail_placement", placement["chosen"], inputs=placement,
+                    measured={"sec": {"counters": ["phase/vote_sec"]}})
         else:
             stats.extra["tail_placement"] = {"chosen": "device",
                                              "pileup": "device"}
+            if tail_dev.type == "cpu":
+                obs.record_decision(
+                    "tail_placement", "cpu",
+                    inputs={"link_free": True,
+                            "total_len": int(layout.total_len)},
+                    measured={"sec": {"counters": ["phase/vote_sec"]}})
         stats.extra["tail_device"] = tail_dev.type
         stats.extra["tail_native"] = False
         if tail_dev.type == "cpu" and isinstance(acc, HostPileupAccumulator) \
@@ -1070,6 +1376,10 @@ class TorchBackend:
                 cov64, torch.from_numpy(layout.offsets).to(cov64.device)
             ).cpu().numpy()
             stats.extra["contig_sums_int64"] = True
+        # the tail's device work completes under its fetch, so the vote
+        # span closes after the device finished (device-complete)
+        reg.add("phase/vote_sec", time.perf_counter() - t0)
+        tr.complete("vote", t0)
         return syms, ins_syms, contig_sums, site_cov, ins, dash_counts
 
     def _place_host_tail(self, acc, cfg: RunConfig, layout, stats) -> dict:
@@ -1098,6 +1408,7 @@ class TorchBackend:
         syms, cov = vote_positions_native(
             acc.counts_host(), cfg.thresholds, cfg.min_depth,
             threads=resolve_decode_threads(cfg))
+        _record_epilogue(cfg, layout.total_len, None, False)
         offs = np.ascontiguousarray(layout.offsets, dtype=np.int64)
         contig_sums = np.empty(len(offs) - 1, dtype=np.int64)
         native.load().s2c_cov_sums(cov, offs, len(offs) - 1, contig_sums)
@@ -1151,6 +1462,7 @@ class TorchBackend:
         # substitutes
         fill_code = device_fill_code(cfg.fill, fused.sym_space(out_enc))
         epilogue = fill_code is not None
+        _record_epilogue(cfg, total_len, out_enc, epilogue)
         if ins is not None:
             k = len(ins["key_flat"])
             # pad sites and columns to powers of two, like the JAX tail:
@@ -1181,6 +1493,8 @@ class TorchBackend:
                 fill_code or 0, epilogue, out_enc)
         out = packed.cpu().numpy()
         stats.extra["tail_fetch_bytes"] = out.nbytes
+        if dev.type == "cuda":
+            obs.metrics().add("wire/d2h_bytes", out.nbytes)
         return self._unpack_tail(out, n_thresholds, total_len, kp, cp,
                                  n_contigs, k, out_enc, epilogue, fill_code)
 

@@ -12,8 +12,14 @@ reference package's one-shot flags ``--py2-compat``, ``--permissive``,
 ``--retry-backoff``, ``--on-device-error`` and ``--fault-inject`` (with
 the environment settings ``S2C_FAULT_INJECT``, ``S2C_FAULT_SEED`` and
 ``S2C_QUARANTINE_MAX``; the reference's ``S2C_ON_DEVICE_ERROR`` and
-``S2C_ATTEMPT_DEADLINE_S`` are not read);
-the progress messages match.  Input is SAM, gzip or
+``S2C_ATTEMPT_DEADLINE_S`` are not read), and its observability flags
+``--trace-out``, ``--metrics-out`` (with the run manifest beside it),
+``--json-metrics``, ``--profile-dir``, ``--log-level`` and
+``--log-format`` (with ``S2C_TRACE_OUT`` and ``S2C_METRICS_OUT``);
+the progress messages match.  ``--profile-dir`` wraps the run in
+``torch.profiler`` (CPU activity, and on CUDA the card's: a profile of a
+CUDA run that holds no CUDA kernel fails the run, naming CUPTI) and
+writes its Chrome trace into the directory.  Input is SAM, gzip or
 BGZF SAM, or BAM, sniffed by magic bytes
 (``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
@@ -25,9 +31,11 @@ way to choose another device.
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import os
 import sys
+import time
 from typing import List, Optional
 
 from .config import RunConfig, default_prefix, normalize_outfolder
@@ -103,6 +111,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "bounded by S2C_QUARANTINE_MAX stored records")
     p.add_argument("--quiet", action="store_true",
                    help="suppress progress output")
+    p.add_argument("--json-metrics", dest="json_metrics", default=None,
+                   help="write run metrics as JSON to this path "
+                        "('-' = stdout)")
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="write a torch.profiler trace (CPU activity, and "
+                        "the card's kernels on CUDA) to this directory")
+    p.add_argument("--trace-out", dest="trace_out", default=None,
+                   help="write a Chrome/Perfetto trace-event JSON of the "
+                        "run's span tree (decode/stage/pileup dispatch/"
+                        "accumulate/vote/insertions/render, device spans "
+                        "closed under a device barrier) to this path; "
+                        "open at https://ui.perfetto.dev")
+    p.add_argument("--metrics-out", dest="metrics_out", default=None,
+                   help="write the run's metrics registry (phase seconds, "
+                        "wire bytes, dispatch decisions, histograms with "
+                        "p50/p95/p99) as JSONL to this path")
+    p.add_argument("--log-level", dest="log_level", default=None,
+                   choices=["debug", "info", "warning", "error"],
+                   help="enable package logging to stderr at this level")
+    p.add_argument("--log-format", dest="log_format",
+                   choices=["text", "json"], default="text",
+                   help="log record shape: text (default) or json — "
+                        "one JSON object per record carrying "
+                        "job_id/tenant/rung and the innermost open "
+                        "trace span as correlation IDs "
+                        "(observability/telemetry.py; json implies "
+                        "--log-level info when none is given)")
     # NOTE: long-form only — the reference already owns -f for --fill
     p.add_argument("--format", dest="input_format",
                    choices=["auto", "sam", "sam.gz", "bam"],
@@ -285,7 +320,52 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         on_bad_record=args.on_bad_record,
         max_bad_records=args.max_bad_records,
         quarantine_out=args.quarantine_out,
+        json_metrics=args.json_metrics,
+        profile_dir=args.profile_dir,
+        trace_out=args.trace_out,
+        metrics_out=args.metrics_out,
+        log_level=args.log_level,
+        log_format=args.log_format,
     )
+
+
+def profiled(profile_dir: str, device, run):
+    """``run()`` under ``torch.profiler`` (CPU activity, and the card's
+    on a CUDA ``device``), its Chrome trace written into ``profile_dir``
+    as ``<host>_<pid>.<ms>.pt.trace.json``; returns ``run()``'s result.
+    A CUDA profile that holds no kernel event (CUPTI recorded nothing)
+    raises instead of leaving an empty device profile."""
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        result = run()
+        if cuda:
+            torch.cuda.synchronize(device)
+    name = (f"{socket.gethostname()}_{os.getpid()}."
+            f"{int(time.time() * 1000)}.pt.trace.json")
+    path = os.path.join(profile_dir, name)
+    tmp = path + ".tmp"
+    prof.export_chrome_trace(tmp)
+    if cuda:
+        with open(tmp, encoding="utf-8") as fh:
+            events = json.load(fh).get("traceEvents", [])
+        if not any(e.get("cat") == "kernel" for e in events):
+            os.unlink(tmp)
+            raise RuntimeError(
+                "--profile-dir: the profiler recorded no CUDA kernel on "
+                f"{torch.cuda.get_device_name(device)}: CUPTI tracing is "
+                "unavailable or failed in this process; no device "
+                "profile was written")
+    os.replace(tmp, path)
+    return result
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
@@ -296,11 +376,15 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     from .formats import open_alignment_input
     from .ingest.badrecords import BadRecordBudgetExceeded
 
+    from . import observability
+
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    backend = TorchBackend(device)
     echo = (lambda *a, **k: None) if args.quiet else print
+    observability.configure_logging(cfg.log_level, cfg.log_format)
+    backend = TorchBackend(device)
+    t0 = time.perf_counter()
 
     echo("\nProcessing file " + args.filename + ":\n")
     progress = [0]
@@ -320,7 +404,11 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         echo("SAM header processed, " + str(len(ai.contigs))
              + " references found.\n")
         stream = ai.stream
-        result = backend.run(ai.contigs, stream, cfg)
+        if cfg.profile_dir:
+            result = profiled(cfg.profile_dir, backend.device,
+                              lambda: backend.run(ai.contigs, stream, cfg))
+        else:
+            result = backend.run(ai.contigs, stream, cfg)
     except BadRecordBudgetExceeded as exc:
         # rotten input: a clean job-level failure with the precise
         # summary (counts per reason + sidecar path), not a traceback
@@ -348,6 +436,34 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     write_outputs(result.fastas, cfg.outfolder, cfg.prefix, cfg.nchar,
                   cfg.thresholds, echo=echo)
     echo("Done.\n")
+    if cfg.metrics_out:
+        from .observability.manifest import manifest_path_for
+
+        echo("Run manifest written to "
+             + manifest_path_for(cfg.metrics_out) + "\n")
+    elapsed = time.perf_counter() - t0
+    if cfg.json_metrics:
+        from .observability.export import _json_default
+
+        metrics = {
+            "backend": cfg.backend,
+            "reads_mapped": result.stats.reads_mapped,
+            "reads_skipped": result.stats.reads_skipped,
+            "aligned_bases": result.stats.aligned_bases,
+            "consensus_bases": result.stats.consensus_bases,
+            "references": len(ai.contigs),
+            "references_with_output": len(result.fastas),
+            "elapsed_sec": elapsed,
+            "consensus_bases_per_sec":
+                result.stats.consensus_bases / elapsed if elapsed > 0 else 0.0,
+            **result.stats.extra,
+        }
+        blob = json.dumps(metrics, default=_json_default)
+        if cfg.json_metrics == "-":
+            print(blob)
+        else:
+            with open(cfg.json_metrics, "w") as fh:
+                fh.write(blob + "\n")
     return 0
 
 

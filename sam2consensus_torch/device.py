@@ -24,3 +24,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use cuda or cpu")
     return dev
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name (``torch.cuda.get_device_name``), or ``cpu``: the
+    run manifest's record of where a run ran."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"

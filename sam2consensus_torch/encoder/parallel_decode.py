@@ -4,9 +4,13 @@ Copy of ``sam2consensus_tpu/encoder/parallel_decode.py``
 (``ParallelFusedDecoder``, held equal to it by
 ``tests/test_torch_parallel_decode.py``), with its fault-injection site
 (``ingest_decode_shard``, per fused shard attempt) and its run-wide
-tolerant-decode sink, without its tracer spans; its counters land in
-:attr:`ParallelFusedDecoder.counters`, which the backend copies into
-``stats.extra``.  One difference: in slab mode the last
+tolerant-decode sink, and its trace spans and registry counters
+(``decode_shard`` / ``decode_worker`` spans on threads named
+``decode-shard-<i>`` / ``decode-worker-<i>``, ``ingest/*`` and
+``decode/worker_sec``, the ``ingest/mode`` gauge); the workers bind the
+run's instruments (``observability.bind_run_to_thread``).  The same
+counters also land in :attr:`ParallelFusedDecoder.counters`, which the
+backend copies into ``stats.extra``.  One difference: in slab mode the last
 worker to end puts an end marker on the hand-off queue, so the consumer
 stops at once instead of at its next 0.1 s poll.
 
@@ -63,6 +67,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from .. import observability as obs
 from ..ingest import DEFAULT_MIN_SHARD_BYTES, ShardPlan, snap_line_start
 from ..ingest.badrecords import is_data_error
 from ..resilience.faultinject import fault_check
@@ -200,12 +205,15 @@ class ParallelFusedDecoder:
                                      min_bytes=min_shard_bytes)
         if plan is not None and plan.ranges:
             return self.encode_shards(plan)
+        reg = obs.metrics()
         if self.n_threads > 1:
             self._count("ingest_fallback", 1)
+            reg.add("ingest/fallback", 1)
         self.counters["ingest_mode"] = {
             "rung": "stream", "threads": self.n_threads,
             "input": type(stream.handle).__name__,
             "fused": self.counts_fused}
+        reg.gauge("ingest/mode").set_info(dict(self.counters["ingest_mode"]))
         return self.encode_blocks(stream.blocks(), stream=stream)
 
     # -- shard rung --------------------------------------------------------
@@ -218,6 +226,9 @@ class ParallelFusedDecoder:
             "rung": "shards", "threads": nw, "shards": len(ranges),
             "bytes": plan.nbytes, "fused": self.counts_fused}
         self._count("ingest_shards", len(ranges))
+        reg = obs.metrics()
+        reg.gauge("ingest/mode").set_info(dict(self.counters["ingest_mode"]))
+        reg.add("ingest/shards", len(ranges))
         if self.counts_fused:
             return self._run_shards_fused(plan, ranges, nw)
         return self._run_shards_slab(plan, ranges, nw)
@@ -262,6 +273,9 @@ class ParallelFusedDecoder:
         are dropped whole, so nothing counts twice) and then flags the
         shard for demotion."""
         shard_idx, (lo, hi) = st["idx"], st["range"]
+        tr = obs.tracer()
+        reg = obs.metrics()
+        tr.name_thread(f"decode-shard-{shard_idx}")
         t0 = time.perf_counter()
         attempts = 0
         while True:
@@ -332,7 +346,15 @@ class ParallelFusedDecoder:
                     # records again, so nothing counts twice
                     self.bad_sink.clear_partition((shard_idx,))
                 self._count("ingest_shard_retries", 1)
-        self._count("ingest_worker_sec", time.perf_counter() - t0)
+                reg.add("ingest/shard_retries", 1)
+                tr.event("ingest/shard_retry", shard=shard_idx,
+                         error=f"{type(exc).__name__}: {exc}")
+        dt = time.perf_counter() - t0
+        self._count("ingest_worker_sec", dt)
+        tr.complete("decode_shard", t0, shard=shard_idx,
+                    lines=st["lines"], bytes=st["bytes"])
+        reg.add("decode/worker_sec", dt)
+        reg.add("ingest/worker_sec", dt)
 
     def _spawn_shards(self, ranges, nw: int, data, emit, on_exit=None):
         """Start ``nw`` workers over the shards (a claim queue absorbs
@@ -352,15 +374,17 @@ class ParallelFusedDecoder:
         claims: "queue.Queue" = queue.Queue()
         for st in states:
             claims.put(st)
+        run = obs.current_run()
 
         def runner():
             try:
-                while True:
-                    try:
-                        st = claims.get_nowait()
-                    except queue.Empty:
-                        return
-                    self._shard_work(st, data, horizon, hlock, emit)
+                with obs.bind_run_to_thread(run):
+                    while True:
+                        try:
+                            st = claims.get_nowait()
+                        except queue.Empty:
+                            return
+                        self._shard_work(st, data, horizon, hlock, emit)
             finally:
                 if on_exit is not None:
                     on_exit()
@@ -404,6 +428,10 @@ class ParallelFusedDecoder:
             # zeroed counts; nothing was yielded yet, so the fresh pass
             # is exactly the serial path
             self._count("ingest_demoted", 1)
+            obs.metrics().add("ingest/demoted", 1)
+            obs.tracer().event(
+                "ingest/demoted",
+                error=f"{type(first[2]).__name__}: {first[2]}")
             self._counts[:] = 0
             if self.bad_sink is not None:
                 # the whole input replays on the serial rung: every shard
@@ -511,8 +539,9 @@ class ParallelFusedDecoder:
             return any(st["error"] is not None or st["fault"] is not None
                        for st in workers)
 
-        threads = [threading.Thread(target=self._stream_work, args=(st,),
-                                    daemon=True,
+        run = obs.current_run()
+        threads = [threading.Thread(target=self._stream_work,
+                                    args=(st, run), daemon=True,
                                     name=f"decode-worker-{st['idx']}")
                    for st in workers]
         for t in threads:
@@ -563,9 +592,15 @@ class ParallelFusedDecoder:
             for batch in st["batches"]:
                 yield batch
 
-    def _stream_work(self, st: dict) -> None:
+    def _stream_work(self, st: dict, run) -> None:
+        with obs.bind_run_to_thread(run):
+            self._stream_decode(st)
+
+    def _stream_decode(self, st: dict) -> None:
         enc: NativeReadEncoder = st["enc"]
         current_idx = [None]
+        tr = obs.tracer()
+        tr.name_thread(f"decode-worker-{st['idx']}")
         t0 = time.perf_counter()
 
         def feed():
@@ -592,4 +627,8 @@ class ParallelFusedDecoder:
                 st["error"] = (current_idx[0], exc)
             else:
                 st["fault"] = exc
-        self._count("ingest_worker_sec", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._count("ingest_worker_sec", dt)
+        tr.complete("decode_worker", t0, worker=st["idx"],
+                    lines=st["lines"], bytes=st["bytes"])
+        obs.metrics().add("decode/worker_sec", dt)

@@ -3,9 +3,12 @@
 Copy of ``FormatError``, ``AlignmentInput``, ``detect_format``,
 ``sibling_sam``, ``open_alignment_input`` and ``_bgzf_open_failed`` from
 ``sam2consensus_tpu/formats/__init__.py`` (pinned by
-``tests/test_torch_copies.py``), without the reference's ``format/input``
-gauges; the ``bam_inflate`` fault-injection site and the
-``format/bgzf_corrupt`` counter reach the BGZF reader as there.  ``open_alignment_input(path, fmt="auto")``
+``tests/test_torch_copies.py``), with the reference's ``format/input``
+gauge, set in the registry that is current at open time (the CLI opens
+its input before the run, as the reference's does), and its
+``format/bgzf_corrupt`` and ``format/fallback`` counters; the
+``bam_inflate`` fault-injection site reaches the BGZF reader as there.
+``open_alignment_input(path, fmt="auto")``
 returns an :class:`AlignmentInput` whose ``contigs``/``stream`` pair goes
 into ``TorchBackend.run(contigs, stream, cfg)``.
 
@@ -163,6 +166,9 @@ def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
             raise
         stream = BamReadStream(reader, [c.name for c in contigs],
                                on_lines=on_lines)
+        _metrics().gauge("format/input").set_info(
+            {"path": path, "format": "bam",
+             "blocks": len(reader.blocks), "threads": threads})
         return AlignmentInput(path=path, format="bam", contigs=contigs,
                               stream=stream, handle=reader)
 
@@ -186,6 +192,8 @@ def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
         except Exception:
             handle.close()      # see the bam branch: no fd leak
             raise
+        _metrics().gauge("format/input").set_info(
+            {"path": path, "format": resolved, "threads": threads})
         return AlignmentInput(
             path=path, format=resolved, contigs=contigs,
             stream=ReadStream(handle, first, on_lines=on_lines),
@@ -200,6 +208,7 @@ def open_alignment_input(path: str, fmt: str = "auto", on_lines=None,
     except Exception:
         handle.close()
         raise
+    _metrics().gauge("format/input").set_info({"path": path, "format": "sam"})
     return AlignmentInput(
         path=path, format="sam", contigs=contigs,
         stream=ReadStream(handle, first, on_lines=on_lines),
@@ -210,9 +219,15 @@ def _bgzf_open_failed(path, on_lines, threads, fallback,
                       exc) -> AlignmentInput:
     """A BGZF container failed its open-time scan: take the sibling SAM
     where one exists, else re-raise with the block offset."""
+    reg = _metrics()
+    reg.add("format/bgzf_corrupt")
     sib = sibling_sam(path) if fallback else None
     if sib is None:
         raise exc
+    reg.add("format/fallback")
+    reg.gauge("format/input").set_info(
+        {"path": sib, "format": "fallback", "fallback_from": path,
+         "error": f"{type(exc).__name__}: {exc}"})
     logging.getLogger("sam2consensus_torch.formats").warning(
         "damaged BGZF container %s (%s); falling back to sibling %s",
         path, exc, sib)

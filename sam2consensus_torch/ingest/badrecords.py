@@ -2,10 +2,12 @@
 
 Copy of ``sam2consensus_tpu/ingest/badrecords.py`` (pinned by
 ``tests/test_torch_copies.py``: the sidecar bytes, the budget messages
-and the reason taxonomy), without the memory plane's residency calls
-(``memplane.adjust`` of the stored quarantine entries and their
-finalizer): the port has no memory plane yet (ROADMAP: the observability
-slice), and the sink registers no finalizer.
+and the reason taxonomy), with the memory plane's residency calls
+(``memplane.adjust`` of the stored quarantine entries).  The sink's
+finalizer takes no lock: it queues its release
+(``memplane.defer_release``), which the plane applies at its next drain,
+where the reference's finalizer adjusts the plane (and so takes the
+registry's lock) from inside the garbage collector.
 
 Every decode rung is strict-first-error by design — correct for byte
 identity against the reference oracle, but wrong for a serving fleet:
@@ -74,6 +76,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -244,6 +247,23 @@ def policy_from_config(cfg) -> BadRecordPolicy:
                            sidecar_max=max(0, sidecar_max))
 
 
+def _entry_nbytes(entry: dict) -> int:
+    """Approximate resident bytes of one stored quarantine entry (the
+    record text dominates; 160 covers the dict/key overhead): the memory
+    plane's sizing for the ``quarantine`` family."""
+    return len(entry.get("record") or "") \
+        + len(entry.get("error") or "") + 160
+
+
+def _release_quarantine(cell: dict) -> None:
+    """weakref finalizer: queue the release of whatever the sink still
+    tracked when it was collected (module-level, so it holds no sink
+    reference; takes no lock)."""
+    from ..observability import memplane
+
+    memplane.defer_release("quarantine", cell["bytes"])
+
+
 class _Partition:
     """One partition's bad-record state: counts always, stored entries
     only in quarantine mode (the skip mode still needs exact per-
@@ -280,6 +300,17 @@ class QuarantineSink:
         self._stored = 0              # entries held across all partitions
         self._hi: Optional[Tuple] = None   # cached max stored key
         self._hi_valid = True
+        # residency accounting (observability/memplane.py): the cell
+        # holds this sink's live quarantine bytes so the finalizer can
+        # release exactly what is still tracked when the sink goes away
+        self._mem_cell = {"bytes": 0}
+        weakref.finalize(self, _release_quarantine, self._mem_cell)
+
+    def _mem_adjust(self, delta: int) -> None:
+        from ..observability import memplane
+
+        self._mem_cell["bytes"] = max(0, self._mem_cell["bytes"] + delta)
+        memplane.adjust("quarantine", delta)
 
     # -- recording ---------------------------------------------------------
     def record(self, raw, exc: BaseException,
@@ -338,11 +369,15 @@ class QuarantineSink:
             return                      # count-only: past the window
         part.entries.append(entry)
         self._stored += 1
+        # residency accounting: the bounded sidecar window is the
+        # quarantine mode's one real in-process allocation
+        self._mem_adjust(_entry_nbytes(entry))
         if self._hi is None or key > self._hi:
             self._hi = key
         while self._stored > cap:
             hi_part = self._parts[self._hi]
-            hi_part.entries.pop()            # merge-order-last stored
+            evicted = hi_part.entries.pop()  # merge-order-last stored
+            self._mem_adjust(-_entry_nbytes(evicted))
             self._stored -= 1
             if not hi_part.entries:
                 self._hi = max((k for k, p in self._parts.items()
@@ -357,6 +392,8 @@ class QuarantineSink:
             if part is not None:
                 self._total -= part.count
                 self._stored -= len(part.entries)
+                self._mem_adjust(-sum(_entry_nbytes(e)
+                                      for e in part.entries))
                 self._hi_valid = False
 
     def reset(self) -> None:
@@ -366,6 +403,7 @@ class QuarantineSink:
             self._parts.clear()
             self._total = 0
             self._stored = 0
+            self._mem_adjust(-self._mem_cell["bytes"])
             self._hi = None
             self._hi_valid = True
 

@@ -25,22 +25,29 @@ from typing import List, Optional, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("binding.cpp", "pileup.cu", "insertion.cu")
+NAME = "s2c_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _EXTENSION = None
 
 
 def extension():
-    """The built extension module (built, or loaded, on the first call)."""
+    """The built extension module (built, or loaded, on the first call;
+    counted ``compile/persist_hit`` or ``compile/persist_miss`` by
+    ``observability.jitcache``)."""
     global _EXTENSION
     if _EXTENSION is None:
         from torch.utils.cpp_extension import load
 
+        from ..observability.jitcache import counted_load
+
         BUILD_DIR.mkdir(parents=True, exist_ok=True)   # load does not
-        _EXTENSION = load(
-            "s2c_torch_kernels", [str(CSRC / s) for s in SOURCES],
-            extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
-            build_directory=str(BUILD_DIR))
+        _EXTENSION = counted_load(
+            lambda: load(
+                NAME, [str(CSRC / s) for s in SOURCES],
+                extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
+                build_directory=str(BUILD_DIR)),
+            str(BUILD_DIR / f"{NAME}.so"))
     return _EXTENSION
 
 

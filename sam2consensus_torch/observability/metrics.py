@@ -3,9 +3,10 @@
 Copy of ``sam2consensus_tpu/observability/metrics.py`` (pinned by
 ``tests/test_torch_copies.py``): the store that the port's failure
 handling counts into (``resilience/*``, ``fault/*``, ``checkpoint/*``,
-``ingest/bad_records/*``, ``quarantine/*``).  ``TorchBackend.run`` pushes
-a fresh registry per run (``push_run`` / ``pop_run``) and copies its
-counters into ``stats.extra`` (``observability.publish_stats_extra``).
+``ingest/bad_records/*``, ``quarantine/*``), and everything else the
+run counts.  ``TorchBackend.run`` installs a fresh registry per run
+(``observability.start_run``, which calls ``push_run``) and copies its
+view into ``stats.extra`` (``observability.publish_stats_extra``).
 
 Without the reference's serve-side views (``Windowed``,
 ``window_values``, ``Histogram.merge``).  Three instrument kinds:

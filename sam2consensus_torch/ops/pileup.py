@@ -30,19 +30,28 @@ encode gate (``wire.encode_wire_slab``).  ``strategy`` and ``wire`` of a
 live :class:`PileupAccumulator` may be switched between batches (the
 degradation ladder's first rung), and :meth:`PileupAccumulator.counts_host`
 fetches the counts for the second.
+
+Observability, where the reference records it: each counted bucket is a
+``slab`` span (``pileup/slab_sec/<strategy>``, ``pileup/slabs``), the
+host counts' upload a ``counts_upload`` span, the link bytes
+``wire/h2d_bytes`` and ``wire/d2h_bytes``, and the memory plane tracks
+the ``counts``, ``counts_host`` and ``wire_staging`` families.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..constants import NUM_SYMBOLS, PAD_CODE
 from ..encoder.events import SegmentBatch
+from ..observability import memplane
 from ..resilience.faultinject import fault_check
 
 #: copy of ``sam2consensus_tpu/ops/mxu_pileup.TILE_POSITIONS``: the
@@ -254,6 +263,8 @@ class PileupAccumulator:
         fault_check("mem_alloc")
         self._counts = torch.zeros((self.padded_len, NUM_SYMBOLS),
                                    dtype=torch.int32, device=self.device)
+        memplane.track_obj("counts", self,
+                           self.padded_len * NUM_SYMBOLS * 4)
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._slots = [_PinnedSlot() for _ in range(self.SLOTS)]
@@ -299,6 +310,7 @@ class PileupAccumulator:
         if self.device.type != "cuda":
             return
         fault_check("device_put")
+        nbytes = 0
         with torch.cuda.device(self.device), self._stage_lock:
             for w, (starts, codes) in batch.buckets.items():
                 rows = self._host_rows(starts, codes)
@@ -310,6 +322,9 @@ class PileupAccumulator:
                 slot.wait()
                 batch.staged[w] = self._ship(slot, slot.fill(rows[0]),
                                              rows[1])
+                nbytes += sum(a.nbytes for a in rows[0])
+        # the staged rows on the card, released with the batch
+        memplane.track_obj("wire_staging", batch, nbytes)
 
     def _ship(self, slot: _PinnedSlot, pinned: list, meta) -> StagedRows:
         """Enqueue the pinned arrays' copies to the card on the copy
@@ -360,11 +375,20 @@ class PileupAccumulator:
         else:
             starts, codes = decode_slab(*operands, *meta)
             self._note("wire_delta8")
+        t0 = time.perf_counter()
         if self.strategy == "scatter":
             scatter_segments(self._counts, starts, codes, self.total_len)
         else:
             accumulate_rows(self._counts, starts, pack_codes(codes))
         self._note(f"{self.strategy}_w{codes.shape[1]}")
+        # the reference's per-slab records; on CUDA the span and the
+        # histogram time the enqueue, not the device's count
+        dt = time.perf_counter() - t0
+        obs.tracer().complete("slab", t0, strategy=self.strategy,
+                              n_rows=codes.shape[0], width=codes.shape[1])
+        reg = obs.metrics()
+        reg.observe(f"pileup/slab_sec/{self.strategy}", dt)
+        reg.add("pileup/slabs", 1)
 
     def _note(self, key: str) -> None:
         self.strategy_used[key] = self.strategy_used.get(key, 0) + 1
@@ -377,7 +401,10 @@ class PileupAccumulator:
         """The counts fetched to the host, ``[total_len, 6]`` int32 (a
         device-to-host copy that waits for the enqueued counts: the
         ladder's host rung and checkpoint writes)."""
-        return self.counts.cpu().numpy()
+        out = self.counts.cpu().numpy()
+        if self.device.type == "cuda":
+            obs.metrics().add("wire/d2h_bytes", out.nbytes)
+        return out
 
     def set_counts(self, counts) -> None:
         """Seed the counts (checkpoint resume): ``[total_len, 6]``."""
@@ -438,22 +465,31 @@ def host_pileup_bound(total_len: int, native_tail: bool = False,
     bound), ``native_tail`` and ``default``.  Past a table's last length
     the bound is that length, with no bytes.
     """
+    def _record(bound: int, max_bytes, reason: str):
+        # the decision ledger: the gate's bounds and why (a threshold,
+        # not a priced cost: no prediction, so no residual)
+        obs.record_decision(
+            "host_pileup_bound", str(bound),
+            inputs={"reason": reason, "native_tail": bool(native_tail),
+                    "link_free": bool(link_free), "max_bytes": max_bytes})
+        return bound, max_bytes, reason
+
     env = os.environ.get("S2C_HOST_PILEUP_MAX_LEN")
     if env:
         try:
-            return int(env), None, "env"
+            return _record(int(env), None, "env")
         except ValueError:
             raise RuntimeError(
                 f"S2C_HOST_PILEUP_MAX_LEN={env!r}: expected a plain "
                 f"integer position count (e.g. 8388608)") from None
     if native_tail and link_free:
-        return 1 << 62, None, "link_free"
+        return _record(1 << 62, None, "link_free")
     table = HOST_PILEUP_NATIVE_BOUNDS if native_tail else HOST_PILEUP_BOUNDS
     reason = "native_tail" if native_tail else "default"
     for max_len, max_bytes in table:
         if total_len <= max_len:
-            return max_len, max_bytes, reason
-    return (table[-1][0] if table else 0), 0, reason
+            return _record(max_len, max_bytes, reason)
+    return _record((table[-1][0] if table else 0), 0, reason)
 
 
 class HostPileupAccumulator:
@@ -476,6 +512,7 @@ class HostPileupAccumulator:
 
         self.total_len = total_len
         self._counts = np.zeros((total_len, NUM_SYMBOLS), dtype=np.int32)
+        memplane.track_obj("counts_host", self, self._counts.nbytes)
         self._lib = native.load()              # None -> numpy walk
         self._device_counts = None
         self._wire_itemsize = None
@@ -501,6 +538,7 @@ class HostPileupAccumulator:
             return
         flat = self._counts.reshape(-1)
         for w, (starts, codes) in sorted(batch.buckets.items()):
+            t0 = time.perf_counter()
             if self._lib is not None:
                 self._lib.s2c_accumulate_rows(
                     np.ascontiguousarray(starts),
@@ -513,6 +551,10 @@ class HostPileupAccumulator:
                 np.add.at(self._counts,
                           (pos[ok], codes[rows[ok], cols[ok]]), 1)
             self.strategy_used["host"] += 1
+            obs.tracer().complete("slab", t0, strategy="host",
+                                  n_rows=len(starts), width=w)
+            obs.metrics().observe("pileup/slab_sec/host",
+                                  time.perf_counter() - t0)
 
     def wire_itemsize(self) -> int:
         """Bytes a cell of the narrowed upload (a cached one-pass max):
@@ -532,18 +574,22 @@ class HostPileupAccumulator:
         if device.type == "cpu":
             return torch.from_numpy(self._counts)
         if self._device_counts is None:
-            fault_check("device_put")
-            it = self.wire_itemsize()
-            dtype = {1: torch.uint8, 2: torch.uint16, 4: torch.int32}[it]
-            pinned = torch.empty(self._counts.shape, dtype=dtype,
-                                 pin_memory=True)
-            pinned.copy_(torch.from_numpy(self._counts))
-            with torch.cuda.device(device):
-                self._device_counts = pinned.to(device, non_blocking=True)
-            self.strategy_used["host_wire_dtype"] = str(dtype).replace(
-                "torch.", "")
-            self.bytes_h2d += pinned.nbytes
-            self.uploads += 1
+            with obs.tracer().span("counts_upload"):
+                fault_check("device_put")
+                it = self.wire_itemsize()
+                dtype = {1: torch.uint8, 2: torch.uint16,
+                         4: torch.int32}[it]
+                pinned = torch.empty(self._counts.shape, dtype=dtype,
+                                     pin_memory=True)
+                pinned.copy_(torch.from_numpy(self._counts))
+                with torch.cuda.device(device):
+                    self._device_counts = pinned.to(device,
+                                                    non_blocking=True)
+                self.strategy_used["host_wire_dtype"] = str(dtype).replace(
+                    "torch.", "")
+                self.bytes_h2d += pinned.nbytes
+                self.uploads += 1
+                obs.metrics().add("wire/h2d_bytes", pinned.nbytes)
         return self._device_counts
 
     def counts_host(self) -> np.ndarray:

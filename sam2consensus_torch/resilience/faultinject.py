@@ -2,8 +2,9 @@
 
 Copy of ``sam2consensus_tpu/resilience/faultinject.py`` (pinned by
 ``tests/test_torch_copies.py``: the sites, the spec grammar, its errors
-and the seeded coin), without the tracer event a firing rule also emits
-there; the ``fault/injected`` counters are kept.  The port fires
+and the seeded coin); a firing rule counts ``fault/injected`` and
+``fault/injected/<site>`` and emits a ``fault/injected`` trace event.
+The port fires
 ``device_put``, ``pileup_dispatch``, ``accumulate``, ``vote``,
 ``insertion_build``, ``link_probe``, ``wire_encode``, ``bam_inflate``,
 ``ingest_decode_shard`` and ``mem_alloc`` at the places the reference
@@ -233,6 +234,8 @@ class FaultInjector:
             reg = obs.metrics()
             reg.add("fault/injected", 1)
             reg.add(f"fault/injected/{site}", 1)
+            obs.tracer().event("fault/injected", site=site,
+                               kind=rule.kind, call=n)
             raise exc
 
 

@@ -4,8 +4,10 @@ Port of ``sam2consensus_tpu/resilience/ladder.py``: ``pileup_level``,
 ``demote_pileup``, ``demote_tail``, ``demote_tail_and_record``,
 ``split_batch`` and ``ResilientDispatcher``, bound to the port's
 accumulators (``ops.pileup.PileupAccumulator`` and
-``HostPileupAccumulator``), without the tracer events and the memory
-plane's capacity readings (the counters and gauges are kept).
+``HostPileupAccumulator``), with the reference's counters, gauges and
+trace events (``resilience/demotion``, ``resilience/emergency_checkpoint``,
+``resilience/capacity_split`` with the memory plane's
+``capacity_actuals``).
 
 Accumulation rungs (top = fastest, bottom = most survivable)::
 
@@ -85,6 +87,9 @@ def _record_demotion(stage: str, frm: str, to: str, reason: str,
     reg.gauge(f"resilience/ladder/{stage}").set_info(
         {"from": frm, "to": to, "reason": reason,
          "emergency_checkpoint": bool(checkpointed)})
+    obs.tracer().event("resilience/demotion", stage=stage,
+                       **{"from": frm, "to": to}, reason=reason,
+                       emergency_checkpoint=bool(checkpointed))
 
 
 def _cannot_demote(stage: str, frm: str, exc: BaseException,
@@ -165,6 +170,8 @@ def demote_tail_and_record(acc, total_len: int, exc: BaseException,
             checkpoint_cb(acc)
             checkpointed = True
             obs.metrics().add("resilience/emergency_checkpoints", 1)
+            obs.tracer().event("resilience/emergency_checkpoint",
+                               stage="tail", level="host")
         acc = demote_tail(acc, total_len)
     except BaseException as why:
         raise _cannot_demote("tail", frm, exc, why) from exc
@@ -249,8 +256,19 @@ class ResilientDispatcher:
                 raise exc              # nothing left to split
             reg = obs.metrics()
             reg.add("resilience/capacity_splits", 1)
+            # the capacity model's prediction beside the tracked, process
+            # and device residency when the rung fired
+            from ..observability import memplane
+
+            actuals = memplane.capacity_actuals(
+                getattr(self._acc, "device", None))
             reg.gauge("resilience/capacity_split").set_info(
-                {"depth": depth, "error": f"{type(exc).__name__}: {exc}"})
+                {"depth": depth, "error": f"{type(exc).__name__}: {exc}",
+                 **actuals})
+            obs.tracer().event("resilience/capacity_split", depth=depth,
+                               error=f"{type(exc).__name__}: {exc}",
+                               **{k: v for k, v in actuals.items()
+                                  if v is not None})
             for part in parts:
                 self._dispatch_unit(part, depth + 1)
 
@@ -324,6 +342,9 @@ class ResilientDispatcher:
                 self.checkpoint_cb(acc)
                 checkpointed = True
                 obs.metrics().add("resilience/emergency_checkpoints", 1)
+                obs.tracer().event("resilience/emergency_checkpoint",
+                                   stage="pileup",
+                                   level=self._pending[-1][1])
             for frm, level, exc in self._pending:
                 _record_demotion("pileup", frm, level,
                                  f"{type(exc).__name__}: {exc}",

@@ -1,8 +1,8 @@
 """Retry policy for device dispatches: classify, back off, retry.
 
 Copy of ``sam2consensus_tpu/resilience/policy.py`` (pinned by
-``tests/test_torch_copies.py``), without its tracer events.  The one
-place it differs is :func:`classify`, which reads torch's error shapes
+``tests/test_torch_copies.py``), with its ``resilience/retry`` trace
+event.  The one place it differs is :func:`classify`, which reads torch's error shapes
 besides the reference's:
 
 * ``torch.cuda.OutOfMemoryError`` ("CUDA out of memory. Tried to
@@ -235,7 +235,8 @@ class RetryPolicy:
         they retry like transients (the allocator may simply have been
         fragmented by a peer).  FATAL and PASSTHROUGH raise immediately.
         Every retry is recorded: the ``resilience/retries`` and
-        ``resilience/retries/<site>`` counters.
+        ``resilience/retries/<site>`` counters and a ``resilience/retry``
+        trace event.
         """
         from .. import observability as obs
 
@@ -263,6 +264,10 @@ class RetryPolicy:
                 reg = obs.metrics()
                 reg.add("resilience/retries", 1)
                 reg.add(f"resilience/retries/{site}", 1)
+                obs.tracer().event("resilience/retry", site=site,
+                                   kind=kind, attempt=attempt,
+                                   delay_s=round(d, 4),
+                                   error=f"{type(exc).__name__}: {exc}")
                 if d > 0:
                     sleep(d)
         raise RetriesExhausted(

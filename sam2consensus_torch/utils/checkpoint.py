@@ -1,8 +1,8 @@
 """Checkpoint/resume for the streaming consensus job.
 
 Copy of ``sam2consensus_tpu/utils/checkpoint.py`` (pinned by
-``tests/test_torch_copies.py``), without its tracer event: the ``.npz``
-file is the same file (the same keys, ``meta`` layout, crc32 ``digest``
+``tests/test_torch_copies.py``), with its ``checkpoint/corrupt`` counter
+and trace event: the ``.npz`` file is the same file (the same keys, ``meta`` layout, crc32 ``digest``
 and atomic rename), so a checkpoint written by either package resumes in
 the other.
 
@@ -130,6 +130,7 @@ def _corrupt(path: str, why: str) -> None:
     from .. import observability as obs
 
     obs.metrics().add("checkpoint/corrupt", 1)
+    obs.tracer().event("checkpoint/corrupt", path=path, reason=why)
     logger.warning(
         "checkpoint at %s is unusable (%s): resuming from scratch — the "
         "corrupt file is left in place for forensics and will be "

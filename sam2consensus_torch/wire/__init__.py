@@ -5,7 +5,10 @@ link bill (:class:`WireAccount`).
 The account is the port's form of the reference's ``account_h2d``,
 ``account_wire`` and ``wire/fallback_slabs`` metrics
 (``sam2consensus_tpu/wire/__init__.py``, ``ops/pileup.py``): the backend
-copies it into ``stats.extra`` (:meth:`WireAccount.extra`).
+copies it into ``stats.extra`` (:meth:`WireAccount.extra`), and each slab
+also lands in the run's registry under the reference's names
+(``wire/bytes``, ``wire/raw_bytes``, ``wire/slabs/<codec>``,
+``wire/h2d_bytes``, ``wire/fallback_slabs``).
 """
 
 from __future__ import annotations
@@ -33,10 +36,18 @@ class WireAccount:
         self.fallback_slabs = 0
 
     def add(self, codec: str, nbytes: int, n_rows: int, width: int) -> None:
+        from .. import observability as obs
+
+        raw = packed5_slab_bytes(n_rows, width)
         self.bytes += int(nbytes)
         self.rows_bytes += n_rows * (4 + width)
-        self.packed5_bytes += packed5_slab_bytes(n_rows, width)
+        self.packed5_bytes += raw
         self.slabs[codec] = self.slabs.get(codec, 0) + 1
+        reg = obs.metrics()
+        reg.add("wire/bytes", int(nbytes))
+        reg.add("wire/raw_bytes", raw)
+        reg.add(f"wire/slabs/{codec}", 1)
+        reg.add("wire/h2d_bytes", int(nbytes))
 
     def extra(self) -> dict:
         """The ``stats.extra`` keys: ``h2d_bytes``, ``wire_rows_bytes``,
@@ -63,6 +74,9 @@ def encode_wire_slab(wire: str, starts: np.ndarray, codes: np.ndarray,
     fault_check("wire_encode")
     slab = encode_slab(*canonicalize_rows(starts, codes))
     if slab is None or not worthwhile(slab):
+        from .. import observability as obs
+
         account.fallback_slabs += 1
+        obs.metrics().add("wire/fallback_slabs", 1)
         return None
     return slab

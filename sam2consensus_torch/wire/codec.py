@@ -292,6 +292,23 @@ def modeled_wire_ratio(codec: str) -> float:
     return _PACKED5_BPC / max(_PACKED5_BPC - SAVED_BYTES_PER_CELL, 1e-9)
 
 
+#: the raw rows' wire bytes a cell at that shape (int32 starts and uint8
+#: codes, ``4 + W`` bytes a row): the port's packed5 wire
+_ROWS_BPC = 132.0 / 128.0
+
+
+def modeled_rows_ratio(codec: str) -> float:
+    """The compression ratio (packed5-equivalent bytes / shipped bytes)
+    the port's gate assumes for ``codec`` at the representative shape:
+    the raw rows under packed5, and under delta8 the rows less
+    :data:`ROWS_SAVED_BYTES_PER_CELL`.  The ``wire_codec`` decision's
+    prediction, joined against the measured ``wire/raw_bytes /
+    wire/bytes``."""
+    if codec != "delta8":
+        return _PACKED5_BPC / _ROWS_BPC
+    return _PACKED5_BPC / max(_ROWS_BPC - ROWS_SAVED_BYTES_PER_CELL, 1e-9)
+
+
 def wire_auto_cutoff_bps() -> float:
     """Link rate below which ``--wire auto`` picks delta8: the rate at
     which the bytes it saves a cell (:data:`ROWS_SAVED_BYTES_PER_CELL`)

@@ -9,6 +9,7 @@ copy is code rather than data).
 import dataclasses
 import io
 import os
+import time
 
 import numpy as np
 import pytest
@@ -772,3 +773,290 @@ def test_cli_failure_flags():
                 for f in flags]
 
     assert table(t_cli.build_parser()) == table(r_cli.build_parser())
+
+
+# -- observability (the tracer, exports, ledger, manifest, memory plane,
+# -- rate card, logging, link probe, kernel-build cache) -------------------
+def _obs_modules(name):
+    import importlib
+
+    return tuple(importlib.import_module(f"{pkg}.observability.{name}")
+                 for pkg in ("sam2consensus_torch", "sam2consensus_tpu"))
+
+
+def test_cli_observability_flags():
+    """The six observability flags: the reference's names, dests,
+    defaults, choices and help (``--profile-dir`` names torch.profiler,
+    not jax.profiler)."""
+    from sam2consensus_torch import cli as t_cli
+    from sam2consensus_tpu import cli as r_cli
+
+    flags = ("--json-metrics", "--profile-dir", "--trace-out",
+             "--metrics-out", "--log-level", "--log-format")
+
+    def table(parser):
+        acts = {s: a for a in parser._actions for s in a.option_strings}
+        rows = []
+        for f in flags:
+            a = acts[f]
+            help_ = a.help
+            if f == "--profile-dir":
+                help_ = "profiler" in help_ and "directory" in help_
+            rows.append((f, a.dest, a.default, a.choices, a.type, help_))
+        return rows
+
+    assert table(t_cli.build_parser()) == table(r_cli.build_parser())
+
+
+def test_trace_copy():
+    t_tr, r_tr = _obs_modules("trace")
+    assert t_tr.Span.__slots__ == r_tr.Span.__slots__
+    pub = {n for n in dir(r_tr.Tracer) if not n.startswith("__")}
+    assert pub == {n for n in dir(t_tr.Tracer) if not n.startswith("__")}
+
+
+def _record(trace_mod):
+    tr = trace_mod.Tracer(enabled=True)
+    tr.name_thread("main")
+    with tr.span("outer", k=1) as sp:
+        sp.event("inside", x=np.int64(2))
+        with tr.span("inner"):
+            pass
+    tr.event("top", chosen="cpu")
+    tr.complete("done", time.perf_counter() - 0.001, rows=3)
+    return tr
+
+
+def test_export_copy():
+    t_ex, r_ex = _obs_modules("export")
+    t_tr, r_tr = _obs_modules("trace")
+
+    def shape(events):
+        return [(e["ph"], e["name"], e.get("args"), e.get("s"))
+                for e in events]
+
+    got = t_ex.chrome_trace_events(_record(t_tr), pid=1)
+    want = r_ex.chrome_trace_events(_record(r_tr), pid=1)
+    assert sorted(map(repr, shape(got))) == sorted(map(repr, shape(want)))
+    for value in (np.int32(3), np.float64(0.5), np.arange(3), object):
+        got, want = t_ex._json_default(value), r_ex._json_default(value)
+        assert got == want or (value is object and isinstance(got, str))
+
+
+@pytest.mark.parametrize("spec,counters", [
+    ({"counters": ["a", "b"]}, {"a": 1.0, "b": 2.0}),
+    ({"counters": ["z"]}, {"a": 1.0}),
+    ({"num": ["a"], "den": ["b"]}, {"a": 6.0, "b": 2.0}),
+    ({"num": ["a"], "den": ["b"]}, {"a": 6.0}),
+    ({"num": ["a"], "den": ["b"], "min_num": 10}, {"a": 6.0, "b": 2.0}),
+    ("bad", {}),
+])
+def test_ledger_eval_measured(spec, counters):
+    t_l, r_l = _obs_modules("ledger")
+    assert t_l._eval_measured(spec, counters) == \
+        r_l._eval_measured(spec, counters)
+
+
+def test_ledger_copy(monkeypatch):
+    t_l, r_l = _obs_modules("ledger")
+    for name in ("DEFAULT_DRIFT_BAND", "DEFAULT_DRIFT_MIN_SEC"):
+        assert getattr(t_l, name) == getattr(r_l, name)
+    for band in ("0.5", "3", "x"):
+        monkeypatch.setenv("S2C_DRIFT_BAND", band)
+        monkeypatch.setenv("S2C_DRIFT_MIN_SEC", band)
+        assert t_l.drift_band() == r_l.drift_band()
+        assert t_l.drift_min_sec() == r_l.drift_min_sec()
+    monkeypatch.delenv("S2C_DRIFT_BAND")
+    monkeypatch.delenv("S2C_DRIFT_MIN_SEC")
+    out = []
+    for led_mod, obs_pkg in ((t_l, "sam2consensus_torch"),
+                             (r_l, "sam2consensus_tpu")):
+        import importlib
+
+        m = importlib.import_module(f"{obs_pkg}.observability.metrics")
+        reg = m.MetricsRegistry()
+        reg.add("phase/vote_sec", 0.5)
+        reg.add("wire/bytes", 9e6)
+        reg.add("phase/stage_sec", 1.0)
+        led = led_mod.DecisionLedger()
+        led.record("tail_placement", "cpu", inputs={"n": 1},
+                   predicted={"sec": 0.1, "none": None},
+                   alternatives={"cpu": 0.1},
+                   measured={"sec": {"counters": ["phase/vote_sec"]}},
+                   provenance={"source": "default", "key": "k"})
+        led.record("link_constants", "probed", predicted={"bps": 1e6},
+                   measured={"bps": {"num": ["wire/bytes"],
+                                     "den": ["phase/stage_sec"]}}, band=0)
+        recs = led_mod.finalize(led, reg)
+        snap = reg.snapshot()
+        out.append(([r.to_dict() for r in recs], snap))
+    assert out[0] == out[1]
+
+
+def test_manifest_copy():
+    t_m, r_m = _obs_modules("manifest")
+    assert t_m.SCHEMA == r_m.SCHEMA and t_m._ENV_PREFIXES == \
+        r_m._ENV_PREFIXES
+    assert t_m._ENV_EXACT == ("CUDA_VISIBLE_DEVICES",
+                              "PYTORCH_CUDA_ALLOC_CONF",
+                              "TORCH_CUDA_ARCH_LIST")
+    assert t_m.manifest_path_for("a/m.jsonl") == \
+        r_m.manifest_path_for("a/m.jsonl")
+    t_met, r_met = _obs_modules("metrics")
+    mans = []
+    for man, met in ((t_m, t_met), (r_m, r_met)):
+        reg = met.MetricsRegistry()
+        reg.add("phase/decode_sec", 0.25)
+        reg.add("wire/bytes", 10)
+        reg.add("mem/peak_tracked_bytes", 99)
+        reg.add("ingest/bad_records", 2)
+        reg.add("drift/events", 1)
+        reg.gauge("mem/rss_mb").set(5.0)
+        reg.gauge("quarantine/summary").set_info({"mode": "skip"})
+        m = man.build_manifest(reg, [], meta={"backend": "x"},
+                               config={"a": 1}, artifacts={})
+        for key in ("created_unix", "git", "env_overrides", "link"):
+            m.pop(key)
+        mans.append(m)
+    assert mans[0] == mans[1]
+
+
+def test_telemetry_copy(tmp_path):
+    import logging
+
+    t_t, r_t = _obs_modules("telemetry")
+    t_tr, r_tr = _obs_modules("trace")
+    for tel in (t_t, r_t):
+        p = tmp_path / f"{tel.__name__}.txt"
+        tel.atomic_write_text(str(p), "x\ny")
+        assert p.read_text() == "x\ny"
+    rec = logging.LogRecord("lg", logging.WARNING, __file__, 1, "m %s",
+                            ("a",), None)
+    lines = []
+    for tel, tr in ((t_t, t_tr), (r_t, r_tr)):
+        tel.set_log_context(job_id="j", tenant=None)
+        try:
+            with tr.Tracer(enabled=True).span("s"):
+                lines.append(tel.JsonLogFormatter().format(rec))
+            assert tel.get_log_context() == {"job_id": "j"}
+        finally:
+            tel.set_log_context()
+    assert lines[0] == lines[1]
+
+
+def test_ratecard_copy():
+    t_rc, r_rc = _obs_modules("ratecard")
+    for name in ("SCHEMA", "RATE_KEYS", "DEFAULT_ALPHA",
+                 "DEFAULT_MIN_SAMPLES", "MIN_WIRE_BYTES"):
+        assert getattr(t_rc, name) == getattr(r_rc, name)
+    assert t_rc.max_age_sec() == r_rc.max_age_sec()
+    assert t_rc.min_samples() == r_rc.min_samples()
+    snap = {"counters": {"phase/decode_sec": 0.5, "pileup/cells": 2e6,
+                         "phase/pileup_dispatch_sec": 0.1,
+                         "phase/vote_sec": 0.2, "wire/bytes": 5e6,
+                         "phase/stage_sec": 0.05},
+            "gauges": {"residual/capacity/bytes": {"value": 0.4}}}
+    out = []
+    for rc in (t_rc, r_rc):
+        card = rc.RateCard(worker="w")
+        card.created_unix = 0.0
+        seen = card.observe_job(snap, 2.0, input_bytes=int(1e8),
+                                decode_cores=2, now=100.0)
+        for x in (3.0, -1.0, float("nan"), 5.0):
+            card.observe("link_bps", x, now=101.0)
+        out.append((seen, card.to_blob(now=102.0), card.snapshot(now=102.0),
+                    card.consult("link_bps", 1.0, now=102.0)))
+    assert out[0] == out[1]
+
+
+def test_memplane_copy():
+    t_mp, r_mp = _obs_modules("memplane")
+    for name in ("MEM_DUMP_SCHEMA", "MEM_DUMP_NAME", "HISTORY_CAP"):
+        assert getattr(t_mp, name) == getattr(r_mp, name)
+    assert set(t_mp.FAMILIES) <= set(r_mp.FAMILIES)
+    batch = t_events.SegmentBatch(
+        buckets={32: (np.zeros(4, np.int32), np.zeros((4, 32), np.uint8))})
+    assert t_mp.batch_nbytes(batch) == r_mp.batch_nbytes(batch) == 144
+    cur, peak = t_mp.rss_bytes()
+    assert cur >= 0 and peak > 0
+    for mod in (t_mp, r_mp):
+        mod._reset_for_tests()
+    assert set(t_mp.summary()) == set(r_mp.summary())
+    for mod in (t_mp, r_mp):
+        mod._reset_for_tests()
+
+
+def test_linkprobe_copy(monkeypatch):
+    from sam2consensus_torch.utils import linkprobe as t_lp
+    from sam2consensus_tpu.utils import linkprobe as r_lp
+
+    assert t_lp.PROBE_BYTES == r_lp.PROBE_BYTES
+    for age in (None, "60"):
+        if age is None:
+            monkeypatch.delenv("S2C_LINK_CACHE_MAX_AGE", raising=False)
+        else:
+            monkeypatch.setenv("S2C_LINK_CACHE_MAX_AGE", age)
+        assert t_lp.cache_max_age() == r_lp.cache_max_age()
+    t_lp._reset_for_tests()
+    r_lp._reset_for_tests()
+    assert t_lp.link_info() == r_lp.link_info()
+
+
+def test_jitcache_counter_names():
+    t_jc, r_jc = _obs_modules("jitcache")
+    assert set(r_jc._EVENT_COUNTERS.values()) == {
+        "compile/persist_hit", "compile/persist_miss"}
+
+
+def test_publish_stats_extra_copy():
+    """The port's view equals the reference's on a registry that holds
+    every family, when the backend set none of the keys itself."""
+    from sam2consensus_torch import observability as t_obs
+    from sam2consensus_tpu import observability as r_obs
+
+    extras = []
+    for obs in (t_obs, r_obs):
+        robs = obs.start_run()
+        try:
+            reg = obs.metrics()
+            for name, v in (("phase/decode_sec", 0.123456),
+                            ("resilience/retries", 2.0),
+                            ("wire/bytes", 10.0), ("wire/ratio", 0.12345),
+                            ("mem/peak_tracked_bytes", 7.0),
+                            ("reads/mapped", 3.0)):
+                reg.add(name, v)
+            reg.gauge("dispatch/pileup").set_info({"path": "device"})
+            reg.gauge("residual/wire_codec/ratio").set(0.5)
+            reg.gauge("residual/wire_codec").set_info({"x": 1})
+            reg.gauge("mem/peak_rss_mb").set(12.5)
+            reg.gauge("mem/live_bytes/counts").set(4.0)
+            extra = {}
+            obs.publish_stats_extra(extra)
+            extras.append(extra)
+        finally:
+            obs.finish_run(robs)
+    assert extras[0] == extras[1]
+    kept = {"pileup_path": "host", "decode_sec": 9.0}
+    from sam2consensus_torch import observability as t_obs
+
+    robs = t_obs.start_run()
+    try:
+        t_obs.metrics().add("phase/decode_sec", 1.0)
+        t_obs.metrics().gauge("dispatch/pileup").set_info({"path": "d"})
+        t_obs.publish_stats_extra(kept)
+    finally:
+        t_obs.finish_run(robs)
+    assert kept == {"pileup_path": "host", "decode_sec": 9.0}
+
+
+@pytest.mark.parametrize("level,fmt", [("loud", "text"), (None, "xml")])
+def test_configure_logging_errors(level, fmt):
+    from sam2consensus_torch import observability as t_obs
+    from sam2consensus_tpu import observability as r_obs
+
+    msgs = []
+    for obs in (t_obs, r_obs):
+        with pytest.raises(SystemExit) as exc:
+            obs.configure_logging(level, fmt)
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1]

@@ -653,10 +653,7 @@ def test_linkprobe_injected_fault_falls_back():
 
 # ---------------------------------------- unported RunConfig fields --
 @pytest.mark.parametrize("field,value", [
-    ("shards", 2), ("shard_mode", "dp"), ("profile_dir", "prof"),
-    ("json_metrics", "m.json"), ("trace_out", "t.json"),
-    ("metrics_out", "m.jsonl"), ("log_level", "info"),
-    ("log_format", "json")])
+    ("shards", 2), ("shard_mode", "dp")])
 def test_unported_field_is_refused(field, value):
     handle = io.StringIO(TEXT)
     contigs, _n, first = t_read_header(handle)
