@@ -148,7 +148,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    at the backend's sample (the peak reset before the run), JSON log
    lines; the three walls side by side, the capacity prediction against
    the tracked and allocator peaks, and ``ecoli_scale``'s device idle
-   share in its profile.
+   share in its profile;
+12. the warm server (``serve/``): (1) one queue of four full-size jobs
+   (``ecoli_scale``, ``longread_sv``, ``ecoli_scale`` as BAM,
+   ``amplicon_deep``) through ``cli.main(["serve", ...])`` at ``-c 0.25
+   --pileup pallas``, with the launch counts set to 0 just before it and
+   read just after (every kernel must have launched): each job's FASTA
+   and K1 / K2 / K3 launches equal to its one-shot run's, the prewarm's
+   all-PAD K1 launches on its own thread and ``compile/prewarm_shapes``
+   in the server's registry, no job loading the kernels
+   (``compile/persist_*``), ``serve/overlap_sec`` > 0 on jobs 2-4,
+   ``torch.cuda.memory_allocated()`` within 1 MiB after each job of its
+   value before job 1, each job's wall beside its cold one-shot wall; the
+   prewarm's counts over all-PAD rows zero; the first job's wall with and
+   without prewarm; (2) the queue under ``--trace-out --telemetry-port
+   0``: ``/metrics`` linted and ``/healthz`` (naming the job in flight)
+   read at each job's finalize, and each job's host synchronisations
+   equal to its traced one-shot run's; the queue's device idle share
+   under one ``torch.profiler`` window; (3) ``ServeRunner.submit_jobs``
+   with ``job_hang:timeout:0:1`` on job 1 (``S2C_FAULT_HANG_S=30``,
+   ``stall_timeout=2``): only job 1 fails, then under ``--on-device-error
+   fallback`` it retries on the host rung (``job_rungs``), jobs matching
+   phase 7 and job 2 back on K1, the device memory the abandoned thread
+   pins printed; (4) a journaled ``ServeRunner`` in a process of its own
+   over three full-size jobs, SIGKILLed while job 2 hangs with job 1
+   committed, then a second process without the fault: outputs equal to
+   phase 7, the journal's audit clean, job 1 skipped by fingerprint; (5)
+   the ``capture_profile`` touch file dropped as job 1 starts arms a
+   bounded ``torch.profiler`` window whose trace holds
+   ``pileup_rows_kernel``.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -186,6 +214,11 @@ HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 #: ``ecoli_scale``'s genome length (``bench.py:178-181``)
 ECOLI_LEN = 4_600_000
+#: phase 7's default CUDA runs by input (``ecoli_scale``,
+#: ``amplicon_deep``, ``longread_sv``, ``ecoli_scale.bam``): the path, the
+#: flags, the output directory, the cold wall and each kernel's launches,
+#: which phase 12's warm server is held against
+PHASE7 = {}
 
 
 def fail(msg: str) -> None:
@@ -764,6 +797,9 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         ev = {n: sum(s.elapsed_time(e) for s, e in pairs)
               for n, pairs in events.items()}
         launched = {k.name: k.launches - before[k.name] for k in kernels}
+        PHASE7[name] = {"path": path, "flags": flags, "wall": wall,
+                        "launched": launched,
+                        "out": os.path.join(tmp, name + "_cuda")}
         mem = torch.cuda.max_memory_allocated() / 2**20
         cpu_wall = run_cli(["-i", path, "-o", os.path.join(tmp, name + "_cpu"),
                             *flags, "--decoder", "py", "--pileup", "pallas"],
@@ -1110,6 +1146,7 @@ def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
     others and the SAM run's."""
     from sam2consensus_torch.formats.bam import sam_text_to_bam
     from sam2consensus_torch.formats.bgzf import BgzfReader
+    from sam2consensus_torch.kernels.build import all_kernels
     from sam2consensus_torch.ops.pileup_kernel import K1
 
     t0 = time.perf_counter()
@@ -1124,9 +1161,15 @@ def bam_runs(tmp: str, card: str, cap: Capture, text: str, sam_path: str,
                                      ("cpu", "1", "py")):
         out = os.path.join(tmp, f"ecoli_bam_{device}_{threads}")
         k1_before = K1.launches
+        before = {k.name: k.launches for k in all_kernels()}
         wall = run_cli(["-i", bam, "-o", out, *flags, "--decode-threads",
                         threads, "--decoder", decoder, "--pileup", "pallas"],
                        device)
+        if device is None and threads == "1":
+            PHASE7["ecoli_scale.bam"] = {
+                "path": bam, "flags": flags, "wall": wall, "out": out,
+                "launched": {k.name: k.launches - before[k.name]
+                             for k in all_kernels()}}
         decoder_of(cap, decoder)
         st = cap.stats[-1]
         dec = st.extra["decode_sec"]
@@ -1298,7 +1341,13 @@ def counted_syncs():
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
+            # the counts so far, for a caller that splits the block
+            seen["now"] = lambda: {
+                "warned": sum("synchroniz" in str(w.message)
+                              for w in caught),
+                "synchronize": seen["synchronize"]}
             yield seen
+        del seen["now"]
         seen["warned"] = sum("synchroniz" in str(w.message)
                              for w in caught)
     finally:
@@ -2226,6 +2275,587 @@ def observability_runs(tmp: str, card: str, cap: Capture,
             fail(f"phase 11: {name}: --log-format json did not log JSON")
 
 
+# -- phase 12: the warm server ---------------------------------------------
+#: phase 12's queue, in order: three of phase 7's inputs and ecoli_scale as
+#: BAM, so one warm server runs K1, K2 and K3.  The first job decodes for
+#: itself, so its first dispatch waits on its decode and only a long
+#: decode ahead (longread_sv's) is sure to span it: amplicon_deep's 16 ms
+#: decode can end before ecoli_scale's first enqueue.  A job decoded
+#: ahead dispatches as it starts, under the next job's open and decode
+PHASE12_QUEUE = ("ecoli_scale", "longread_sv", "ecoli_scale.bam",
+                 "amplicon_deep")
+
+#: a journaled server over three full-size jobs in a process of its own
+#: (phase 12.4): argv is a JSON list of [path, flags] pairs, the output
+#: directory, the journal and whether job 2 hangs on a job_hang fault
+JOURNAL_DRIVER = r"""
+import json, sys
+from sam2consensus_torch import cli
+from sam2consensus_torch.serve import JobSpec, ServeRunner
+jobs, out, jdir, hang = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+specs = []
+for k, (path, flags) in enumerate(jobs):
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-i", path, "-o", out, *flags, "--decoder", "native",
+         "--pileup", "pallas"]
+        + (["--fault-inject", "job_hang:timeout:0:1"]
+           if hang == "1" and k == 1 else [])))
+    specs.append(JobSpec(path, cfg))
+runner = ServeRunner(journal_dir=jdir)
+try:
+    results = runner.submit_jobs(specs)
+finally:
+    runner.close()
+print(json.dumps([[r.job_id, r.ok, r.resumed, r.error] for r in results]))
+sys.exit(0 if all(r.ok for r in results) else 1)
+"""
+
+
+def serve_argv(out: str, names=PHASE12_QUEUE, extra=()) -> list:
+    """``serve`` over phase 7's inputs: one shared flag set, so each
+    input's own phase-7 flags must agree with the queue's (``-c`` and
+    ``-m`` are per-job in phase 12.3-12.4, through ``JobSpec``)."""
+    argv = ["serve"]
+    for name in names:
+        argv += ["-i", PHASE7[name]["path"]]
+    return argv + ["-o", out, "--decoder", "native", "--pileup", "pallas",
+                   "--quiet", *extra]
+
+
+def job_config(name: str, out: str, *extra):
+    """The ``RunConfig`` of ``name``'s phase-7 run, written into ``out``."""
+    from sam2consensus_torch import cli
+
+    return cli.config_from_args(cli.build_parser().parse_args(
+        ["-i", PHASE7[name]["path"], "-o", out, *PHASE7[name]["flags"],
+         "--decoder", "native", "--pileup", "pallas", *extra]))
+
+
+def phase7_files(names) -> dict:
+    """Phase 7's output files of ``names``, by file name."""
+    files = {}
+    for name in names:
+        files.update(served_files(PHASE7[name]["out"]))
+    return files
+
+
+def served_files(out: str) -> dict:
+    return {f: open(os.path.join(out, f)).read()
+            for f in sorted(os.listdir(out))}
+
+
+@contextlib.contextmanager
+def served_jobs():
+    """Per served job: each kernel's launches (``Kernel.launch`` counted
+    by thread, so the prewarm thread's all-PAD launches stay apart; a job
+    runs on the runner's thread or, under the watchdog, on its own
+    ``serve-job-<id>`` thread), the wall, the device's allocated bytes
+    after the job (prewarm joined first) and its ``JobResult``.  Yields
+    ``(jobs, by_thread, hooks)``; each of ``hooks`` runs at a job's
+    finalize, before the runner's own (on the runner's thread, with the
+    job still in flight)."""
+    from sam2consensus_torch.kernels.build import Kernel, all_kernels
+    from sam2consensus_torch.serve.runner import ServeRunner
+
+    jobs, by_thread, hooks = [], {}, []
+    orig_launch = Kernel.launch
+    orig_execute = ServeRunner._execute
+    orig_finalize = ServeRunner._finalize_job
+    lock = threading.Lock()
+
+    def launch(self, *args):
+        before = self.launches
+        orig_launch(self, *args)
+        with lock:
+            d = by_thread.setdefault(threading.current_thread().name, {})
+            d[self.name] = d.get(self.name, 0) + self.launches - before
+
+    def execute(self, contigs, records, cfg, robs, dlog, job_id):
+        names = (threading.current_thread().name, f"serve-job-{job_id}")
+
+        def count():
+            with lock:
+                return {k.name: sum(by_thread.get(n, {}).get(k.name, 0)
+                                    for n in names) for k in all_kernels()}
+
+        before = count()
+        try:
+            return orig_execute(self, contigs, records, cfg, robs, dlog,
+                                job_id)
+        finally:
+            after = count()
+            jobs.append({"job": job_id, "launched": {
+                k: after[k] - before[k] for k in after}})
+
+    def finalize(self, entry, res, robs, spec, queue_wait):
+        for hook in hooks:
+            hook(self, entry, res)
+        orig_finalize(self, entry, res, robs, spec, queue_wait)
+        for th in list(self._prewarm_threads):
+            th.join()
+        rec = next((j for j in jobs if j["job"] == res.job_id
+                    and "result" not in j), None)
+        if rec is None:
+            rec = {"job": res.job_id, "launched": {}}
+            jobs.append(rec)
+        rec.update(result=res, wall=res.elapsed_sec,
+                   mem=torch.cuda.memory_allocated(),
+                   prewarm_shapes=self.registry.value(
+                       "compile/prewarm_shapes"))
+
+    Kernel.launch = launch
+    ServeRunner._execute = execute
+    ServeRunner._finalize_job = finalize
+    try:
+        yield jobs, by_thread, hooks
+    finally:
+        Kernel.launch = orig_launch
+        ServeRunner._execute = orig_execute
+        ServeRunner._finalize_job = orig_finalize
+
+
+def cli_quiet(argv) -> int:
+    """``cli.main(argv)`` on CUDA with its output swallowed."""
+    from sam2consensus_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cli.main(argv, None)
+
+
+def warm_queue(tmp: str, card: str) -> None:
+    """Phase 12.1: one warm queue of four jobs through
+    ``cli.main(["serve", ...])`` at ``-c 0.25``; per job the bytes and
+    each kernel's launches of its one-shot run at the same flags
+    (phase 7's run where phase 7 used them, else a cold one-shot run
+    here), the overlap, the memory after the job, the walls warm against
+    cold.  The launch counts are set to 0 just before the queue and read
+    just after: every kernel must have launched in it."""
+    from sam2consensus_torch.kernels.build import all_kernels, \
+        reset_launches
+
+    kernels = all_kernels()
+    cold = {}
+    for name in PHASE12_QUEUE:
+        if PHASE7[name]["flags"] == ["-c", "0.25"]:
+            cold[name] = PHASE7[name]
+            continue
+        out = os.path.join(tmp, f"p12_cold_{name}")
+        before = {k.name: k.launches for k in kernels}
+        wall = run_cli(["-i", PHASE7[name]["path"], "-o", out, "-c", "0.25",
+                        "--decoder", "native", "--pileup", "pallas"], None)
+        cold[name] = {"wall": wall, "out": out, "launched": {
+            k.name: k.launches - before[k.name] for k in kernels}}
+    want = {}
+    for name in PHASE12_QUEUE:
+        want.update(served_files(cold[name]["out"]))
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    out = os.path.join(tmp, "serve_12_1")
+    reset_launches(kernels)
+    with served_jobs() as (jobs, by_thread, _hooks):
+        t0 = time.perf_counter()
+        rc = cli_quiet(serve_argv(out, extra=("-c", "0.25")))
+        torch.cuda.synchronize()
+        queue_wall = time.perf_counter() - t0
+    launched = {k.name: k.launches for k in kernels}
+    prewarm = by_thread.get("serve-prewarm", {})
+    print(f"  serve queue {list(PHASE12_QUEUE)} [{card}]: rc={rc} "
+          f"wall={queue_wall:.3f}s launches={launched} (of which the "
+          f"prewarm's all-PAD rows {prewarm})")
+    if rc != 0:
+        fail("phase 12.1: the served queue failed")
+    missing = [n for n, c in launched.items() if c == 0]
+    if missing:
+        fail(f"phase 12.1: kernels never launched on the serve path: "
+             f"{missing}")
+    shapes = jobs[-1].get("prewarm_shapes", 0) if jobs else 0
+    print(f"  server registry [{card}]: compile/prewarm_shapes={shapes}")
+    if not prewarm.get("pileup_rows") or not shapes > 0:
+        fail("phase 12.1: the auto-prewarm launched no K1")
+    got = served_files(out)
+    if got != want:
+        fail(f"phase 12.1: served outputs differ from the one-shot runs "
+             f"({sorted(set(got) ^ set(want))} or their bytes)")
+    ids = [f"job{k}:{os.path.basename(PHASE7[n]['path'])}"
+           for k, n in enumerate(PHASE12_QUEUE)]
+    if [j["job"] for j in jobs] != ids:
+        fail(f"phase 12.1: the queue ran {[j['job'] for j in jobs]}")
+    for k, (name, job) in enumerate(zip(PHASE12_QUEUE, jobs)):
+        res = job["result"]
+        ov = res.metrics.get("serve/overlap_sec")
+        persist = {m: v for m, v in res.metrics.items()
+                   if m.startswith("compile/persist_")}
+        print(f"  job {k} {name} [{card}]: warm wall={job['wall']:.4f}s "
+              f"cold one-shot wall={cold[name]['wall']:.4f}s launches="
+              f"{job['launched']} (one-shot {cold[name]['launched']}) "
+              f"overlap_sec={ov} decode_ahead_sec="
+              f"{res.metrics.get('serve/decode_ahead_sec')} "
+              f"memory_allocated after={job['mem']} B (before job 1: "
+              f"{mem0} B)")
+        if job["launched"] != cold[name]["launched"]:
+            fail(f"phase 12.1: {name}'s served launches differ from its "
+                 f"one-shot run's")
+        if persist:
+            fail(f"phase 12.1: job {k} loaded the kernels itself: "
+                 f"{persist}")
+        if k > 0 and not (ov or 0) > 0:
+            fail(f"phase 12.1: job {k} ({name}) shows no serve/overlap_sec")
+        if abs(job["mem"] - mem0) > 1 << 20:
+            fail(f"phase 12.1: memory_allocated after job {k} is "
+                 f"{job['mem'] - mem0} B past its value before job 1")
+
+
+def prewarm_check(tmp: str, card: str) -> None:
+    """The prewarm's all-PAD launches count nothing (checked on a tensor
+    of the job's padded length), and the first job's wall with and
+    without prewarm."""
+    from sam2consensus_torch.ops.pileup import (canonical_slab_shapes,
+                                                padded_total_len,
+                                                prewarm_pileup)
+
+    shapes = canonical_slab_shapes(ECOLI_LEN, chunk_reads=262144,
+                                   segment_width=4096)
+    counts = torch.zeros((padded_total_len(ECOLI_LEN), 6),
+                         dtype=torch.int32, device="cuda")
+    n = prewarm_pileup(ECOLI_LEN, shapes, "cuda", counts=counts)
+    torch.cuda.synchronize()
+    nz = int(counts.count_nonzero())
+    print(f"  prewarm [{card}]: {n} shapes {shapes} over all-PAD rows: "
+          f"{nz} non-zero counts")
+    if n != len(shapes) or nz:
+        fail("phase 12: the prewarm counted all-PAD rows")
+    del counts
+    walls = {}
+    for mode in ("auto", "off"):
+        with served_jobs() as (jobs, _t, _h):
+            rc = cli_quiet(serve_argv(
+                os.path.join(tmp, f"serve_prewarm_{mode}"),
+                names=("ecoli_scale", "ecoli_scale"),
+                extra=("--prewarm", mode, "-c", "0.25")))
+        if rc != 0:
+            fail(f"phase 12: --prewarm {mode} queue failed")
+        walls[mode] = [round(j["wall"], 4) for j in jobs]
+    print(f"  first job's wall [{card}]: prewarm auto {walls['auto']} s, "
+          f"off {walls['off']} s (ecoli_scale twice; the kernels and the "
+          f"context are already warm in this process)")
+
+
+def traced_queue(tmp: str, card: str) -> None:
+    """Phase 12.2: the queue under --trace-out and --telemetry-port 0;
+    /metrics linted and /healthz read once per job from the main thread;
+    each served job's host synchronisations equal to its traced one-shot
+    run's."""
+    import urllib.request
+
+    from sam2consensus_torch.observability.telemetry import \
+        lint_openmetrics
+
+    one_shot = {}
+    for name in PHASE12_QUEUE:
+        out = os.path.join(tmp, f"p12_traced_{name}")
+        with counted_syncs() as counted:
+            if cli_quiet(["-i", PHASE7[name]["path"], "-o", out, "-c",
+                          "0.25", "--decoder", "native", "--pileup",
+                          "pallas", "--trace-out", out + ".trace.json"]):
+                fail(f"phase 12.2: the traced one-shot {name} run failed")
+        one_shot[name] = dict(counted)
+    scraped = []
+
+    def scrape(runner, entry, res):
+        port = runner.http.port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            text = r.read().decode()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=10) as r:
+            health = json.loads(r.read())
+        scraped.append((res.job_id, lint_openmetrics(text), health))
+
+    out = os.path.join(tmp, "serve_12_2")
+    per_job = []
+
+    with served_jobs() as (jobs, _t, hooks), counted_syncs() as counted:
+        hooks.append(scrape)
+        from sam2consensus_torch.serve.runner import ServeRunner
+
+        orig = ServeRunner._execute
+
+        def execute(self, *args):
+            a = counted["now"]()
+            try:
+                return orig(self, *args)
+            finally:
+                b = counted["now"]()
+                per_job.append({k: b[k] - a[k] for k in a})
+
+        ServeRunner._execute = execute
+        try:
+            rc = cli_quiet(serve_argv(out, extra=(
+                "-c", "0.25", "--trace-out",
+                os.path.join(tmp, "serve_12_2.trace"),
+                "--telemetry-port", "0")))
+        finally:
+            ServeRunner._execute = orig
+    if rc != 0:
+        fail("phase 12.2: the traced queue failed")
+    for (job_id, lint, health), name, syncs in zip(scraped, PHASE12_QUEUE,
+                                                    per_job):
+        print(f"  {job_id} [{card}]: /metrics lint findings={lint} "
+              f"/healthz in_flight={health.get('in_flight')} "
+              f"host synchronisations served {syncs} one-shot traced "
+              f"{one_shot[name]}")
+        if lint:
+            fail(f"phase 12.2: /metrics fails lint during {job_id}: {lint}")
+        if health.get("in_flight") != job_id:
+            fail(f"phase 12.2: /healthz does not name {job_id} in flight")
+        if syncs != one_shot[name]:
+            fail(f"phase 12.2: {job_id} made {syncs} host "
+                 f"synchronisations, its traced one-shot run "
+                 f"{one_shot[name]}")
+    if len(scraped) != len(PHASE12_QUEUE):
+        fail("phase 12.2: a job was not scraped")
+    for k in range(len(PHASE12_QUEUE)):
+        if not os.path.exists(os.path.join(tmp,
+                                           f"serve_12_2.trace.job{k}.json")):
+            fail(f"phase 12.2: job {k} wrote no trace")
+
+
+def queue_idle_share(tmp: str, card: str) -> None:
+    """The queue under one torch.profiler window: the device's idle
+    share over the whole queue."""
+    from sam2consensus_torch.cli import profiled
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+
+    prof_dir = os.path.join(tmp, "serve_profile")
+    out = os.path.join(tmp, "serve_profiled")
+    os.makedirs(out)
+    specs = [JobSpec(PHASE7[n]["path"], job_config(n, out))
+             for n in PHASE12_QUEUE]
+    runner = ServeRunner()
+    try:
+        results = profiled(prof_dir, "cuda",
+                           lambda: runner.submit_jobs(specs))
+    finally:
+        runner.close()
+    if not all(r.ok for r in results):
+        fail("phase 12: the profiled queue failed")
+    busy, window, idle = device_idle_share(profile_of(prof_dir))
+    print(f"  profiled queue [{card}]: device busy {busy:.3f} ms of "
+          f"{window:.3f} ms, idle share {idle:.4f}")
+
+
+def watchdog_queues(tmp: str, card: str) -> list:
+    """Phase 12.3, through ``ServeRunner.submit_jobs`` with per-job
+    ``JobSpec`` configs (each input's phase-7 flags): job 1 carries
+    ``job_hang:timeout:0:1`` (``S2C_FAULT_HANG_S=30``) under
+    ``stall_timeout=2`` and fails alone, jobs 2-3 match phase 7; then the
+    same under ``--on-device-error fallback``, where job 1 retries on the
+    host rung (``job_rungs`` reports it), matches phase 7, and job 2
+    starts back on K1.  The device memory the abandoned thread pins is
+    printed.  Returns the abandoned threads."""
+    from sam2consensus_torch.io.fasta import write_outputs
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+
+    names = ("ecoli_scale", "amplicon_deep", "longread_sv")
+    os.environ["S2C_FAULT_HANG_S"] = "30"
+    abandoned = []
+    try:
+        for mode in ("retry", "fallback"):
+            out = os.path.join(tmp, f"serve_12_3_{mode}")
+            os.makedirs(out)
+            specs = [JobSpec(PHASE7[n]["path"], job_config(
+                n, out, "--on-device-error", mode,
+                *(["--fault-inject", "job_hang:timeout:0:1"] if k == 0
+                  else [])))
+                for k, n in enumerate(names)]
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            with served_jobs() as (jobs, _t, _h):
+                runner = ServeRunner(stall_timeout=2.0)
+                try:
+                    results = runner.submit_jobs(specs)
+                finally:
+                    runner.close()
+            gc.collect()
+            pinned = torch.cuda.memory_allocated() - mem0
+            hung = [th for th in threading.enumerate()
+                    if th.name.startswith("serve-job-")
+                    and th not in abandoned]
+            abandoned += hung
+            print(f"  {mode} [{card}]: "
+                  + "; ".join(f"{r.job_id} ok={r.ok} rungs={r.rungs} "
+                              f"wall={r.elapsed_sec:.3f}s" for r in results)
+                  + f"; {len(hung)} abandoned thread(s) pin {pinned} B of "
+                    f"device memory")
+            for spec, r in zip(specs, results):
+                if r.ok:
+                    c = spec.config
+                    write_outputs(r.fastas, c.outfolder, c.prefix, c.nchar,
+                                  c.thresholds, echo=lambda *a: None)
+            if mode == "retry":
+                if [r.ok for r in results] != [False, True, True] or \
+                        "HungDispatchError" not in results[0].error:
+                    fail(f"phase 12.3: the hung job did not fail alone: "
+                         f"{[(r.ok, r.error) for r in results]}")
+                want = phase7_files(names[1:])
+            else:
+                if not all(r.ok for r in results) or \
+                        results[0].rungs != {"pileup": "host"} or \
+                        results[1].rungs:
+                    fail(f"phase 12.3: fallback: "
+                         f"{[(r.ok, r.error, r.rungs) for r in results]}")
+                want = phase7_files(names)
+                job2 = [j for j in jobs if j["job"] == results[1].job_id]
+                k1 = job2[0]["launched"].get("pileup_rows", 0) if job2 \
+                    else 0
+                print(f"  fallback [{card}]: job 2 launched K1 {k1} times")
+                if not k1:
+                    fail("phase 12.3: job 2 did not start back on K1")
+            if served_files(out) != want:
+                fail(f"phase 12.3 ({mode}): outputs differ from phase 7")
+    finally:
+        os.environ.pop("S2C_FAULT_HANG_S", None)
+    return abandoned
+
+
+def journal_crash_resume(tmp: str, card: str) -> None:
+    """Phase 12.4: a journaled server over three full-size jobs in its own
+    process, SIGKILLed while job 2 hangs with job 1 committed; a second
+    process commits the rest."""
+    from sam2consensus_torch.serve.journal import JobJournal
+
+    names = ("ecoli_scale", "amplicon_deep", "longread_sv")
+    out = os.path.join(tmp, "serve_12_4")
+    os.makedirs(out)
+    jdir = os.path.join(tmp, "serve_12_4_journal")
+    jobs = json.dumps([[PHASE7[n]["path"], PHASE7[n]["flags"]]
+                       for n in names])
+    env = dict(os.environ, S2C_FAULT_HANG_S="3600",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    cmd = [sys.executable, "-c", JOURNAL_DRIVER, jobs, out, jdir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["1"], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    window = None
+    try:
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline and proc.poll() is None:
+            if os.path.isdir(jdir):
+                evs = JobJournal(jdir).events()
+                committed = {e["job"] for e in evs if e["ev"] == "committed"}
+                started = {e["job"] for e in evs if e["ev"] == "started"}
+                if len(committed) == 1 and len(started) == 2:
+                    window = time.perf_counter() - t0
+                    break
+            time.sleep(0.05)
+    finally:
+        alive = proc.poll() is None
+        proc.kill()
+        _o, err = proc.communicate(timeout=60)
+    if window is None or not alive:
+        fail(f"phase 12.4: no kill window (job 1 committed, job 2 "
+             f"hanging): {err[-2000:]}")
+    r2 = subprocess.run(cmd + ["0"], env=env, capture_output=True,
+                        text=True, timeout=600)
+    print(f"  killed at {window:.1f}s with job 1 committed and job 2 hung; "
+          f"restart rc={r2.returncode}: {r2.stdout.strip()[-500:]}")
+    if r2.returncode != 0:
+        fail(f"phase 12.4: the restart failed: {r2.stderr[-2000:]}")
+    if served_files(out) != phase7_files(names):
+        fail("phase 12.4: resumed outputs differ from phase 7")
+    jn = JobJournal(jdir)
+    audit = jn.audit()
+    resumed = [(e["job"], e.get("mode")) for e in jn.events()
+               if e["ev"] == "resumed"]
+    print(f"  journal [{card}]: lost={audit['lost']} "
+          f"duplicated={audit['duplicated']} resumed={resumed}")
+    if audit["lost"] or audit["duplicated"] or \
+            len(audit["commit_counts"]) != 3:
+        fail(f"phase 12.4: the journal audit: {audit}")
+    if ("job0:" + os.path.basename(PHASE7["ecoli_scale"]["path"]),
+            "skipped") not in resumed:
+        fail("phase 12.4: the restart did not skip job 1 by fingerprint")
+
+
+def profile_capture(tmp: str, card: str) -> None:
+    """Phase 12.5: the capture_profile touch file, dropped when job 1
+    starts, arms a bounded torch.profiler window under the watchdog's
+    poll; its trace holds pileup_rows_kernel."""
+    from sam2consensus_torch.observability.telemetry import \
+        CAPTURE_TOUCH_NAME
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+
+    cap = os.path.join(tmp, "serve_capture")
+    out = os.path.join(tmp, "serve_12_5")
+    os.makedirs(cap)
+    os.makedirs(out)
+    names = ("longread_sv", "ecoli_scale", "ecoli_scale")
+    specs = [JobSpec(PHASE7[n]["path"], job_config(n, out)) for n in names]
+    os.environ["S2C_PROFILE_CAPTURE_S"] = "3"
+    orig = ServeRunner._execute
+    touched = []
+
+    def execute(self, *args):
+        if not touched:
+            open(os.path.join(cap, CAPTURE_TOUCH_NAME), "w").close()
+            touched.append(time.perf_counter())
+        return orig(self, *args)
+
+    ServeRunner._execute = execute
+    try:
+        runner = ServeRunner(profile_capture_dir=cap, stall_timeout=60.0)
+        try:
+            results = runner.submit_jobs(specs)
+        finally:
+            runner.close()
+    finally:
+        ServeRunner._execute = orig
+        os.environ.pop("S2C_PROFILE_CAPTURE_S", None)
+    info = runner.registry.info("telemetry/last_profile") or {}
+    dests = [d for d in os.listdir(cap) if d.startswith("profile_capture_")]
+    traces = [os.path.join(cap, d, f) for d in dests
+              for f in os.listdir(os.path.join(cap, d))
+              if f.endswith(".pt.trace.json")]
+    names_seen = set()
+    for path in traces:
+        with open(path) as fh:
+            names_seen |= {e.get("name", "") for e in json.load(fh).get(
+                "traceEvents", []) if e.get("cat") == "kernel"}
+    k1 = sorted(n for n in names_seen if "pileup_rows_kernel" in n)
+    print(f"  capture [{card}]: armed during {info.get('in_flight')}, "
+          f"{len(traces)} torch.profiler trace(s), {len(names_seen)} "
+          f"kernel names, K1: {k1}; jobs ok "
+          f"{[r.ok for r in results]}")
+    if not all(r.ok for r in results):
+        fail("phase 12.5: a job of the captured queue failed")
+    if not k1:
+        fail("phase 12.5: the capture holds no pileup_rows_kernel event")
+
+
+def warm_server(tmp: str, card: str) -> None:
+    """Phase 12."""
+    print("  12.1: one warm queue of four jobs through cli.main serve")
+    warm_queue(tmp, card)
+    prewarm_check(tmp, card)
+    print("  12.2: the same queue traced, with the telemetry endpoint")
+    traced_queue(tmp, card)
+    queue_idle_share(tmp, card)
+    print("  12.3: the watchdog and the host-rung retry")
+    abandoned = watchdog_queues(tmp, card)
+    print("  12.4: journal, SIGKILL and resume")
+    journal_crash_resume(tmp, card)
+    t0 = time.perf_counter()
+    for th in abandoned:
+        th.join(120)
+        if th.is_alive():
+            fail(f"phase 12.3: the abandoned {th.name} never ended")
+    print(f"  abandoned job threads ended ({time.perf_counter() - t0:.1f}s "
+          f"waited)")
+    print("  12.5: the profiler capture")
+    profile_capture(tmp, card)
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -2543,6 +3173,9 @@ def main() -> int:
               f"metrics, the manifest, the profile and the memory plane "
               f"[{card}]")
         observability_runs(tmp, card, cap, paths)
+
+        print(f"phase 12: the warm server [{card}]")
+        warm_server(tmp, card)
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

@@ -540,21 +540,23 @@ def _input_bytes(records, cap: int):
     return None
 
 
-#: ``RunConfig`` fields the port does not run yet, with their defaults:
-#: ``shards`` and ``shard_mode`` (multi-GPU, ROADMAP §A)
-UNPORTED_FIELDS = (("shards", 0), ("shard_mode", "auto"))
+#: ``RunConfig`` fields the port does not run yet, with the values it
+#: runs: ``shards`` past one device and ``shard_mode`` (multi-GPU,
+#: ROADMAP §A).  ``shards=1`` is one device, as in the reference (the
+#: job-level host rung, ``ladder.job_host_rung_config``, sets it).
+UNPORTED_FIELDS = (("shards", (0, 1)), ("shard_mode", ("auto",)))
 
 
 def reject_unported(cfg) -> None:
     """Refuse a ``RunConfig`` that sets a field the port does not run
-    (:data:`UNPORTED_FIELDS`) away from its default, naming the field: no
-    field is silently ignored."""
-    for name, default in UNPORTED_FIELDS:
-        value = getattr(cfg, name, default)
-        if value != default:
+    (:data:`UNPORTED_FIELDS`) to a value it does not run, naming the
+    field: no field is silently ignored."""
+    for name, runs in UNPORTED_FIELDS:
+        value = getattr(cfg, name, runs[0])
+        if value not in runs:
             raise ValueError(
                 f"RunConfig.{name}={value!r}: not supported by the torch "
-                f"backend yet (leave it at {default!r})")
+                f"backend yet (leave it at {runs[0]!r})")
 
 
 def _timed(batches, stats: BackendStats):
@@ -733,15 +735,26 @@ class TorchBackend:
         ``mem_dump.json`` beside ``cfg.metrics_out``.  ``finish_run``
         writes the trace, the metrics JSONL and the manifest, whose meta
         names the backend and the device.  A ``RunConfig`` field the port
-        does not run yet is refused (:func:`reject_unported`)."""
+        does not run yet is refused (:func:`reject_unported`).
+
+        Serve mode (``serve/runner.py``) pre-creates a job's instruments
+        (``observability.prepare_run``) so its decode-ahead thread can
+        record into them before the run starts; it hands the handle over
+        in the ``serve_prepared_obs`` attribute, consumed (and cleared)
+        here."""
         from ..ingest.badrecords import (BadRecordBudgetExceeded,
                                          abort_bookkeeping)
         from ..observability import memplane
 
         reject_unported(cfg)
+        prepared = getattr(self, "serve_prepared_obs", None)
+        if prepared is not None:
+            self.serve_prepared_obs = None
         robs = obs.start_run(trace_out=cfg.trace_out,
-                             metrics_out=cfg.metrics_out, config=cfg)
-        faultinject.configure(getattr(cfg, "fault_inject", "") or None)
+                             metrics_out=cfg.metrics_out, config=cfg,
+                             prepared=prepared)
+        injector = faultinject.configure(
+            getattr(cfg, "fault_inject", "") or None)
         try:
             result = self._run(contigs, records, cfg)
             memplane.sample(device=self.device)
@@ -757,7 +770,10 @@ class TorchBackend:
                     registry=robs.registry, context={"backend": self.name})
             raise
         finally:
-            faultinject.configure("")
+            # a serve job abandoned by the watchdog may end long after a
+            # later job configured its own injector: clear only ours
+            if faultinject.active() is injector:
+                faultinject.configure("")
             obs.finish_run(robs, meta={"backend": self.name,
                                        "device": device_name(self.device)})
 
@@ -793,6 +809,12 @@ class TorchBackend:
         if skip_input:
             # an input the checkpoint already holds: decode nothing
             batches = iter(())
+            if getattr(records, "is_predecoded", False):
+                # serve decode-ahead decoded this input into the encoder
+                # (reads counted, insertions logged) before the duplicate
+                # verdict existed: a duplicate adds nothing, so an empty
+                # stand-in replaces it
+                encoder = ReadEncoder(layout)
         if ck is not None:
             encoder.insertions.array_chunks.extend(
                 ck.insertions.array_chunks)
@@ -838,6 +860,16 @@ class TorchBackend:
             checkpoint_cb=checkpoint if cfg.checkpoint_dir else None,
             on_demote=rebind_stage)
         reads_at_ckpt = 0
+        # serve mode: the runner plants a list here to intersect this
+        # job's dispatch intervals with the next job's decode-ahead
+        # intervals (serve/overlap_sec).  An untraced dispatch is its
+        # enqueue (the device counts later), so the join intersects
+        # enqueue intervals, as the reference's does on its asynchronous
+        # dispatch; the watchdog reads the newest end as its heartbeat.
+        # The gate (an Event) holds the next job's decode-ahead until
+        # this job's first dispatch begins
+        dispatch_log = getattr(self, "serve_dispatch_log", None)
+        dispatch_gate = getattr(self, "serve_dispatch_gate", None)
         t_acc = time.perf_counter()
         try:
             for batch in source:
@@ -846,11 +878,16 @@ class TorchBackend:
                 if batch.buckets:
                     row_width[0] = max(row_width[0], max(batch.buckets))
                 t0 = time.perf_counter()
+                if dispatch_gate is not None:
+                    dispatch_gate.set()
+                    dispatch_gate = None
                 with tr.span("pileup_dispatch", n_events=batch.n_events):
                     acc = dispatcher.add(acc, batch)
                 t1 = time.perf_counter()
                 stats.extra["pileup_sec"] += t1 - t0
                 reg.add("phase/pileup_dispatch_sec", t1 - t0)
+                if dispatch_log is not None:
+                    dispatch_log.append((t0, t1))
                 if stager is not None:
                     # K1's route is enqueued: release the batch's slot
                     stager.note_consume(t0, t1)
@@ -1218,7 +1255,16 @@ class TorchBackend:
         None under the strict default) rides on the encoder as
         ``bad_sink``.  ``--paranoid`` keeps the row path (no fused count)
         so batches can be re-validated, and it and ``--checkpoint-dir``
-        keep the serial decoder (ordered batches and stream offsets)."""
+        keep the serial decoder (ordered batches and stream offsets).
+
+        A serve job decoded ahead (``serve.runner``'s ``_PredecodedJob``,
+        ``is_predecoded``) arrives as a ready encoder and its batches
+        (the decoded ones first, then any live remainder), with the
+        decode choices it recorded; its decode seconds are already in
+        the job's registry."""
+        if getattr(records, "is_predecoded", False):
+            stats.extra.update(records.extra)
+            return records.encoder, records.batches()
         fuse = isinstance(acc, HostPileupAccumulator) and not cfg.paranoid
         seg_w = resolve_segment_width(cfg.segment_width)
         _record_layout_decision(cfg, seg_w)

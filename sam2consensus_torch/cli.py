@@ -23,9 +23,11 @@ writes its Chrome trace into the directory.  Input is SAM, gzip or
 BGZF SAM, or BAM, sniffed by magic bytes
 (``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
-way to choose another device.
+way to choose another device.  ``serve`` runs many inputs through one
+warm server (:func:`serve_main`, ``serve.ServeRunner``).
 
     python -m sam2consensus_torch.cli -i reads.bam -o out
+    python -m sam2consensus_torch.cli serve -i a.sam -i b.bam -o out
 """
 
 from __future__ import annotations
@@ -329,6 +331,532 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
     )
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The ``serve`` subcommand's surface: many ``-i`` inputs sharing one
+    flag set, run through a persistent warm backend (``serve/``).  Every
+    flag of ``sam2consensus_tpu/cli.build_serve_parser`` parses, with
+    its dest, default and choices; the ones the port does not run yet
+    are refused by name in :func:`serve_main` (:data:`UNPORTED_SERVE_FLAGS`)."""
+    p = argparse.ArgumentParser(
+        prog="sam2consensus-torch serve",
+        description="persistent multi-job serving: one warm torch "
+                    "backend on one card across every input (prewarm + "
+                    "cross-job pipelining); outputs per job like N "
+                    "one-shot runs")
+    p.add_argument("-i", "--input", dest="inputs", action="append",
+                   default=None,
+                   help="SAM input (repeatable; one job per input, run "
+                        "in order).  Required unless --ingest-port "
+                        "starts a streaming-session server instead")
+    p.add_argument("-c", "--consensus-thresholds", dest="thresholds",
+                   type=str, default="0.25")
+    p.add_argument("-n", dest="n", type=int, default=0)
+    p.add_argument("-o", "--outfolder", dest="outfolder", default="./")
+    p.add_argument("-m", "--min-depth", dest="min_depth", type=int,
+                   default=1)
+    p.add_argument("-f", "--fill", dest="fill", default="-")
+    p.add_argument("-d", "--maxdel", dest="maxdel", type=int, default=None)
+    p.add_argument("--py2-compat", action="store_true")
+    p.add_argument("--permissive", action="store_true")
+    p.add_argument("--on-bad-record", dest="on_bad_record",
+                   choices=["fail", "skip", "quarantine"], default="fail",
+                   help="per-record malformation policy shared by every "
+                        "job (see the one-shot CLI); a blown "
+                        "--max-bad-records budget fails ONLY that job "
+                        "(DATA class: no retry, no rung demotion, no "
+                        "tenant pinning) while the queue keeps draining "
+                        "warm")
+    p.add_argument("--max-bad-records", dest="max_bad_records", default="",
+                   help="per-job bad-record error budget: N or x%%")
+    p.add_argument("--quarantine-out", dest="quarantine_out", default=None,
+                   help="quarantine sidecar base path: job k writes "
+                        "<base>.job<k>.jsonl (default per-job "
+                        "<outfolder>/<prefix>_quarantine.jsonl)")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--format", dest="input_format",
+                   choices=["auto", "sam", "sam.gz", "bam"],
+                   default="auto")
+    p.add_argument("--segment-width", dest="segment_width", type=int,
+                   default=0)
+    p.add_argument("--pileup",
+                   choices=["auto", "pallas", "mxu", "scatter", "host"],
+                   default="auto")
+    p.add_argument("--wire", choices=["auto", "packed5", "delta8"],
+                   default="auto")
+    p.add_argument("--insertion-kernel", dest="ins_kernel",
+                   choices=["auto", "scatter", "pallas"], default="auto")
+    p.add_argument("--decode-threads", dest="decode_threads", type=int,
+                   default=1)
+    p.add_argument("--decoder", choices=["auto", "native", "py"],
+                   default="auto")
+    p.add_argument("--shard-mode", dest="shard_mode",
+                   choices=["auto", "dp", "sp", "dpsp"], default="auto")
+    p.add_argument("--shards", type=int, default=0)
+    p.add_argument("--chunk-reads", dest="chunk_reads", type=int,
+                   default=262144)
+    p.add_argument("--retries", type=int, default=3)
+    p.add_argument("--retry-backoff", dest="retry_backoff", type=float,
+                   default=0.25)
+    p.add_argument("--on-device-error", dest="on_device_error",
+                   choices=["fail", "retry", "fallback"], default="retry")
+    p.add_argument("--fault-inject", dest="fault_inject", default="")
+    p.add_argument("--log-level", dest="log_level", default=None,
+                   choices=["debug", "info", "warning", "error"])
+    p.add_argument("--metrics-out", dest="metrics_out", default=None,
+                   help="per-job metrics JSONL base path: job k writes "
+                        "<base>.job<k>.jsonl (+ its .manifest.json)")
+    p.add_argument("--trace-out", dest="trace_out", default=None,
+                   help="per-job trace base path: job k writes "
+                        "<base>.job<k>.json")
+    p.add_argument("--prewarm", choices=["auto", "off"], default="auto",
+                   help="load the kernels and run the layout's "
+                        "canonical slab shapes through the pileup route "
+                        "behind the first job's decode (auto; engages "
+                        "for explicitly device-pinned pileups — "
+                        "--pileup scatter/pallas — since --pileup auto "
+                        "may route host-side where there is nothing to "
+                        "warm)")
+    p.add_argument("--no-decode-ahead", dest="decode_ahead",
+                   action="store_false",
+                   help="disable cross-job pipelining (job N+1's host "
+                        "decode normally overlaps job N's device work)")
+    # --- continuous batching (refused: UNPORTED_SERVE_FLAGS) ---
+    p.add_argument("--batch", dest="batch", default="off",
+                   help="continuous batching: pack up to N eligible "
+                        "small jobs (--pileup auto/scatter, genome <= "
+                        "S2C_BATCH_MAX_MEMBER_LEN positions) into "
+                        "shared slabs riding ONE device dispatch "
+                        "sequence, with per-job count partitions "
+                        "extracted for byte-identical per-job outputs. "
+                        "off (default) | auto (tuned batch size, env "
+                        "S2C_BATCH_AUTO_JOBS) | N.  A tenant burning "
+                        "its --slo objective flushes the filling batch "
+                        "immediately (latency over occupancy); any "
+                        "fault inside a packed phase demotes only that "
+                        "batch back to the serial path")
+    p.add_argument("--batch-window", dest="batch_window", type=float,
+                   default=None,
+                   help="max milliseconds a filling batch waits for "
+                        "more eligible jobs before flushing (default "
+                        "50; live-arrival queues only — a pre-planned "
+                        "queue arrives at once)")
+    # --- cohort serving (refused: UNPORTED_SERVE_FLAGS) ---
+    p.add_argument("--cohort-manifest", dest="cohort_manifest",
+                   default=None,
+                   help="cohort mode: stream EVERY sample named by "
+                        "this manifest (a directory of .sam/.sam.gz/"
+                        ".bam files, a text file of paths/globs, or a "
+                        ".jsonl object-store-style listing with a "
+                        "'path' per row) through packed shared-panel "
+                        "waves — one submission, not N.  Implies "
+                        "--batch auto unless --batch is set; the "
+                        "shared reference layout is planned once and "
+                        "reused every wave, wave size follows the "
+                        "learned packed rate under --mem-budget/"
+                        "--max-queue caps, and --journal resumes an "
+                        "interrupted cohort at its last committed "
+                        "wave.  Does not compose with -i/--input or "
+                        "--ingest-port")
+    p.add_argument("--cohort-wave", dest="cohort_wave", type=int,
+                   default=0,
+                   help="fixed cohort wave size (members per packed "
+                        "wave); 0 (default) sizes waves from the "
+                        "learned cohort_jobs_per_sec rate card x "
+                        "S2C_COHORT_WAVE_SEC, clamped to the length/"
+                        "queue/memory caps")
+    p.add_argument("--cohort-summary", dest="cohort_summary",
+                   default=None,
+                   help="write the cohort summary JSON (waves, "
+                        "panel-plan reuse evidence, per-wave "
+                        "cohort_wave decisions, per-position call "
+                        "concordance) to this path")
+    # --- incremental consensus (refused: UNPORTED_SERVE_FLAGS) ---
+    p.add_argument("--count-cache", dest="count_cache", default=None,
+                   help="per-reference count cache byte budget (e.g. "
+                        "'512M', '2G'; 'off' disables; env "
+                        "S2C_COUNT_CACHE).  Keeps each reference "
+                        "set's accumulated count tensor + insertion "
+                        "log resident across jobs (LRU under the "
+                        "budget) so an --incremental job against a "
+                        "warm reference pays only delta decode + "
+                        "scatter + re-vote — byte-identical to a cold "
+                        "run over the concatenated inputs")
+    p.add_argument("--incremental", action="store_true",
+                   help="treat every input as an incremental shard "
+                        "against its reference's warm count state "
+                        "(requires --count-cache): outputs cover ALL "
+                        "reads absorbed for that reference so far, "
+                        "and re-submitting an already-absorbed input "
+                        "adds nothing (keyed by absolute path)")
+    # --- survivability (serve/{journal,health,admission}.py) ---
+    p.add_argument("--journal", dest="journal", default=None,
+                   help="crash-safe job journal directory: every job's "
+                        "lifecycle is durably recorded (atomic "
+                        "tmp+rename segments) and each job gets a "
+                        "per-job checkpoint home there, so a killed "
+                        "server restarted with the SAME command resumes "
+                        "the queue — committed jobs are skipped by "
+                        "output fingerprint, the in-flight job resumes "
+                        "from its checkpoint; zero lost, zero "
+                        "duplicated jobs.  Implies --no-decode-ahead "
+                        "(checkpoints need serial decode).  Outputs are "
+                        "written per job at commit time, not at queue "
+                        "end")
+    p.add_argument("--worker-id", dest="worker_id", default="",
+                   help="fleet mode (sam2consensus_tpu/serve/fleet.py; "
+                        "requires --journal): join the journal as a "
+                        "work-stealing worker under this UNIQUE id — "
+                        "N processes launched with the same --journal "
+                        "and the same inputs share the queue: each job "
+                        "is claimed (atomic journal event, first "
+                        "writer wins) before it runs, leases carry a "
+                        "TTL renewed while the worker lives, and a "
+                        "dead/frozen worker's expired lease is reaped "
+                        "by a peer which re-claims the job from its "
+                        "checkpoint — zero lost, zero duplicated.  Two "
+                        "live processes sharing one id is operator "
+                        "error (the id IS the lease identity)")
+    p.add_argument("--lease-ttl", dest="lease_ttl", type=float,
+                   default=None,
+                   help="fleet lease TTL seconds (env S2C_LEASE_TTL, "
+                        "default 30): a worker silent this long is "
+                        "presumed dead and its in-flight job becomes "
+                        "re-claimable; recovery latency is ~TTL + one "
+                        "reap-scan period, so smaller = faster "
+                        "takeover, larger = more tolerance for "
+                        "stop-the-world pauses.  Renewals ride the "
+                        "0.1 s watchdog poll at half-TTL margin")
+    p.add_argument("--verify-outputs", dest="verify_outputs",
+                   choices=["fast", "full"], default="fast",
+                   help="journal-resume output verification: fast "
+                        "(default) accepts a committed file whose "
+                        "size+mtime still match the commit-time stat "
+                        "and re-hashes only on drift — resume over a "
+                        "large committed queue is O(stat); full "
+                        "re-hashes every committed output "
+                        "unconditionally")
+    # --- streaming sessions (refused: UNPORTED_SERVE_FLAGS) ---
+    p.add_argument("--ingest-port", dest="ingest_port", type=int,
+                   default=None,
+                   help="streaming-session mode (requires --journal; "
+                        "serve/stream_server.py): serve the live wave "
+                        "ingest API on 127.0.0.1:PORT (0 = ephemeral, "
+                        "logged at startup) instead of draining a "
+                        "fixed -i queue.  Sessions are journal "
+                        "entities under claim/lease semantics: a "
+                        "killed worker's open sessions are stolen by "
+                        "a peer sharing the journal, replaying every "
+                        "journaled-but-unabsorbed wave — zero lost, "
+                        "zero double-counted reads")
+    p.add_argument("--stability-waves", dest="stability_waves",
+                   type=int, default=3,
+                   help="consecutive waves the consensus digest must "
+                        "survive unchanged before the session emits "
+                        "its stability verdict (the read-until "
+                        "signal; default 3, must be >= 1)")
+    p.add_argument("--revote-debounce", dest="revote_debounce",
+                   type=float, default=0.0,
+                   help="seconds to coalesce arriving waves before "
+                        "re-voting (default 0 = re-vote on every "
+                        "wave; must be >= 0).  Debounced waves are "
+                        "journaled + ACKed 202 immediately and "
+                        "absorbed in arrival order on the cadence")
+    p.add_argument("--ingest-max-body", dest="ingest_max_body",
+                   type=int, default=None,
+                   help="max wave body bytes the ingest endpoint "
+                        "accepts (default 64 MiB); larger uploads "
+                        "answer 413 before buffering")
+    p.add_argument("--ingest-timeout", dest="ingest_timeout",
+                   type=float, default=None,
+                   help="per-request socket deadline seconds on the "
+                        "ingest endpoint (default 10); a client "
+                        "silent this long mid-body answers 408 and "
+                        "frees the handler thread")
+    p.add_argument("--ingest-max-pending", dest="ingest_max_pending",
+                   type=int, default=None,
+                   help="per-session journaled-but-unabsorbed wave "
+                        "bound (default 64): a session at its bound "
+                        "answers 429 + Retry-After (admission "
+                        "backpressure) instead of buffering without "
+                        "limit")
+    p.add_argument("--job-timeout", dest="job_timeout", type=float,
+                   default=None,
+                   help="per-job wall-clock deadline in seconds "
+                        "(env S2C_JOB_TIMEOUT): a job that overruns is "
+                        "abandoned and failed (under --on-device-error "
+                        "fallback it retries once on the ladder's host "
+                        "rung) while the server keeps draining the "
+                        "queue")
+    p.add_argument("--stall-timeout", dest="stall_timeout", type=float,
+                   default=None,
+                   help="hung-dispatch watchdog in seconds (env "
+                        "S2C_STALL_TIMEOUT): fail the in-flight job "
+                        "when no device dispatch completes for this "
+                        "long — catches a wedged dispatch or a "
+                        "stuck decode thread long before a generous "
+                        "--job-timeout would.  Set it ABOVE the "
+                        "worst-case cold kernel build (a build is "
+                        "silence to this watchdog; the build directory "
+                        "and --prewarm keep that off warm servers)")
+    p.add_argument("--checkpoint-every", dest="checkpoint_every",
+                   type=int, default=2_000_000,
+                   help="journal mode: reads between a job's periodic "
+                        "checkpoint writes (bounds how much of the "
+                        "in-flight job a kill -9 re-runs); "
+                        "default=2000000")
+    p.add_argument("--max-queue", dest="max_queue", type=int, default=0,
+                   help="admission control: max jobs admitted per "
+                        "submission (0 = unbounded); overflow is "
+                        "rejected with reason queue_full "
+                        "(serve/admission_* counters)")
+    p.add_argument("--tenant", dest="tenant", default="",
+                   help="tenant label for every job of this invocation "
+                        "(admission quotas + degraded-tenant isolation; "
+                        "the API sets it per JobSpec)")
+    p.add_argument("--tenant-quota", dest="tenant_quota", type=int,
+                   default=0,
+                   help="admission control: max admitted jobs per "
+                        "tenant per submission (0 = unbounded)")
+    p.add_argument("--mem-budget", dest="mem_budget", default=None,
+                   help="capacity-priced admission (observability/"
+                        "memplane.py): a job whose predicted peak "
+                        "host+device bytes (from its header-probed "
+                        "genome length, threshold grid and slab "
+                        "geometry) exceeds this budget is shed with "
+                        "reason 'capacity' instead of OOMing the warm "
+                        "server.  Size grammar like --count-cache "
+                        "('4G', '512M'); 'off'/unset disables; env "
+                        "S2C_MEM_BUDGET")
+    p.add_argument("--health-out", dest="health_out", default=None,
+                   help="write an atomic health/readiness snapshot "
+                        "(queue depth, in-flight job, heartbeat age, "
+                        "tenant rungs, journal position, SLO burn) to "
+                        "this path — rewritten at every job boundary "
+                        "AND on the watchdog heartbeat cadence, so it "
+                        "stays fresh while a job hangs")
+    # --- telemetry plane (observability/telemetry.py) ---
+    p.add_argument("--telemetry-out", dest="telemetry_out", default=None,
+                   help="write the server-lifetime OpenMetrics/"
+                        "Prometheus text exposition (folded per-job "
+                        "counters, per-tenant SLO summaries, "
+                        "heartbeat-aged liveness gauges) to this path, "
+                        "rewritten atomically on the telemetry "
+                        "cadence — scrapeable with a plain file read, "
+                        "no agent required")
+    p.add_argument("--telemetry-port", dest="telemetry_port", type=int,
+                   default=None,
+                   help="serve /metrics (OpenMetrics text) and "
+                        "/healthz (the health snapshot JSON) on "
+                        "127.0.0.1:PORT via a stdlib-only endpoint "
+                        "(0 = ephemeral port, logged at startup); "
+                        "scrapes compute fresh heartbeat ages per "
+                        "request")
+    p.add_argument("--telemetry-interval", dest="telemetry_interval",
+                   type=float, default=None,
+                   help="seconds between exposition/health rewrites "
+                        "(default 2.0; env S2C_TELEMETRY_INTERVAL); "
+                        "the same cadence drives the mid-hang health "
+                        "refresh")
+    p.add_argument("--slo", dest="slo", default=None,
+                   help="per-phase latency objectives, e.g. "
+                        "'e2e=5s,queue=1s' (phases: queue|queue_wait, "
+                        "decode, dispatch, vote, e2e; values in s or "
+                        "ms; env S2C_SLO).  Breaches burn "
+                        "slo/violations/<tenant>/<phase> counters "
+                        "surfaced in the exposition, the health "
+                        "snapshot and each job's manifest serve.slo "
+                        "verdict")
+    p.add_argument("--profile-capture-dir", dest="profile_capture_dir",
+                   default=None,
+                   help="where on-demand profiler captures land "
+                        "(default: the journal dir, else next to "
+                        "--telemetry-out).  Arm a capture with "
+                        "SIGUSR2 or by touching <dir>/capture_profile "
+                        "— a bounded torch.profiler window on a CUDA "
+                        "server (pure-Python span/stack dump on cpu) "
+                        "taken WHILE the current job runs, no restart "
+                        "needed")
+    p.add_argument("--log-format", dest="log_format",
+                   choices=["text", "json"], default="text",
+                   help="log record shape (see the one-shot CLI); "
+                        "json records carry job_id/tenant/rung/span "
+                        "correlation IDs across every serve thread")
+    # shared-flag defaults config_from_args expects but serve never
+    # exposes (one-shot-only features)
+    p.set_defaults(backend="torch", prefix="", profile_dir=None,
+                   json_metrics=None, checkpoint_dir=None,
+                   paranoid=False, filename="")
+    return p
+
+
+#: serve flags of the reference's parser that the port does not run yet,
+#: each with a test for "set away from its default": streaming sessions,
+#: cohorts, serve ``--incremental`` (the count cache), multi-GPU shards
+#: and the MXU pileup.  Batching, the count cache's budget and fleet mode
+#: are the runner's refusals (``serve.runner.refuse_unported_serve``)
+UNPORTED_SERVE_FLAGS = (
+    ("--incremental", "incremental", bool),
+    ("--ingest-port", "ingest_port", lambda v: v is not None),
+    ("--stability-waves", "stability_waves", lambda v: v != 3),
+    ("--revote-debounce", "revote_debounce", lambda v: v != 0.0),
+    ("--ingest-max-body", "ingest_max_body", lambda v: v is not None),
+    ("--ingest-timeout", "ingest_timeout", lambda v: v is not None),
+    ("--ingest-max-pending", "ingest_max_pending",
+     lambda v: v is not None),
+    ("--cohort-manifest", "cohort_manifest", lambda v: v is not None),
+    ("--cohort-wave", "cohort_wave", lambda v: v != 0),
+    ("--cohort-summary", "cohort_summary", lambda v: v is not None),
+    ("--shards", "shards", lambda v: v > 1),
+    ("--shard-mode", "shard_mode", lambda v: v != "auto"),
+    ("--pileup", "pileup", lambda v: v == "mxu"),
+)
+
+
+def serve_main(argv: List[str], device=None) -> int:
+    """``serve -i a.sam -i b.bam [...]``: run every input through one
+    warm server (``serve.ServeRunner``) on ``device`` (as in
+    ``device.resolve_device``: None = CUDA, raising without it); exit 0
+    iff every job succeeded.  The reference's ``serve_main``, with its
+    up-front checks (``--slo``, ``--mem-budget``, ``--fault-inject``,
+    at least one input); a flag of :data:`UNPORTED_SERVE_FLAGS` or of
+    ``serve.runner.refuse_unported_serve`` set away from its default
+    (``S2C_COUNT_CACHE`` and ``S2C_MESH_HOSTS`` > 0 too) fails the start
+    by name."""
+    import copy
+
+    from . import observability
+    from .serve import JobSpec, ServeRunner
+    from .serve.runner import refuse_unported_serve
+
+    args = build_serve_parser().parse_args(argv)
+    echo = (lambda *a, **k: None) if args.quiet else print
+    observability.configure_logging(args.log_level, args.log_format)
+    for flag, dest, is_set in UNPORTED_SERVE_FLAGS:
+        value = getattr(args, dest)
+        if is_set(value):
+            raise SystemExit(f"error: {flag} {value}: not supported by "
+                             f"the torch backend yet")
+    try:
+        refuse_unported_serve(batch=args.batch,
+                              batch_window=args.batch_window,
+                              count_cache=args.count_cache,
+                              worker_id=args.worker_id,
+                              lease_ttl=args.lease_ttl)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
+    # a typo'd SLO objective must fail the server start, not silently
+    # never fire (same up-front discipline as --fault-inject)
+    from .observability.telemetry import parse_slo
+    from .serve.countcache import parse_budget
+
+    try:
+        parse_slo(args.slo)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
+    try:
+        parse_budget(args.mem_budget if args.mem_budget is not None
+                     else os.environ.get("S2C_MEM_BUDGET"))
+    except ValueError as exc:
+        raise SystemExit("error: " + str(exc).replace(
+            "--count-cache", "--mem-budget")) from None
+    if not args.inputs:
+        raise SystemExit(
+            "error: at least one -i/--input is required (or "
+            "--ingest-port to serve streaming sessions, or "
+            "--cohort-manifest to serve a cohort)")
+    if args.fault_inject:
+        from .resilience.faultinject import parse_spec
+
+        try:
+            parse_spec(args.fault_inject)
+        except ValueError as exc:
+            raise SystemExit(f"error: {exc}") from None
+
+    specs = []
+    for k, path in enumerate(args.inputs):
+        job_args = copy.copy(args)
+        job_args.filename = path
+        job_args.prefix = ""            # per-job default: input basename
+        if args.metrics_out:
+            job_args.metrics_out = f"{args.metrics_out}.job{k}.jsonl"
+        if args.trace_out:
+            job_args.trace_out = f"{args.trace_out}.job{k}.json"
+        if args.quarantine_out:
+            # per-job sidecars, same .jobN discipline as metrics/trace
+            # (N jobs sharing one sidecar would interleave evidence)
+            job_args.quarantine_out = f"{args.quarantine_out}.job{k}.jsonl"
+        cfg = config_from_args(job_args)
+        if cfg.on_bad_record == "quarantine" and not cfg.quarantine_out:
+            # the DEFAULT sidecar derives from prefix = input basename,
+            # so two jobs over the same upload would clobber each
+            # other's evidence — stamp the job index into the default
+            cfg.quarantine_out = os.path.join(
+                cfg.outfolder,
+                f"{cfg.prefix}_quarantine.job{k}.jsonl")
+        specs.append(JobSpec(filename=path, config=cfg,
+                             job_id=f"job{k}:{os.path.basename(path)}",
+                             tenant=args.tenant))
+
+    runner = ServeRunner(prewarm=args.prewarm,
+                         decode_ahead=args.decode_ahead, echo=echo,
+                         journal_dir=args.journal,
+                         job_timeout=args.job_timeout,
+                         stall_timeout=args.stall_timeout,
+                         max_queue=args.max_queue,
+                         tenant_quota=args.tenant_quota,
+                         health_out=args.health_out,
+                         fault_inject=args.fault_inject,
+                         telemetry_out=args.telemetry_out,
+                         telemetry_port=args.telemetry_port,
+                         telemetry_interval=args.telemetry_interval,
+                         slo=args.slo,
+                         profile_capture_dir=args.profile_capture_dir,
+                         mem_budget=args.mem_budget,
+                         verify_outputs=args.verify_outputs,
+                         device=device)
+    try:
+        echo(f"\nServing {len(specs)} job(s) on one warm backend "
+             f"[{runner.backend.device}]"
+             + (f" (kernel build: {runner.cache_dir})" if runner.cache_dir
+                else "")
+             + (f" (journal: {runner.journal.root})" if runner.journal
+                else "") + "\n")
+        results = runner.submit_jobs(specs)
+    finally:
+        runner.close()
+    failed = 0
+    for spec, res in zip(specs, results):
+        if not res.ok:
+            failed += 1
+            print(f"job {res.job_id} FAILED: {res.error}",
+                  file=sys.stderr)
+            continue
+        if res.resumed or res.output_paths:
+            # journal mode: the runner wrote (or a previous process
+            # already committed) this job's outputs at commit time
+            continue
+        write_outputs(res.fastas, spec.config.outfolder,
+                      spec.config.prefix, spec.config.nchar,
+                      spec.config.thresholds, echo=echo)
+        if spec.config.metrics_out:
+            from .observability.manifest import manifest_path_for
+
+            echo("Run manifest written to "
+                 + manifest_path_for(spec.config.metrics_out) + "\n")
+    ov = runner.registry.value("serve/overlap_sec")
+    if args.health_out:
+        echo(f"Health snapshot at {args.health_out}")
+    if args.telemetry_out:
+        echo(f"Telemetry exposition at {args.telemetry_out}")
+    nv = int(runner.registry.value("slo/violations"))
+    if nv:
+        echo(f"SLO: {nv} objective breach(es) — see slo/violations/* "
+             f"in the exposition / health snapshot")
+    echo(f"Done: {len(results) - failed}/{len(results)} job(s) ok, "
+         f"cross-job overlap {ov:.3f}s.\n")
+    return 1 if failed else 0
+
+
 def profiled(profile_dir: str, device, run):
     """``run()`` under ``torch.profiler`` (CPU activity, and the card's
     on a CUDA ``device``), its Chrome trace written into ``profile_dir``
@@ -369,8 +897,9 @@ def profiled(profile_dir: str, device, run):
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
-    """Run the CLI; ``device`` as in ``device.resolve_device`` (None = CUDA,
-    raising without it)."""
+    """Run the CLI (``argv[0] == "serve"``: :func:`serve_main`);
+    ``device`` as in ``device.resolve_device`` (None = CUDA, raising
+    without it)."""
     from .backends.torch_backend import TorchBackend
     from .config import resolve_decode_threads
     from .formats import open_alignment_input
@@ -379,6 +908,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
     from . import observability
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:], device=device)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     echo = (lambda *a, **k: None) if args.quiet else print

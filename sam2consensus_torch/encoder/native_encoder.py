@@ -393,9 +393,13 @@ class NativeReadEncoder:
         batch like the python fallback's (or, under the fused count, are
         counted in the C pass).  The line was already counted as a line and
         as bytes by the call that reported it.  Returns False, having
-        committed nothing, when the line does not fit ``width`` or the C
-        decoder flags it: the python fallback then replays it."""
+        committed nothing, when the line does not fit ``width``, the C
+        decoder flags it, or it holds a byte >= 0x80 (the fallback's ASCII
+        decode rejects or quarantines such a line, as the reference does
+        for every overflow line): the python fallback then replays it."""
         line = data[start:min(_line_end(data, start) + 1, len(data))]
+        if (line >= 0x80).any():
+            return False
         starts = np.zeros(2, dtype=np.int32)
         codes = np.full((2, width), PAD_CODE, dtype=np.uint8)
         out = np.zeros(16, dtype=np.int64)

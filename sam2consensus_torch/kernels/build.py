@@ -19,6 +19,7 @@ not build, load or launch.
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -29,25 +30,29 @@ NAME = "s2c_torch_kernels"
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _EXTENSION = None
+_LOAD_LOCK = threading.Lock()
 
 
 def extension():
     """The built extension module (built, or loaded, on the first call;
     counted ``compile/persist_hit`` or ``compile/persist_miss`` by
-    ``observability.jitcache``)."""
+    ``observability.jitcache``).  One thread builds: a serve prewarm
+    thread and a job's first launch that ask at once share its load."""
     global _EXTENSION
     if _EXTENSION is None:
-        from torch.utils.cpp_extension import load
+        with _LOAD_LOCK:
+            if _EXTENSION is None:
+                from torch.utils.cpp_extension import load
 
-        from ..observability.jitcache import counted_load
+                from ..observability.jitcache import counted_load
 
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)   # load does not
-        _EXTENSION = counted_load(
-            lambda: load(
-                NAME, [str(CSRC / s) for s in SOURCES],
-                extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
-                build_directory=str(BUILD_DIR)),
-            str(BUILD_DIR / f"{NAME}.so"))
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)  # load does not
+                _EXTENSION = counted_load(
+                    lambda: load(
+                        NAME, [str(CSRC / s) for s in SOURCES],
+                        extra_cflags=["-O3"], extra_cuda_cflags=CUDA_FLAGS,
+                        build_directory=str(BUILD_DIR)),
+                    str(BUILD_DIR / f"{NAME}.so"))
     return _EXTENSION
 
 

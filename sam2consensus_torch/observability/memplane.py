@@ -1,9 +1,9 @@
 """Memory plane: host and device byte accounting, watermarks, forensics.
 
-The one-shot part of ``sam2consensus_tpu/observability/memplane.py``
-(the serve admission's ``predict_job_peak_bytes`` and the mesh planner
-``plan_mesh_shards`` wait for their slices); the copied functions are
-pinned by ``tests/test_torch_copies.py``.
+The one-shot and serve parts of
+``sam2consensus_tpu/observability/memplane.py`` (the mesh planner
+``plan_mesh_shards`` waits for the sharding slice); the copied functions
+are pinned by ``tests/test_torch_copies.py``.
 
 **Byte accounting.**  Every long-lived allocation family registers
 through one choke point, :func:`adjust` (:func:`track` / :func:`release`,
@@ -17,6 +17,7 @@ family                what it holds
 ``wire_staging``      a batch's rows staged on the card (prefetch thread)
 ``insertion_table``   the insertion table and the padded event lanes
 ``quarantine``        the tolerant decode's stored sidecar window
+``decode_ahead``      a serve job's batches decoded ahead of its run
 ====================  ====================================================
 
 The plane keeps process-wide live/peak bytes per family and publishes
@@ -70,7 +71,7 @@ logger = logging.getLogger("sam2consensus_torch.observability.memplane")
 #: the allocation families the port's call sites use (informational:
 #: track() accepts any name)
 FAMILIES = ("counts", "counts_host", "wire_staging", "insertion_table",
-            "quarantine")
+            "quarantine", "decode_ahead")
 
 MEM_DUMP_SCHEMA = "s2c-mem-dump/1"
 MEM_DUMP_NAME = "mem_dump.json"
@@ -396,6 +397,21 @@ def predict_run_peak_bytes(total_len: int, n_thresholds: int = 1,
     }
     components = {k: int(v) for k, v in components.items()}
     return sum(components.values()), components
+
+
+def predict_job_peak_bytes(total_len: int, cfg) -> int:
+    """Admission-side wrapper (the reference's): the prediction for one
+    job from its header-probed genome length and its RunConfig
+    (serve/runner.py ``--mem-budget``), over
+    :func:`predict_run_peak_bytes`; a job pinned to ``--pileup host`` is
+    priced with host counts."""
+    total, _comp = predict_run_peak_bytes(
+        total_len,
+        n_thresholds=len(getattr(cfg, "thresholds", None) or [0.25]),
+        chunk_reads=getattr(cfg, "chunk_reads", 262144),
+        segment_width=max(0, getattr(cfg, "segment_width", 0)),
+        host_counts=getattr(cfg, "pileup", "auto") == "host")
+    return total
 
 
 def record_capacity(total_len: int, n_thresholds: int,

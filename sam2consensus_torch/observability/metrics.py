@@ -8,8 +8,9 @@ run counts.  ``TorchBackend.run`` installs a fresh registry per run
 (``observability.start_run``, which calls ``push_run``) and copies its
 view into ``stats.extra`` (``observability.publish_stats_extra``).
 
-Without the reference's serve-side views (``Windowed``,
-``window_values``, ``Histogram.merge``).  Three instrument kinds:
+With the serve runner's views: ``Histogram.merge`` (the aggregate
+registry's fold) and the stamped ``Windowed`` ring behind
+``window_values`` (the burn monitor).  Three instrument kinds:
 
 * counters — monotonic float adds; seconds, bytes, reads, cells;
 * gauges — last-write-wins value (``.set(v)``), with optional
@@ -41,6 +42,11 @@ from typing import Dict, List, Optional
 #: histogram reservoir bound: big enough for per-slab observations over
 #: any real run, small enough that a snapshot's sort is microseconds
 HIST_CAP = 4096
+
+#: windowed-view ring bound: a (stamp, value) pair per observation —
+#: at one serve job per second this holds >1 h of job-boundary
+#: observations, which is exactly the slow burn window's horizon
+WINDOW_CAP = 4096
 
 
 class Counter:
@@ -92,12 +98,68 @@ class Histogram:
             # so late observations still register without randomness
             self.values[self.count % HIST_CAP] = v
 
+    def merge(self, other: "Histogram") -> None:
+        """Fold another histogram in: count/total/min/max merge
+        EXACTLY; the bounded reservoir absorbs the other's samples
+        through the same deterministic round-robin decimation
+        ``observe`` uses — so fleet-level percentiles over merged
+        per-job histograms stay meaningful (approximate past HIST_CAP,
+        exact below it).  Used by the telemetry plane's
+        server-lifetime :class:`~.telemetry.AggregateRegistry`."""
+        if other.count == 0:
+            return
+        self.total += other.total
+        if other.vmin < self.vmin:
+            self.vmin = other.vmin
+        if other.vmax > self.vmax:
+            self.vmax = other.vmax
+        for v in other.values:
+            self.count += 1
+            if len(self.values) < HIST_CAP:
+                self.values.append(v)
+            else:
+                self.values[self.count % HIST_CAP] = v
+        # observations the other reservoir itself decimated away still
+        # count toward the merged count (sum/min/max already carry them)
+        self.count += other.count - len(other.values)
+
     def percentile(self, q: float) -> float:
         if not self.values:
             return 0.0
         s = sorted(self.values)
         idx = min(len(s) - 1, int(q * (len(s) - 1) + 0.5))
         return s[idx]
+
+
+class Windowed:
+    """Timestamped ring buffer: the WINDOWED view over a histogram's
+    observation stream (the multi-window SLO burn plane's substrate,
+    observability/burn.py).  Histograms deliberately forget WHEN an
+    observation happened — fleet percentiles don't need it — but burn
+    rates are meaningless without it: "violations per evaluated
+    objective over the last 5 minutes" needs stamps.  Bounded like the
+    reservoir (WINDOW_CAP ring, oldest overwritten), so a runaway
+    queue cannot grow it; reads tolerate the wrap by filtering on
+    stamp, not position."""
+
+    __slots__ = ("items", "count")
+
+    def __init__(self):
+        self.items: List[tuple] = []     # (stamp_unix, value) ring
+        self.count = 0
+
+    def observe(self, v: float, stamp: float) -> None:
+        if len(self.items) < WINDOW_CAP:
+            self.items.append((stamp, v))
+        else:
+            self.items[self.count % WINDOW_CAP] = (stamp, v)
+        self.count += 1
+
+    def window(self, seconds: float, now: float) -> List[float]:
+        """Values observed within the trailing ``seconds`` of ``now``
+        (unsorted; the ring wraps out of stamp order past the cap)."""
+        lo = now - seconds
+        return [v for (t, v) in self.items if lo <= t <= now]
 
 
 class MetricsRegistry:
@@ -108,6 +170,7 @@ class MetricsRegistry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._hists: Dict[str, Histogram] = {}
+        self._windows: Dict[str, Windowed] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -138,13 +201,35 @@ class MetricsRegistry:
                 c = self._counters[name] = Counter()
             c.value += n
 
-    def observe(self, name: str, v: float) -> None:
-        """Locked histogram observe (safe across threads)."""
+    def observe(self, name: str, v: float,
+                stamp: Optional[float] = None) -> None:
+        """Histogram observe; with ``stamp`` (a wall time) the value
+        ALSO lands in the name's windowed ring so burn-style trailing-
+        window reads work (:meth:`window_values`).  Stampless
+        observations stay windowless — one-shot runs pay nothing."""
         with self._lock:
             h = self._hists.get(name)
             if h is None:
                 h = self._hists[name] = Histogram()
             h.observe(v)
+            if stamp is not None:
+                w = self._windows.get(name)
+                if w is None:
+                    w = self._windows[name] = Windowed()
+                w.observe(v, stamp)
+
+    def window_values(self, name: str, seconds: float,
+                      now: Optional[float] = None) -> List[float]:
+        """The name's stamped observations within the trailing window
+        (empty when never stamped) — the burn plane's read side."""
+        import time as _time
+
+        with self._lock:
+            w = self._windows.get(name)
+            if w is None:
+                return []
+            return w.window(seconds,
+                            now if now is not None else _time.time())
 
     def value(self, name: str, default: float = 0.0) -> float:
         with self._lock:
@@ -194,7 +279,7 @@ _process_registry = MetricsRegistry()
 _current: List[MetricsRegistry] = [_process_registry]
 _current_lock = threading.Lock()
 #: thread-local OVERRIDE of the process-current registry: serve mode
-#: (sam2consensus_tpu/serve) decodes job N+1 on a side thread while job
+#: (sam2consensus_torch/serve) decodes job N+1 on a side thread while job
 #: N's registry is process-current, and that thread's phase seconds
 #: must land in job N+1's registry, not bleed into job N's
 _tls = threading.local()

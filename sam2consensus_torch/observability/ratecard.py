@@ -1,9 +1,10 @@
 """Learned rate cards: the planner's evidence plane.
 
-Copy of ``sam2consensus_tpu/observability/ratecard.py`` without its
-scale-hint API (``compute_scale_hint``, ``drain_target_sec``,
-``card_path``, which wait for the serve slice); pinned by
-``tests/test_torch_copies.py``.
+Copy of ``sam2consensus_tpu/observability/ratecard.py`` (pinned by
+``tests/test_torch_copies.py``).  The serve runner installs a card that
+learns from its finished jobs (persisted beside a journal at
+:func:`card_path`) and computes the evidence-only scale hint
+(:func:`compute_scale_hint` against :func:`drain_target_sec`).
 
 * **estimator** — EWMA mean + EW variance + sample count + last-update
   wall age per rate key (:data:`RATE_KEYS`); a rate is only *served*
@@ -28,7 +29,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 SCHEMA = "s2c-ratecard/1"
 
@@ -378,3 +379,86 @@ def consult(key: str, default: float,
     if card is None:
         return float(default), {"source": "default", "key": key}
     return card.consult(key, default, now=now)
+
+
+# -- scale-hint evidence API ------------------------------------------------
+def drain_target_sec() -> float:
+    """Queue-drain objective the hint plans against
+    (S2C_SCALE_DRAIN_TARGET_SEC, default 600 s): a queue projected to
+    drain slower than this argues for more workers."""
+    try:
+        return max(1.0, float(os.environ.get(
+            "S2C_SCALE_DRAIN_TARGET_SEC", "600")))
+    except ValueError:
+        return 600.0
+
+
+def compute_scale_hint(cards: List[dict], queue_depth: int,
+                       workers: int,
+                       burn_states: Optional[Dict[str, str]] = None,
+                       target_sec: Optional[float] = None,
+                       now: Optional[float] = None) -> dict:
+    """Evidence-only fleet sizing verdict.
+
+    ``cards`` are card snapshots (:meth:`RateCard.snapshot` dicts —
+    the shape both live registries and the persisted JSON provide);
+    ``queue_depth`` the journal's live (submitted-not-terminal) count;
+    ``burn_states`` tenant -> ok/warn/page from the burn plane.
+    Returns ``{verdict, delta, workers, queue_depth, jobs_per_sec,
+    projected_drain_sec, target_sec, paging_tenants, reason}`` — the
+    ``s2c_fleet_scale_hint`` gauge value is ``delta`` (sign IS the
+    verdict), and the whole dict rides the health snapshot and the
+    band=0 ``scale_hint`` ledger decision.  No actuation: ROADMAP
+    item 3 consumes this."""
+    target = target_sec if target_sec is not None else drain_target_sec()
+    per_worker: List[float] = []
+    for snap in cards:
+        rates = (snap or {}).get("rates") or {}
+        best = 0.0
+        for key in ("warm_jobs_per_sec", "packed_jobs_per_sec"):
+            ent = rates.get(key) or {}
+            if ent.get("confident") and float(ent.get("mean", 0)) > 0:
+                best = max(best, float(ent["mean"]))
+        if best > 0:
+            per_worker.append(best)
+    paging = sorted(t for t, s in (burn_states or {}).items()
+                    if s == "page")
+    total_jps = sum(per_worker)
+    mean_jps = (total_jps / len(per_worker)) if per_worker else 0.0
+    hint = {
+        "workers": int(workers),
+        "queue_depth": int(queue_depth),
+        "jobs_per_sec": round(total_jps, 6),
+        "target_sec": round(target, 1),
+        "paging_tenants": paging,
+        "confident_cards": len(per_worker),
+    }
+    if not per_worker:
+        # no card has cleared the confidence gate yet: refusing to
+        # guess IS the evidence discipline
+        hint.update(verdict="hold", delta=0,
+                    projected_drain_sec=None,
+                    reason="no_confident_rate")
+        return hint
+    drain = queue_depth / total_jps if total_jps > 0 else float("inf")
+    hint["projected_drain_sec"] = round(drain, 1)
+    needed = max(1, int(math.ceil(
+        queue_depth / (mean_jps * target))) if queue_depth else 1)
+    if paging:
+        delta = max(1, needed - workers)
+        hint.update(verdict="up", delta=int(delta),
+                    reason="tenant_paging")
+    elif drain > target and needed > workers:
+        hint.update(verdict="up", delta=int(needed - workers),
+                    reason="drain_over_target")
+    elif workers > 1 and needed < workers and drain < 0.25 * target:
+        hint.update(verdict="down", delta=int(needed - workers),
+                    reason="headroom")
+    else:
+        hint.update(verdict="hold", delta=0, reason="in_band")
+    return hint
+
+
+def card_path(journal_root: str, worker: str) -> str:
+    """Canonical per-worker card file next to the shared journal."""
+    return os.path.join(journal_root, f"ratecard-{worker}.json")

@@ -19,7 +19,8 @@ the counts accumulate on the host, in the C++ decode pass itself
 (``encoder.native_encoder``'s fused count) or by ``s2c_accumulate_rows``,
 and cross to the card once, narrowed to the smallest dtype that holds
 them.  :func:`host_pileup_bound` is the ``--pileup auto`` gate between
-the two.
+the two.  :func:`canonical_slab_shapes` and :func:`prewarm_pileup` are the
+serve runner's prewarm.
 
 Fault-injection sites (``resilience.faultinject``) sit where the
 reference places them: ``mem_alloc`` at the count tensor's allocation,
@@ -50,7 +51,7 @@ import torch
 
 from .. import observability as obs
 from ..constants import NUM_SYMBOLS, PAD_CODE
-from ..encoder.events import SegmentBatch
+from ..encoder.events import MIN_BUCKET_W, SegmentBatch
 from ..observability import memplane
 from ..resilience.faultinject import fault_check
 
@@ -158,6 +159,93 @@ def scatter_segments(counts: torch.Tensor, starts: torch.Tensor,
                         torch.ones(idx.numel(), dtype=counts.dtype,
                                    device=counts.device))
     return counts
+
+
+def canonical_slab_shapes(total_len: int, read_len: int = 150,
+                          chunk_reads: int = 262144,
+                          n_reads: Optional[int] = None,
+                          segment_width: int = 0) -> list:
+    """The (rows, width) scatter shapes a job over this genome layout is
+    expected to dispatch — the serve-mode prewarm enumeration.
+
+    Widths: the power-of-two bucket of ``read_len`` plus its double
+    (deletion runs widen a read's reference span past its length;
+    encoder/events._bucket_width), both clamped to ``segment_width``
+    when the long-read segmented layout is active — segmentation bounds
+    every row at W, so wider shapes can never be dispatched.  Rows: the
+    power-of-two row paddings a chunk of ``min(n_reads, chunk_reads)``
+    reads produces (the accumulator rounds the real row count to a
+    power of two and ``iter_row_slices`` caps a slice at
+    SCATTER_CELL_BUDGET cells), plus one level down for
+    partially-filled tail chunks.  Deliberately a SMALL set — a handful
+    of compiles hidden behind the first job's decode — not an
+    exhaustive sweep; shapes outside it simply compile on first
+    dispatch like today.
+    """
+    w0 = max(MIN_BUCKET_W, 1 << max(0, (max(1, read_len) - 1).bit_length()))
+    widths = [w0, w0 * 2]
+    if segment_width:
+        widths = sorted({min(w, int(segment_width)) for w in widths})
+    shapes = []
+    for w in widths:
+        step = max(1, SCATTER_CELL_BUDGET // w)
+        if n_reads is not None:
+            # per-job hint: the row paddings this job's chunks produce,
+            # plus one level down for skipped-read shrink / tail chunks
+            r_top = min(1 << max(3, (min(n_reads, chunk_reads) - 1)
+                                 .bit_length()), step)
+            levels = {r_top, max(8, r_top // 2)}
+        else:
+            # server startup: every power-of-two level a >=~1k-read job
+            # can dispatch (the encoder's row floor is 1024; buckets
+            # with fewer real rows compile cheaply on first touch)
+            r_top = min(1 << max(3, (min(chunk_reads, 1 << 62) - 1)
+                                 .bit_length()), step)
+            levels = {1 << b for b in range(10, r_top.bit_length())}
+            levels.add(r_top)
+        for r in sorted(levels):
+            shapes.append((int(r), int(w)))
+    return sorted(set(shapes))
+
+
+def prewarm_pileup(total_len: int, shapes, device, counts=None) -> int:
+    """The serve prewarm (the reference's ``prewarm_scatter``): there is
+    no JIT to warm, so it loads the kernel extension
+    (``kernels.build.extension``, counted ``compile/persist_*`` by
+    ``observability.jitcache`` in the current registry: the serve runner
+    binds its server registry) and runs the default device route, the
+    nibble pack and K1 (:func:`pack_codes`,
+    ``pileup_kernel.accumulate_rows``), once per ``(rows, width)`` in
+    ``shapes`` over all-PAD rows at start 0, into a scratch count tensor
+    of the job's padded length, which is then freed.  The operands are
+    born on the device (no host copy) and nothing is read back, so the
+    prewarm makes no host synchronisation.  PAD adds nothing to the
+    counts (K1 skips code 15; the plain version drops PAD cells), so they
+    stay zero.  ``counts``, a caller's ``[padded, 6]`` int32 tensor,
+    takes the scratch tensor's place (a check that it stays zero).  On
+    the CPU the plain version runs.  Returns the number of shapes
+    launched."""
+    from .pileup_kernel import accumulate_rows
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        from ..kernels.build import extension
+
+        extension()
+    if counts is None:
+        counts = torch.zeros((padded_total_len(total_len), NUM_SYMBOLS),
+                             dtype=torch.int32, device=dev)
+    n = 0
+    for rows, width in sorted(set((int(r), int(w)) for r, w in shapes)):
+        if width % 2 or rows <= 0:
+            continue
+        starts = torch.zeros(rows, dtype=torch.int32, device=dev)
+        codes = torch.full((rows, width), PAD_CODE, dtype=torch.uint8,
+                           device=dev)
+        accumulate_rows(counts, starts, pack_codes(codes))
+        n += 1
+    del counts
+    return n
 
 
 def real_rows(codes: np.ndarray) -> int:

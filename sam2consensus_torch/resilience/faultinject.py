@@ -8,10 +8,15 @@ The port fires
 ``device_put``, ``pileup_dispatch``, ``accumulate``, ``vote``,
 ``insertion_build``, ``link_probe``, ``wire_encode``, ``bam_inflate``,
 ``ingest_decode_shard`` and ``mem_alloc`` at the places the reference
-fires them; the serve-scope sites (``serve_decode_ahead``,
-``journal_write``, ``job_hang``, ``session_*``, ``ingest_conn``) are in
-:data:`SITES` so a spec parses alike, and fire nowhere until the port has
-a serve stack.
+fires them, and the serve runner's sites: ``job_hang`` (beside
+``accumulate`` in ``ladder.ResilientDispatcher._attempt``; a firing rule
+SLEEPS ``S2C_FAULT_HANG_S`` seconds, default 3600, before it raises: a
+wedged dispatch for the serve watchdog to notice), ``serve_decode_ahead``
+(the runner's decode-ahead thread) and ``journal_write`` (a journal
+segment append); the runner checks the last two against its
+queue-lifetime injector.  The streaming-session sites (``session_*``,
+``ingest_conn``) are in :data:`SITES` so a spec parses alike, and fire
+nowhere until the port has sessions.
 
 Faults raise exceptions that the policy layer (``policy.classify``) cannot
 tell from the real failures they model: ``rpc`` (ConnectionError,
@@ -58,6 +63,19 @@ SITES = ("device_put", "pileup_dispatch", "accumulate", "vote",
          "session_wave_append", "session_revote", "ingest_conn")
 
 KINDS = ("rpc", "timeout", "oom", "fatal", "trace")
+
+
+#: how long a firing ``job_hang`` rule sleeps before raising (seconds);
+#: far past any sane --job-timeout, so the watchdog always wins the race
+DEFAULT_HANG_S = 3600.0
+
+
+def _hang_seconds() -> float:
+    try:
+        return max(0.0, float(os.environ.get("S2C_FAULT_HANG_S",
+                                             DEFAULT_HANG_S)))
+    except ValueError:
+        return DEFAULT_HANG_S
 
 
 class InjectedFault(Exception):
@@ -191,8 +209,8 @@ class FaultInjector:
     ``check(site)`` increments the site's call counter, evaluates every
     rule bound to the site in spec order, and raises the first match
     (recording ``fault/injected`` + ``fault/injected/<site>`` counters
-    first, so the recovery story is visible even when the fault is later
-    swallowed by a retry).
+    and a ``fault/injected`` tracer event first, so the recovery story
+    is visible even when the fault is later swallowed by a retry).
     """
 
     def __init__(self, rules: List[_Rule], seed: int = 0):
@@ -234,8 +252,20 @@ class FaultInjector:
             reg = obs.metrics()
             reg.add("fault/injected", 1)
             reg.add(f"fault/injected/{site}", 1)
+            hang = _hang_seconds() if site == "job_hang" else 0.0
             obs.tracer().event("fault/injected", site=site,
-                               kind=rule.kind, call=n)
+                               kind=rule.kind, call=n,
+                               **({"hang_s": hang} if hang else {}))
+            if hang:
+                # the wedged-dispatch model: counters/trace record the
+                # injection FIRST (the thread is about to stop making
+                # progress), then the dispatch just... doesn't return.
+                # The serve watchdog abandons the thread long before
+                # the sleep expires; if it ever wakes, the kind's
+                # exception surfaces like any other injected fault.
+                import time
+
+                time.sleep(hang)
             raise exc
 
 

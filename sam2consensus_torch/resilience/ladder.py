@@ -2,7 +2,9 @@
 
 Port of ``sam2consensus_tpu/resilience/ladder.py``: ``pileup_level``,
 ``demote_pileup``, ``demote_tail``, ``demote_tail_and_record``,
-``split_batch`` and ``ResilientDispatcher``, bound to the port's
+``split_batch``, ``ResilientDispatcher`` and the serve runner's job-level
+rung (``job_rungs``, ``job_host_rung_config``, ``record_job_demotion``,
+copies pinned by ``tests/test_torch_copies.py``), bound to the port's
 accumulators (``ops.pileup.PileupAccumulator`` and
 ``HostPileupAccumulator``), with the reference's counters, gauges and
 trace events (``resilience/demotion``, ``resilience/emergency_checkpoint``,
@@ -104,6 +106,49 @@ def _cannot_demote(stage: str, frm: str, exc: BaseException,
                f"({type(why).__name__}: {why}) after "
                f"{type(exc).__name__}: {exc}")
     return DemotionFailed(msg)
+
+
+def job_rungs(snapshot: dict) -> dict:
+    """The degradation rungs a finished run ENDED on, read back from its
+    registry snapshot's ``resilience/ladder/<stage>`` gauges — the
+    serve-mode per-job isolation surface (sam2consensus_torch/serve): a
+    warm server asserts the job AFTER a faulting one returns ``{}``
+    here, i.e. the previous job's demotions never leaked.  Keys are the
+    stages that demoted (``pileup``, ``tail``), values the rung landed
+    on; an empty dict means the run never left the fast path."""
+    rungs = {}
+    for stage in ("pileup", "tail"):
+        g = snapshot.get("gauges", {}).get(f"resilience/ladder/{stage}")
+        if g is not None and g.get("info"):
+            rungs[stage] = g["info"].get("to", "")
+    return rungs
+
+
+def job_host_rung_config(cfg):
+    """The JOB-level demotion: a whole-job re-run pinned to the
+    ladder's bottom rung (host pileup, plain packed5 wire, single
+    shard).  Used by the serve watchdog after a hang — a wedged
+    dispatch says nothing about WHICH device stage wedged, so the only
+    rung known to avoid it is the one that never touches the device
+    path at all — and by admission control to keep a degraded tenant's
+    jobs off the fleet's device path (serve/admission.py)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, pileup="host", wire="packed5",
+                               shards=1, shard_mode="auto")
+
+
+def record_job_demotion(registry, reason: str) -> None:
+    """Mark a registry (a serve job's) as having run on the job-level
+    host rung, in the same ``resilience/ladder/pileup`` gauge shape
+    :func:`job_rungs` reads — so a watchdog-retried or tenant-pinned
+    job shows ``rungs == {"pileup": "host"}`` exactly like an in-run
+    ladder demotion would."""
+    registry.add("resilience/demotions", 1)
+    registry.add("resilience/demotions/job", 1)
+    registry.gauge("resilience/ladder/pileup").set_info(
+        {"from": "device", "to": "host", "reason": reason,
+         "emergency_checkpoint": False, "job_level": True})
 
 
 def pileup_level(acc) -> str:
@@ -238,8 +283,10 @@ class ResilientDispatcher:
 
         if not isinstance(self._acc, HostPileupAccumulator):
             # the host rung carries no injection sites: it IS the
-            # bottom of the ladder.  (The reference also fires the serve
-            # watchdog's ``job_hang`` here; the port has no serve stack.)
+            # bottom of the ladder.  job_hang sits on the same device
+            # boundary but SLEEPS instead of raising (a wedged
+            # dispatch, faultinject.py) — the serve watchdog's prey.
+            faultinject.fault_check("job_hang")
             faultinject.fault_check("accumulate")
         self._acc.add(unit)
 

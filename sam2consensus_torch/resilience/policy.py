@@ -108,6 +108,20 @@ class RetriesExhausted(RuntimeError):
     ran out; carries the last underlying failure as ``__cause__``."""
 
 
+class JobDeadlineExceeded(TimeoutError):
+    """A serve-mode JOB overran its ``--job-timeout`` wall-clock budget
+    (serve/runner.py watchdog).  TimeoutError => classified TRANSIENT:
+    the job-level ladder may re-run the job on the host rung, but the
+    fleet (the warm server and its queue) is never torn down for it."""
+
+
+class HungDispatchError(TimeoutError):
+    """The serve watchdog saw no dispatch-interval heartbeat for longer
+    than the stall budget: a device dispatch (or the decode feeding it)
+    is wedged, not slow.  TimeoutError => TRANSIENT, same job-level
+    handling as :class:`JobDeadlineExceeded`."""
+
+
 #: the texts of the CUDA errors that leave the context unusable (every
 #: later call on it fails): ``cudaErrorIllegalAddress``,
 #: ``cudaErrorLaunchFailure``, ``cudaErrorLaunchTimeout``,

@@ -376,3 +376,64 @@ def test_cli_quarantine_end_to_end(tmp_path, capsys):
         t_main(["-i", sam, "-o", str(out), "--quiet",
                 "--on-bad-record", "skip", "--max-bad-records", "2"],
                device="cpu")
+
+
+# --------------------------------------------- non-ASCII wide read --
+def _wide_non_ascii(tmp_path):
+    """``formats_longread.sam`` with one QUAL byte of ``read3`` (3,037
+    bases, wider than the slab, so an overflow line) set to 0xFF: every
+    reference route rejects the byte (ROADMAP §C 3)."""
+    raw = open(os.path.join(DATA, "formats_longread.sam"), "rb").read()
+    lines = raw.split(b"\n")
+    k = next(i for i, ln in enumerate(lines) if ln.startswith(b"read3\t"))
+    fields = lines[k].split(b"\t")
+    qual = bytearray(fields[10])
+    qual[100] = 0xFF
+    fields[10] = bytes(qual)
+    lines[k] = b"\t".join(fields)
+    dirty = b"\n".join(lines)
+    sam = str(tmp_path / "wide.sam")
+    with open(sam, "wb") as fh:
+        fh.write(dirty)
+    gz = str(tmp_path / "wide.sam.gz")
+    with gzip.open(gz, "wb") as fh:
+        fh.write(dirty)
+    return sam, gz
+
+
+@needs_native
+@pytest.mark.parametrize("threads", [1, 2])
+@pytest.mark.parametrize("container", ["sam", "gz"])
+@pytest.mark.parametrize("mode", ["fail", "skip", "quarantine"])
+def test_wide_non_ascii_read_equals_reference(mode, container, threads,
+                                              tmp_path):
+    """A wide read with a byte >= 0x80 outside SEQ: the native decoder
+    replays it through the Python fallback, so strict mode raises the
+    reference's error, ``skip`` drops the read and ``quarantine`` writes
+    the reference's sidecar (reason ``non_ascii``)."""
+    sam, gz = _wide_non_ascii(tmp_path)
+    path = sam if container == "sam" else gz
+    outs = {}
+    for tag, run in (("t", run_port), ("r", run_jax)):
+        (tmp_path / tag).mkdir()
+        side = str(tmp_path / tag / "q.jsonl")
+        kw = dict(decoder="native", decode_threads=threads,
+                  on_bad_record=mode)
+        if mode == "quarantine":
+            kw["quarantine_out"] = side
+        try:
+            out, res = run(path, **kw)
+        except Exception as exc:            # noqa: BLE001 - compared below
+            outs[tag] = (type(exc).__name__,)
+            continue
+        outs[tag] = (None, out, res.stats.extra.get("bad_records"),
+                     _sidecar(side, tmp_path / tag)
+                     if mode == "quarantine" else None)
+    assert outs["t"] == outs["r"]
+    if mode == "fail":
+        assert outs["t"] == ("UnicodeDecodeError",)
+    else:
+        assert outs["t"][2] == 1
+    if mode == "quarantine":
+        got, _summary = _entries(str(tmp_path / "t" / "q.jsonl"))
+        assert [why for _r, why in got] == ["non_ascii"]

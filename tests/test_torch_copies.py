@@ -1060,3 +1060,213 @@ def test_configure_logging_errors(level, fmt):
             obs.configure_logging(level, fmt)
         msgs.append(str(exc.value))
     assert msgs[0] == msgs[1]
+
+
+# ------------------------------------------------------------- serve --
+def _code(source: str) -> str:
+    """The code of ``source``: its syntax tree without docstrings (the
+    copies' prose may name their place in the port; comments are not in
+    the tree)."""
+    import ast
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(source))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body \
+                and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def _body(module, pkg):
+    """A module's code, the package renamed."""
+    import inspect
+
+    return _code(inspect.getsource(module).replace(pkg, "PKG"))
+
+
+def _src(obj, pkg):
+    import inspect
+
+    return _code(inspect.getsource(obj).replace(pkg, "PKG"))
+
+
+def _pair(name):
+    import importlib
+
+    return tuple(importlib.import_module(f"{pkg}.{name}")
+                 for pkg in ("sam2consensus_torch", "sam2consensus_tpu"))
+
+
+@pytest.mark.parametrize("name", ["serve.admission", "serve.health",
+                                  "serve.journal", "observability.burn",
+                                  "observability.metrics"])
+def test_verbatim_serve_copies(name):
+    """Copied whole: the code is the original's, the package name and
+    the docstrings aside."""
+    t_mod, r_mod = _pair(name)
+    assert _body(t_mod, "sam2consensus_torch") == \
+        _body(r_mod, "sam2consensus_tpu")
+
+
+@pytest.mark.parametrize("name,attrs", [
+    ("observability.ratecard", ["drain_target_sec", "compute_scale_hint",
+                                "card_path"]),
+    ("observability.flight", ["trace_id"]),
+    ("serve.countcache", ["parse_budget"]),
+    ("ops.pileup", ["canonical_slab_shapes", "padded_total_len"]),
+    ("resilience.ladder", ["job_rungs", "job_host_rung_config",
+                           "record_job_demotion"]),
+    ("resilience.faultinject", ["_hang_seconds", "FaultInjector.check"]),
+    ("resilience.policy", ["JobDeadlineExceeded", "HungDispatchError"]),
+])
+def test_serve_function_copies(name, attrs):
+    t_mod, r_mod = _pair(name)
+    for attr in attrs:
+        t_obj, r_obj = t_mod, r_mod
+        for part in attr.split("."):
+            t_obj, r_obj = getattr(t_obj, part), getattr(r_obj, part)
+        if name == "ops.pileup" and attr == "padded_total_len":
+            # the port reads the tile from its own constant, not from
+            # the JAX package's mxu_pileup: compare values
+            for n in (0, 1, 2047, 2048, 4_600_000):
+                assert t_obj(n) == r_obj(n)
+            continue
+        assert _src(t_obj, "sam2consensus_torch") == \
+            _src(r_obj, "sam2consensus_tpu"), attr
+
+
+#: the telemetry copy's deliberate differences, all in ProfilerCapture:
+#: its window is torch.profiler on a CUDA device (``device``, ``window``,
+#: ``_try_device_window``, ``join``; the reference's ``_try_jax_window``
+#: opens jax.profiler), and the class docstring says so
+TELEMETRY_DIFFS = {"ProfilerCapture.__init__", "ProfilerCapture.capture",
+                   "ProfilerCapture._try_device_window",
+                   "ProfilerCapture.join", "_init_device_profiler"}
+
+
+def test_telemetry_serve_copy():
+    import inspect
+
+    t_tel, r_tel = _pair("observability.telemetry")
+    names = [n for n, obj in vars(r_tel).items()
+             if (inspect.isfunction(obj) or inspect.isclass(obj))
+             and getattr(obj, "__module__", "") == r_tel.__name__]
+    assert {"parse_slo", "slo_phase_seconds", "AggregateRegistry",
+            "render_openmetrics", "parse_openmetrics", "lint_openmetrics",
+            "TelemetryServer", "ProfilerCapture"} <= set(names)
+    for n in names:
+        if n == "ProfilerCapture":
+            continue
+        assert _src(getattr(t_tel, n), "sam2consensus_torch") == \
+            _src(getattr(r_tel, n), "sam2consensus_tpu"), n
+    for n in ("SLO_PHASES", "_SLO_ALIASES", "DEFAULT_INTERVAL_S",
+              "DEFAULT_CAPTURE_S", "CAPTURE_TOUCH_NAME", "_HELP"):
+        assert getattr(t_tel, n) == getattr(r_tel, n), n
+    t_cls, r_cls = t_tel.ProfilerCapture, r_tel.ProfilerCapture
+    for n in set(vars(r_cls)) - {"__init__", "capture", "_try_jax_window",
+                                 "__doc__"}:
+        if inspect.isfunction(vars(r_cls)[n]):
+            assert _src(vars(t_cls)[n], "sam2consensus_torch") == \
+                _src(vars(r_cls)[n], "sam2consensus_tpu"), n
+    assert _src(t_cls.capture, "sam2consensus_torch") == _src(
+        r_cls.capture, "sam2consensus_tpu").replace(
+        "_try_jax_window", "_try_device_window")
+    extra = {f"ProfilerCapture.{n}" for n in set(vars(t_cls))
+             - set(vars(r_cls))} | {n for n in vars(t_tel)
+                                    if n not in vars(r_tel)
+                                    and callable(getattr(t_tel, n))}
+    assert extra <= TELEMETRY_DIFFS
+
+
+@pytest.mark.parametrize("value", [None, "", "off", "0", "512M", "2g",
+                                   "1048576", "1.5k", "0.1", "lots", "-3"])
+def test_parse_budget_equals_reference(value):
+    t_cc, r_cc = _pair("serve.countcache")
+
+    def outcome(mod):
+        try:
+            return mod.parse_budget(value)
+        except ValueError as exc:
+            return str(exc)
+
+    assert outcome(t_cc) == outcome(r_cc)
+
+
+def test_job_ladder_helpers_equal_reference():
+    t_l, r_l = _pair("resilience.ladder")
+    t_m, r_m = _pair("observability.metrics")
+    for cfg_t, cfg_r in ((t_config.RunConfig(pileup="pallas",
+                                             wire="delta8"),
+                          r_config.RunConfig(pileup="pallas",
+                                             wire="delta8")),
+                         (t_config.RunConfig(), r_config.RunConfig())):
+        assert dataclasses.asdict(t_l.job_host_rung_config(cfg_t)) == \
+            dataclasses.asdict(r_l.job_host_rung_config(cfg_r))
+    snaps = []
+    for ladder, met in ((t_l, t_m), (r_l, r_m)):
+        reg = met.MetricsRegistry()
+        assert ladder.job_rungs(reg.snapshot()) == {}
+        ladder.record_job_demotion(reg, "HungDispatchError: x")
+        snaps.append((reg.snapshot(), ladder.job_rungs(reg.snapshot())))
+    assert snaps[0] == snaps[1]
+    assert snaps[0][1] == {"pileup": "host"}
+
+
+def test_canonical_slab_shapes_equal_reference():
+    for total_len in (400, 120_000, 4_600_000):
+        for kw in ({}, dict(read_len=100, segment_width=4096),
+                   dict(n_reads=1000, chunk_reads=4096),
+                   dict(read_len=10_000, segment_width=16384)):
+            assert t_pileup.canonical_slab_shapes(total_len, **kw) == \
+                r_pileup.canonical_slab_shapes(total_len, **kw)
+
+
+def test_predict_job_peak_bytes_wraps_the_port_model():
+    """The admission wrapper prices a job with the port's own capacity
+    model (``predict_run_peak_bytes``: the port's buffers, not the
+    reference's XLA operands), from the same config fields the
+    reference's wrapper reads."""
+    from sam2consensus_torch.observability import memplane
+
+    cfg = t_config.RunConfig(thresholds=[0.25, 0.75], chunk_reads=4096,
+                             segment_width=512)
+    want, _ = memplane.predict_run_peak_bytes(
+        1_000_000, n_thresholds=2, chunk_reads=4096, segment_width=512)
+    assert memplane.predict_job_peak_bytes(1_000_000, cfg) == want
+    host = dataclasses.replace(cfg, pileup="host")
+    want_host, _ = memplane.predict_run_peak_bytes(
+        1_000_000, n_thresholds=2, chunk_reads=4096, segment_width=512,
+        host_counts=True)
+    assert memplane.predict_job_peak_bytes(1_000_000, host) == want_host
+    assert "decode_ahead" in memplane.FAMILIES
+
+
+def test_cli_serve_flags():
+    """Every flag of the reference's serve parser parses in the port's,
+    with its dest, default, choices and type (the port's own defaults
+    aside: ``backend``).  The deliberate difference: the flags of the
+    parts the port does not run yet (batching, the count cache, fleet
+    mode, sessions, cohorts, shards, the MXU pileup) are refused by name
+    at server start (``cli.UNPORTED_SERVE_FLAGS``,
+    ``serve.runner.refuse_unported_serve``), never ignored."""
+    from sam2consensus_torch import cli as t_cli
+    from sam2consensus_tpu import cli as r_cli
+
+    def table(parser):
+        return sorted((s, a.dest, a.default, a.choices, a.type,
+                       a.nargs, type(a).__name__)
+                      for a in parser._actions for s in a.option_strings)
+
+    t_p, r_p = t_cli.build_serve_parser(), r_cli.build_serve_parser()
+    assert table(t_p) == table(r_p)
+    t_def, r_def = dict(t_p._defaults), dict(r_p._defaults)
+    assert t_def.pop("backend") == "torch" and r_def.pop("backend") == "jax"
+    assert t_def == r_def
+    refused = {f for f, _d, _s in t_cli.UNPORTED_SERVE_FLAGS} | {
+        "--batch", "--batch-window", "--count-cache", "--worker-id",
+        "--lease-ttl"}
+    assert refused <= {s for a in t_p._actions for s in a.option_strings}

@@ -1,0 +1,567 @@
+"""The port's warm server on the CPU, held against the JAX package.
+
+``ServeRunner(device="cpu")`` and ``cli.main(["serve", ...],
+device="cpu")``: a served queue writes the FASTA bytes of ``--backend
+jax`` one-shot runs of the same inputs (plain, gzip and BAM SAM, two
+thresholds, ``--py2-compat``; with and without decode-ahead), publishes
+``serve/overlap_sec`` on the jobs it decoded ahead, demotes only a
+faulting job, survives a failed job, refuses checkpoint and incremental
+jobs and every serve flag the port does not run yet by name, and without
+a named device needs CUDA.  The prewarm runs the pileup route over all-PAD
+rows without counting anything.  Admission control (queue bound, tenant
+quota, ``--mem-budget``, degraded-tenant pinning) and the decode-ahead
+fault site behave as the reference's.
+"""
+
+import gc
+import gzip
+import os
+
+import pytest
+import torch
+
+from sam2consensus_torch.config import RunConfig as TConfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
+
+
+@pytest.fixture(autouse=True)
+def _collect_jax_garbage(monkeypatch):
+    """No automatic collection during a test (the JAX package's registry
+    lock and memplane finalizers deadlock, ROADMAP §C 2), and no JAX
+    persistent compilation cache (its config is process-global)."""
+    monkeypatch.setenv("S2C_JIT_CACHE", "")
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.collect()
+
+
+def sim(tmp, name, seed, contig_len=3000, n_reads=1200, gz=False, **kw):
+    from sam2consensus_torch.utils.simulate import SimSpec, simulate
+
+    text = simulate(SimSpec(n_contigs=1, contig_len=contig_len,
+                            n_reads=n_reads, read_len=100,
+                            contig_len_jitter=0.0, seed=seed,
+                            contig_prefix="srv", **kw))
+    path = os.path.join(str(tmp), name)
+    if gz:
+        with gzip.open(path, "wb") as fh:
+            fh.write(text.encode("ascii"))
+    else:
+        with open(path, "w") as fh:
+            fh.write(text)
+    return path
+
+
+def runner(**kw):
+    from sam2consensus_torch.serve import ServeRunner
+
+    kw.setdefault("prewarm", "off")
+    kw.setdefault("device", "cpu")
+    return ServeRunner(**kw)
+
+
+def rendered(result):
+    from sam2consensus_torch.io.fasta import render_file
+
+    return {n: render_file(r, 0) for n, r in result.fastas.items()}
+
+
+def jax_cold(path, cfg=None, **kw):
+    """One independent ``--backend jax`` run (fresh backend), rendered."""
+    from sam2consensus_tpu.backends.jax_backend import JaxBackend
+    from sam2consensus_tpu.config import RunConfig
+    from sam2consensus_tpu.formats import open_alignment_input
+    from sam2consensus_tpu.io.fasta import render_file
+
+    fields = dict(backend="jax", shards=1, pileup="scatter")
+    if cfg is not None:
+        fields.update(thresholds=cfg.thresholds, maxdel=cfg.maxdel,
+                      py2_compat=cfg.py2_compat, prefix=cfg.prefix,
+                      min_depth=cfg.min_depth)
+    fields.update(kw)
+    ai = open_alignment_input(path, "auto", binary=True)
+    try:
+        res = JaxBackend().run(ai.contigs, ai.stream, RunConfig(**fields))
+    finally:
+        ai.close()
+    return {n: render_file(r, 0) for n, r in res.fastas.items()}
+
+
+def read_dir(path):
+    return {f: open(os.path.join(path, f), "rb").read()
+            for f in sorted(os.listdir(path))}
+
+
+def jax_cli_dir(paths, out, extra=()):
+    """``--backend jax`` one-shot CLI runs of ``paths`` into ``out``."""
+    from sam2consensus_tpu import cli as r_cli
+
+    for p in paths:
+        assert r_cli.main(["-i", p, "-o", out, "--backend", "jax",
+                           "--quiet", *extra]) == 0
+    return read_dir(out)
+
+
+# -- the CLI: a served queue IS N one-shot runs ------------------------------
+@pytest.mark.parametrize("ahead", ["decode-ahead", "no-decode-ahead"])
+def test_served_queue_equals_jax_one_shot(tmp_path, ahead):
+    from sam2consensus_torch import cli
+    from sam2consensus_tpu.formats.bam import sam_text_to_bam
+
+    a = sim(tmp_path, "a.sam", 11)
+    b = sim(tmp_path, "b.sam.gz", 12, gz=True)
+    c = sam_text_to_bam(open(sim(tmp_path, "c_src.sam", 13)).read(),
+                        str(tmp_path / "c.bam"))
+    inputs = [a, b, c, os.path.join(DATA, "formats_longread.sam")]
+    flags = ["-c", "0.25,0.75"]
+    out = str(tmp_path / "served")
+    argv = ["serve", *sum((["-i", p] for p in inputs), []), "-o", out,
+            "--quiet", "--pileup", "pallas", *flags]
+    if ahead == "no-decode-ahead":
+        argv.append("--no-decode-ahead")
+    assert cli.main(argv, device="cpu") == 0
+    assert read_dir(out) == jax_cli_dir(inputs, str(tmp_path / "cold"),
+                                        flags)
+
+
+def test_served_py2_compat_equals_jax(tmp_path):
+    from sam2consensus_torch import cli
+
+    paths = [sim(tmp_path, f"p{k}.sam", 21 + k, del_read_rate=0.3)
+             for k in range(2)]
+    flags = ["-d", "2", "--py2-compat", "-m", "2"]
+    out = str(tmp_path / "served")
+    assert cli.main(["serve", "-i", paths[0], "-i", paths[1], "-o", out,
+                     "--quiet", *flags], device="cpu") == 0
+    assert read_dir(out) == jax_cli_dir(paths, str(tmp_path / "cold"),
+                                        flags)
+
+
+def test_serve_cli_end_to_end_metrics(tmp_path):
+    import json
+
+    from sam2consensus_torch import cli
+
+    a = sim(tmp_path, "cli_a.sam", 90)
+    b = sim(tmp_path, "cli_b.sam.gz", 91, gz=True)
+    out = str(tmp_path / "out")
+    mbase = str(tmp_path / "metrics")
+    assert cli.main(["serve", "-i", a, "-i", b, "-o", out, "--pileup",
+                     "pallas", "--quiet", "--metrics-out", mbase],
+                    device="cpu") == 0
+    for k in (0, 1):
+        assert os.path.exists(f"{mbase}.job{k}.jsonl")
+        man = json.load(open(f"{mbase}.job{k}.jsonl.manifest.json"))
+        assert man["schema"] == "s2c-manifest/1"
+        assert man["lifecycle"]["trace_id"].startswith(f"job{k}:")
+        if k > 0:
+            assert "serve/overlap_sec" in man["serve"]
+
+
+# -- the API -------------------------------------------------------------------
+def test_api_queue_equals_jax_cold(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    jobs = [
+        (sim(tmp_path, "a.sam", 31), TConfig(pileup="pallas", prefix="a")),
+        (sim(tmp_path, "b.sam.gz", 32, gz=True),
+         TConfig(pileup="scatter", prefix="b", thresholds=[0.25, 0.75])),
+        (sim(tmp_path, "c.sam", 33), TConfig(pileup="host", prefix="c")),
+        (sim(tmp_path, "d.sam", 34, ins_read_rate=0.3),
+         TConfig(pileup="auto", prefix="d", decode_threads=2)),
+    ]
+    r = runner()
+    try:
+        results = r.submit_jobs([JobSpec(p, c) for p, c in jobs])
+    finally:
+        r.close()
+    assert [x.ok for x in results] == [True] * len(jobs)
+    for (path, cfg), res in zip(jobs, results):
+        assert rendered(res) == jax_cold(path, cfg), path
+    assert r.registry.value("serve/jobs") == len(jobs)
+
+
+def test_overlap_metric_published(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [sim(tmp_path, f"o{k}.sam", 40 + k) for k in range(3)]
+    r = runner()
+    try:
+        results = r.submit_jobs([JobSpec(p, TConfig(pileup="pallas"))
+                                 for p in paths])
+    finally:
+        r.close()
+    assert all(x.ok for x in results)
+    # job 1 was never decoded ahead; jobs 2+ carry the measured
+    # cross-job intersection (>= 0: a tiny job can decode before the
+    # previous job dispatches)
+    assert "serve/overlap_sec" not in results[0].metrics
+    for res in results[1:]:
+        assert res.metrics["serve/overlap_sec"] >= 0.0
+        assert res.metrics["serve/decode_ahead_sec"] > 0.0
+        assert res.stats.extra["decoder"] in ("native", "py")
+
+
+@pytest.mark.parametrize("pileup", ["pallas", "host"])
+def test_decode_ahead_waits_for_previous_first_dispatch(tmp_path,
+                                                        monkeypatch,
+                                                        pileup):
+    import sam2consensus_torch.serve.runner as srunner
+    from sam2consensus_torch.serve import JobSpec
+
+    aheads, dlogs = [], []
+    orig_init = srunner._DecodeAhead.__init__
+    orig_execute = srunner.ServeRunner._execute
+
+    def init(self, *args, **kwargs):
+        orig_init(self, *args, **kwargs)
+        aheads.append(self)
+
+    def execute(self, contigs, records, cfg, robs, dlog, job_id):
+        dlogs.append(dlog)
+        return orig_execute(self, contigs, records, cfg, robs, dlog, job_id)
+
+    monkeypatch.setattr(srunner._DecodeAhead, "__init__", init)
+    monkeypatch.setattr(srunner.ServeRunner, "_execute", execute)
+    paths = [sim(tmp_path, f"w{k}.sam", 80 + k) for k in range(3)]
+    r = runner()
+    try:
+        results = r.submit_jobs([JobSpec(p, TConfig(pileup=pileup))
+                                 for p in paths])
+    finally:
+        r.close()
+    assert all(x.ok for x in results)
+    assert len(aheads) == 2 and len(dlogs) == 3
+    # job k+1's decode (its open first) begins no earlier than job k's
+    # first pileup dispatch
+    for ahead, dlog in zip(aheads, dlogs):
+        assert dlog and ahead.intervals()
+        assert ahead.intervals()[0][0] >= dlog[0][0]
+
+
+def test_midqueue_fault_demotes_only_that_job(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [sim(tmp_path, f"f{k}.sam", 60 + k) for k in range(3)]
+    faulty = TConfig(pileup="pallas",
+                     fault_inject="pileup_dispatch:rpc:0:inf",
+                     on_device_error="fallback", retries=1,
+                     retry_backoff=0.01)
+    cfgs = [TConfig(pileup="pallas"), faulty, TConfig(pileup="pallas")]
+    r = runner()
+    try:
+        results = r.submit_jobs([JobSpec(p, c)
+                                 for p, c in zip(paths, cfgs)])
+    finally:
+        r.close()
+    assert [x.ok for x in results] == [True, True, True]
+    assert results[1].metrics.get("resilience/demotions", 0) >= 1
+    assert results[1].rungs.get("pileup") == "host"
+    for k in range(3):
+        assert rendered(results[k]) == jax_cold(paths[k])
+    # the NEXT job never saw the demotion
+    assert results[2].metrics.get("resilience/demotions", 0) == 0
+    assert results[2].rungs == {}
+    assert "pileup_ladder" not in results[2].stats.extra
+
+
+def test_failed_job_does_not_kill_the_server(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    good = sim(tmp_path, "g.sam", 70)
+    cfg = TConfig(pileup="pallas")
+    r = runner()
+    try:
+        results = r.submit_jobs([
+            JobSpec(good, cfg),
+            JobSpec(str(tmp_path / "missing.sam"), cfg),
+            JobSpec(good, cfg)])
+    finally:
+        r.close()
+    assert [x.ok for x in results] == [True, False, True]
+    assert "FileNotFoundError" in results[1].error
+    assert rendered(results[2]) == jax_cold(good)
+    assert r.registry.value("serve/jobs_failed") == 1
+
+
+@pytest.mark.parametrize("cfg,match", [
+    (dict(checkpoint_dir="ck"), "checkpoint"),
+    (dict(incremental=True), "--incremental: not supported by the torch"),
+    (dict(shards=2), "RunConfig.shards=2: not supported by the torch"),
+    (dict(shard_mode="dp"), "RunConfig.shard_mode='dp': not supported"),
+    (dict(pileup="mxu"), "--pileup mxu: not supported by the torch"),
+])
+def test_serve_rejects_jobs_up_front(tmp_path, cfg, match):
+    from sam2consensus_torch.serve import JobSpec
+
+    path = sim(tmp_path, "r.sam", 80)
+    if "checkpoint_dir" in cfg:
+        cfg = dict(checkpoint_dir=str(tmp_path / "ck"))
+    r = runner()
+    try:
+        with pytest.raises(ValueError, match=match):
+            r.submit_jobs([JobSpec(path, TConfig(**cfg))])
+        assert r.registry.value("serve/jobs") == 0
+    finally:
+        r.close()
+
+
+def test_env_metrics_out_suffixed_per_job(tmp_path, monkeypatch):
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [sim(tmp_path, f"e{k}.sam", 85 + k) for k in range(2)]
+    base = str(tmp_path / "envm.jsonl")
+    monkeypatch.setenv("S2C_METRICS_OUT", base)
+    r = runner()
+    try:
+        results = r.submit_jobs([JobSpec(p, TConfig(pileup="pallas"))
+                                 for p in paths])
+    finally:
+        r.close()
+    assert all(x.ok for x in results)
+    assert os.path.exists(base + ".job0")
+    assert os.path.exists(base + ".job1")
+    assert not os.path.exists(base)
+
+
+# -- refusals and the device policy ------------------------------------------
+UNPORTED = [
+    (["--batch", "4"], "--batch 4"),
+    (["--batch", "auto"], "--batch auto"),
+    (["--batch-window", "20"], "--batch-window 20.0"),
+    (["--count-cache", "512M"], "--count-cache 512M"),
+    (["--incremental"], "--incremental True"),
+    (["--worker-id", "w1"], "--worker-id w1"),
+    (["--lease-ttl", "5"], "--lease-ttl 5.0"),
+    (["--ingest-port", "0"], "--ingest-port 0"),
+    (["--stability-waves", "5"], "--stability-waves 5"),
+    (["--revote-debounce", "1"], "--revote-debounce 1.0"),
+    (["--ingest-max-body", "100"], "--ingest-max-body 100"),
+    (["--ingest-timeout", "3"], "--ingest-timeout 3.0"),
+    (["--ingest-max-pending", "4"], "--ingest-max-pending 4"),
+    (["--cohort-manifest", "m.txt"], "--cohort-manifest m.txt"),
+    (["--cohort-wave", "4"], "--cohort-wave 4"),
+    (["--cohort-summary", "s.json"], "--cohort-summary s.json"),
+    (["--shards", "2"], "--shards 2"),
+    (["--shard-mode", "dp"], "--shard-mode dp"),
+    (["--pileup", "mxu"], "--pileup mxu"),
+]
+
+
+@pytest.mark.parametrize("argv,named", UNPORTED,
+                         ids=[u[0][0] + "=" + u[0][-1] for u in UNPORTED])
+def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
+    from sam2consensus_torch import cli
+
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["serve", "-i", str(tmp_path / "x.sam"), "-o",
+                  str(tmp_path / "o"), "--quiet", *argv], device="cpu")
+    assert str(exc.value.code) == (f"error: {named}: not supported by "
+                                   f"the torch backend yet")
+
+
+@pytest.mark.parametrize("env,value", [("S2C_MESH_HOSTS", "2"),
+                                       ("S2C_COUNT_CACHE", "1G")])
+def test_unported_serve_env_refused_by_name(tmp_path, monkeypatch, env,
+                                            value):
+    from sam2consensus_torch import cli
+
+    monkeypatch.setenv(env, value)
+    with pytest.raises(SystemExit, match=f"error: {env} {value}: not "
+                                         f"supported by the torch"):
+        cli.main(["serve", "-i", str(tmp_path / "x.sam"), "--quiet"],
+                 device="cpu")
+    with pytest.raises(ValueError, match=f"{env} {value}: not supported"):
+        runner()
+
+
+@pytest.mark.parametrize("kw,named", [
+    (dict(batch="2"), "--batch 2"), (dict(batch_window=5.0),
+                                     "--batch-window 5.0"),
+    (dict(count_cache="64M"), "--count-cache 64M"),
+    (dict(worker_id="w"), "--worker-id w"), (dict(lease_ttl=3.0),
+                                             "--lease-ttl 3.0")])
+def test_unported_runner_options_refused_by_name(kw, named):
+    with pytest.raises(ValueError, match=f"{named}: not supported"):
+        runner(**kw)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fault-inject", "nonsense//"], ["--slo", "e2e=fast"],
+    ["--mem-budget", "lots"]])
+def test_serve_cli_start_checks_equal_reference(tmp_path, argv):
+    from sam2consensus_torch import cli as t_cli
+    from sam2consensus_tpu import cli as r_cli
+
+    base = ["serve", "-i", str(tmp_path / "x.sam"), "--quiet"]
+    with pytest.raises(SystemExit) as t_exit:
+        t_cli.main(base + argv, device="cpu")
+    with pytest.raises(SystemExit) as r_exit:
+        r_cli.main(base + argv)
+    assert str(t_exit.value.code) == str(r_exit.value.code)
+
+
+def test_serve_cli_needs_an_input():
+    from sam2consensus_torch import cli
+
+    with pytest.raises(SystemExit, match="at least one -i/--input"):
+        cli.main(["serve", "--quiet"], device="cpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="CUDA present")
+def test_server_needs_cuda_unless_cpu_is_named(tmp_path):
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.serve import ServeRunner, submit_jobs
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeRunner()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        submit_jobs([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["serve", "-i", sim(tmp_path, "x.sam", 1), "-o",
+                  str(tmp_path / "o"), "--quiet"])
+
+
+# -- prewarm ------------------------------------------------------------------
+def test_prewarm_of_all_pad_rows_counts_nothing():
+    from sam2consensus_torch.ops.pileup import (canonical_slab_shapes,
+                                                padded_total_len,
+                                                prewarm_pileup)
+
+    total_len = 5000
+    shapes = canonical_slab_shapes(total_len, read_len=100,
+                                   chunk_reads=4096)
+    counts = torch.zeros((padded_total_len(total_len), 6),
+                         dtype=torch.int32)
+    assert prewarm_pileup(total_len, shapes, "cpu", counts=counts) \
+        == len(shapes)
+    assert int(counts.abs().sum()) == 0
+
+
+def test_runner_prewarm_counts_shapes_in_server_registry(tmp_path):
+    from sam2consensus_torch.ops.pileup import canonical_slab_shapes
+    from sam2consensus_torch.serve import JobSpec
+
+    path = sim(tmp_path, "p.sam", 31, contig_len=7777)
+    r = runner()
+    try:
+        shapes = canonical_slab_shapes(7777, read_len=100, n_reads=1200)
+        assert r.prewarm(7777, shapes) == len(shapes)
+        assert r.prewarm(7777, shapes) == 0            # idempotent
+        assert r.registry.value("compile/prewarm_shapes") == len(shapes)
+        [res] = r.submit_jobs([JobSpec(path, TConfig(pileup="pallas"))])
+    finally:
+        r.close()
+    assert res.ok and rendered(res) == jax_cold(path)
+    assert not any(k.startswith("compile/prewarm") for k in res.metrics)
+
+
+@pytest.mark.parametrize("pileup,engaged", [("pallas", True),
+                                            ("scatter", True),
+                                            ("auto", False),
+                                            ("host", False)])
+def test_auto_prewarm_engages_for_explicit_device_pileup(tmp_path, pileup,
+                                                         engaged):
+    from sam2consensus_torch.serve import JobSpec
+
+    path = sim(tmp_path, "w.sam", 32)
+    r = runner(prewarm="auto")
+    try:
+        [res] = r.submit_jobs([JobSpec(path, TConfig(pileup=pileup))])
+        for t in list(r._prewarm_threads):
+            t.join(timeout=30)
+    finally:
+        r.close()
+    assert res.ok
+    assert (r.registry.value("compile/prewarm_shapes") > 0) == engaged
+
+
+# -- admission ------------------------------------------------------------------
+def test_admission_queue_bound_and_tenant_quota(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    path = sim(tmp_path, "q.sam", 100)
+    cfg = TConfig(pileup="pallas")
+    r = runner(max_queue=3, tenant_quota=2)
+    try:
+        res = r.submit_jobs([JobSpec(path, cfg, tenant="a"),
+                             JobSpec(path, cfg, tenant="a"),
+                             JobSpec(path, cfg, tenant="a"),
+                             JobSpec(path, cfg, tenant="b"),
+                             JobSpec(path, cfg, tenant="b")])
+    finally:
+        r.close()
+    assert [x.ok for x in res] == [True, True, False, True, False]
+    assert res[2].admission == "tenant_quota"
+    assert res[4].admission == "queue_full"
+    assert "admission rejected: tenant_quota" in res[2].error
+    assert r.registry.value("serve/admission_rejected") == 2
+    assert r.registry.value("serve/admission_admitted") == 3
+    snap = r.health_snapshot()
+    assert snap["admission"]["rejected"] == 2
+
+
+def test_mem_budget_sheds_by_capacity(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    small = sim(tmp_path, "s.sam", 101, contig_len=2000)
+    big = sim(tmp_path, "b.sam", 102, contig_len=400_000, n_reads=200)
+    # the port's model prices a slab of --chunk-reads rows: ~173 MB for
+    # the small genome, ~183 MB for the large one
+    r = runner(mem_budget="170M")
+    try:
+        res = r.submit_jobs([JobSpec(small, TConfig(pileup="pallas")),
+                             JobSpec(big, TConfig(pileup="pallas"))])
+    finally:
+        r.close()
+    assert [x.ok for x in res] == [True, False]
+    assert res[1].admission == "capacity"
+    assert "predicted peak" in res[1].error
+    assert r.registry.value("serve/admission_capacity") == 1
+
+
+def test_degraded_tenant_pinned_to_host_rung(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [sim(tmp_path, f"t{k}.sam", 110 + k) for k in range(3)]
+    faulty = TConfig(pileup="pallas",
+                     fault_inject="pileup_dispatch:rpc:0:inf",
+                     on_device_error="fallback", retries=1,
+                     retry_backoff=0.01)
+    r = runner()
+    try:
+        res = r.submit_jobs([
+            JobSpec(paths[0], faulty, tenant="cursed"),
+            JobSpec(paths[1], TConfig(pileup="pallas"), tenant="cursed"),
+            JobSpec(paths[2], TConfig(pileup="pallas"), tenant="fine")])
+    finally:
+        r.close()
+    assert [x.ok for x in res] == [True, True, True]
+    assert res[1].admission == "pinned:host"
+    assert res[1].stats.extra["pileup_path"] == "host"
+    assert res[2].admission is None and res[2].rungs == {}
+    # one good pinned job is the probation: the tenant is released
+    assert r.admission.tenant_rungs == {}
+    for k in range(3):
+        assert rendered(res[k]) == jax_cold(paths[k])
+
+
+def test_decode_ahead_fault_fails_only_its_job(tmp_path):
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [sim(tmp_path, f"d{k}.sam", 120 + k) for k in range(3)]
+    # call 0 is job 2's open (job 1 never decodes ahead)
+    r = runner(fault_inject="serve_decode_ahead:rpc:0:1")
+    try:
+        res = r.submit_jobs([JobSpec(p, TConfig(pileup="pallas"))
+                             for p in paths])
+    finally:
+        r.close()
+    assert [x.ok for x in res] == [True, False, True]
+    assert "InjectedRpcError" in res[1].error
+    assert rendered(res[2]) == jax_cold(paths[2])
