@@ -176,13 +176,46 @@ Phases, each fatal on failure (exit code 1, no result line):
    phase 7, the journal's audit clean, job 1 skipped by fingerprint; (5)
    the ``capture_profile`` touch file dropped as job 1 starts arms a
    bounded ``torch.profiler`` window whose trace holds
-   ``pileup_rows_kernel``.
+   ``pileup_rows_kernel``;
+13. continuous batching and the count cache: (1) ``bench.py``'s
+   ``target_capture`` (seeds 202 and 203) around eight of its ``phix``
+   (seeds 101-108) through ``cli.main(["serve", ...])`` at ``-c 0.25
+   --pileup auto``, ``--batch auto``, again ``--batch auto`` with the
+   shared tail off (``S2C_BATCH_SHARED_TAIL=0``) under
+   ``--insertion-kernel pallas``, then ``--batch off``: a full batch of
+   8 and a drained batch of 2, each batch's shared dispatch launching K1
+   (the launch counts set to 0 just before the batch and read just
+   after) on K1's shared accumulator, its counts never fetched to the
+   host, its tail on the card launching K2 or K3 (the shared tail over
+   the shared accumulator; each member's extraction tail over its slice
+   of the card's counts), ``batch/demotions`` 0, every output equal
+   between the three queues and both ``target_capture`` jobs equal to
+   the port's CPU one-shot runs, ``memory_allocated()`` after each
+   packed queue within 1 MiB of its value before; each batch's merged
+   slabs, occupancy, flush reason, tail and launches, and the queues'
+   walls and jobs/s printed; (2)
+   ``serve.benchmark.run_serve_batch_bench()`` at its defaults (the
+   serial side on the plain scatter) and at ``pileup="auto"``, both
+   ``identical``; (3) the batch of 8 under ``--fault-inject
+   pileup_dispatch:oom:0:1`` demotes whole (``batch/demotions`` 1), its
+   outputs equal to (1)'s serial run; (4) ``ecoli_scale`` split into a
+   base and a +10% delta served as ``base, delta, base`` through a
+   ``ServeRunner(count_cache="2G")`` as incremental jobs at ``-c 0.25
+   --pileup pallas``: the delta's FASTA equal to phase 7's, the second
+   base a duplicate with the same bytes, 2 hits and 1 miss, the entry's
+   resident MiB, the seed's upload and the capture's fetch seconds;
+   ``run_incremental_bench(n_reads=150_000)`` ``identical``, its cost
+   ratio printed against the reference's 0.15 target; (5) host
+   synchronisations: none in a batch's dispatch waves (fatal), its
+   shared tail's printed; the delta served without a cache makes its
+   one-shot run's (fatal), with one printed beside it.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
 is fatal) and timed there with CUDA events: the kernel alone (and its
 device time from ``torch.profiler``, which holds no host time, divided by
-the launches the profiler recorded), its route (what the main path pays:
+the launches the profiler recorded after a warm-up step; from CUDA events,
+named so, where no profiler window records one), its route (what the main path pays:
 plan, if any, and wrapper), its plain version,
 one PyTorch library call where one computes the same function (K1: one
 ``torch.bincount`` of the flat cell index, also timed with the
@@ -297,38 +330,66 @@ def kernel_ms(kernel, call, reps: int) -> float:
     return time_ms(lambda: fn(*args), reps)
 
 
-def device_ms(kernel, call, reps: int) -> float:
+def device_ms(kernel, call, reps: int, attempts: int = 3):
     """Device time of one entry-point call on one launch's arguments, from
     ``torch.profiler`` over ``reps`` calls: the mean CUDA time of the
-    kernel function's launches the profiler recorded (a profile may miss
-    some; the count is printed, and none recorded is fatal), plus the mean
-    time of the memsets, where the entry point makes one a call (K3).
-    Unlike :func:`kernel_ms` it holds no host time."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel function's launches the profiler recorded, plus the mean time
+    of the memsets, where the entry point makes one a call (K3).  Unlike
+    :func:`kernel_ms` it holds no host time.
+
+    CUPTI drops the launches of a window's first milliseconds, and the
+    drop grows with the profiler sessions a process has had (20 of 20
+    recorded in a process without a served queue, as few as 0 of 20 after
+    phases 11-13).  So each window first runs a warm-up step the profiler
+    traces and discards (``schedule(warmup=1, active=1)``), and records
+    the ``reps`` calls after it; a window that still records none is made
+    again, up to ``attempts`` times.  Returns ``(ms, source)``: ``source``
+    is ``"profiler"``, or ``"cuda_events"`` where no window recorded a
+    launch and ``ms`` is :func:`kernel_ms`'s CUDA-event time instead (a
+    time with host gaps, printed as such)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     with last_launch(kernel) as seen:
         call()
     fn, args = kernel.function(), seen[0]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
+
+    def window(warmup: bool):
         torch.cuda.synchronize()
-    events = prof.key_averages()
+        kw = ({"schedule": schedule(wait=0, warmup=1, active=1, repeat=1)}
+              if warmup else {})
+        with profile(activities=[ProfilerActivity.CUDA], **kw) as prof:
+            for _ in range(2 if warmup else 1):
+                for _ in range(reps):
+                    fn(*args)
+                torch.cuda.synchronize()
+                if warmup:
+                    prof.step()
+        events = prof.key_averages()
 
-    def mean_ms(match):
-        hits = [e for e in events if match(e.key)]
-        n = sum(e.count for e in hits)
-        return (sum(e.device_time_total for e in hits) / n / 1e3 if n
-                else 0.0), n
+        def mean_ms(match):
+            hits = [e for e in events if match(e.key)]
+            n = sum(e.count for e in hits)
+            return (sum(e.device_time_total for e in hits) / n / 1e3 if n
+                    else 0.0), n
 
-    ms, n = mean_ms(lambda key: kernel.name + "_kernel" in key)
-    set_ms, n_set = mean_ms(lambda key: key.startswith("Memset"))
-    print(f"    {kernel.name}: profiler recorded {n} launches and {n_set} "
-          f"memsets ({set_ms:.4f} ms each) of {reps} calls")
-    if not n:
-        fail(f"{kernel.name}: the profiler recorded no launch")
-    return ms + set_ms
+        ms, n = mean_ms(lambda key: kernel.name + "_kernel" in key)
+        set_ms, n_set = mean_ms(lambda key: key.startswith("Memset"))
+        return ms + set_ms, n, set_ms, n_set
+
+    # the window as it was before the warm-up step, for the record only
+    _, n_cold, _, _ = window(False)
+    for attempt in range(1, attempts + 1):
+        ms, n, set_ms, n_set = window(True)
+        print(f"    {kernel.name}: profiler recorded {n} launches and "
+              f"{n_set} memsets ({set_ms:.4f} ms each) of {reps} calls "
+              f"after a warm-up step (attempt {attempt}; {n_cold} of "
+              f"{reps} in a window without one)")
+        if n:
+            return ms, "profiler"
+    ms = kernel_ms(kernel, call, reps)
+    print(f"    {kernel.name}: no profiler window recorded a launch; "
+          f"device time from CUDA events instead: {ms:.4f} ms")
+    return ms, "cuda_events"
 
 
 @contextlib.contextmanager
@@ -2387,10 +2448,10 @@ def served_jobs():
             jobs.append({"job": job_id, "launched": {
                 k: after[k] - before[k] for k in after}})
 
-    def finalize(self, entry, res, robs, spec, queue_wait):
+    def finalize(self, entry, res, robs, spec, queue_wait, **kw):
         for hook in hooks:
             hook(self, entry, res)
-        orig_finalize(self, entry, res, robs, spec, queue_wait)
+        orig_finalize(self, entry, res, robs, spec, queue_wait, **kw)
         for th in list(self._prewarm_threads):
             th.join()
         rec = next((j for j in jobs if j["job"] == res.job_id
@@ -2856,6 +2917,468 @@ def warm_server(tmp: str, card: str) -> None:
     profile_capture(tmp, card)
 
 
+# -- phase 13: continuous batching and the count cache ----------------------
+#: phase 13.1's packed queue: bench.py's target_capture (350 contigs x
+#: 1,200 bp, 100,000 x 100 bp reads) at seeds 202 and 203 around eight of
+#: its phix (5,386 bp, 20,000 x 100 bp reads) at seeds 101-108; --batch
+#: auto composes one full batch of 8 and one drained batch of 2
+PHASE13_QUEUE = ([("target_capture", 202)]
+                 + [("phix", s) for s in range(101, 109)]
+                 + [("target_capture", 203)])
+#: ecoli_scale's reads split as bench.py's BENCH_INCR_PCT default (+10%):
+#: the base's reads, then the delta's
+INCR_BASE_READS = 136_364
+
+
+def phase13_inputs(tmp: str) -> list:
+    """Phase 13.1's ten inputs, simulated as bench.py specifies them."""
+    from sam2consensus_torch.utils.simulate import (SimSpec, simulate,
+                                                    write_sam)
+
+    specs = {"target_capture": dict(n_contigs=350, contig_len=1200,
+                                    n_reads=100_000, read_len=100,
+                                    contig_prefix="gene"),
+             "phix": dict(n_contigs=1, contig_len=5386, n_reads=20_000,
+                          read_len=100, contig_prefix="phiX")}
+    t0 = time.perf_counter()
+    paths = [write_sam(simulate(SimSpec(seed=seed, **specs[name])),
+                       os.path.join(tmp, f"{name}_{seed}.sam"))
+             for name, seed in PHASE13_QUEUE]
+    print(f"  13.1 inputs: {len(paths)} made in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return paths
+
+
+@contextlib.contextmanager
+def batch_probe(counted=None):
+    """Per packed batch (``BatchScheduler.run_batch``): each kernel's
+    launches with the counts set to 0 just before the batch and read just
+    after, the batch's ``serve/batch`` info, the shared tail's placement
+    and the extraction tails run (with the type of the counts each was
+    handed), the host synchronisations its dispatch waves, any fetch of
+    the shared counts and its shared tail made (``counted``: an open
+    :func:`counted_syncs`), and the runner.  Yields the list of
+    records."""
+    from sam2consensus_torch.kernels.build import all_kernels, \
+        reset_launches
+    from sam2consensus_torch.ops.pileup import PileupAccumulator
+    from sam2consensus_torch.serve.scheduler import BatchScheduler
+
+    kernels = all_kernels()
+    records = []
+    orig = {n: getattr(BatchScheduler, n) for n in (
+        "run_batch", "_dispatch_wave", "_shared_tail", "_tail_member",
+        "_render_member")}
+    orig_fetch = PileupAccumulator.counts_host
+
+    def syncs():
+        now = counted["now"]() if counted is not None else {}
+        return sum(now.values())
+
+    def run_batch(self, *args, **kwargs):
+        rec = {"waves": 0, "wave_syncs": 0, "fetches": 0,
+               "fetch_syncs": 0, "placement": None, "tail_syncs": 0,
+               "extraction_tails": 0, "extraction_parts": set(),
+               "fetch_sec": 0.0, "tail_sec": 0.0, "render_sec": 0.0}
+        records.append(rec)
+        reset_launches(kernels)
+        t0 = rec["t0"] = time.perf_counter()
+        try:
+            return orig["run_batch"](self, *args, **kwargs)
+        finally:
+            rec["wall"] = time.perf_counter() - t0
+            rec["launched"] = {k.name: k.launches for k in kernels}
+            rec["info"] = dict(self.runner.registry.snapshot()["gauges"]
+                               .get("serve/batch", {}).get("info", {}))
+            rec["runner"] = self.runner
+
+    def wave(self, *args, **kwargs):
+        a = syncs()
+        records[-1].setdefault("first_wave", time.perf_counter())
+        try:
+            return orig["_dispatch_wave"](self, *args, **kwargs)
+        finally:
+            records[-1]["waves"] += 1
+            records[-1]["wave_syncs"] += syncs() - a
+
+    def fetch(self):
+        a, t0 = syncs(), time.perf_counter()
+        try:
+            return orig_fetch(self)
+        finally:
+            if records and "wall" not in records[-1]:
+                records[-1]["fetches"] += 1
+                records[-1]["fetch_syncs"] += syncs() - a
+                records[-1]["fetch_sec"] += time.perf_counter() - t0
+
+    def shared_tail(self, *args, **kwargs):
+        a = syncs()
+        out = orig["_shared_tail"](self, *args, **kwargs)
+        records[-1]["tail_syncs"] += syncs() - a
+        records[-1]["placement"] = out["placement"]
+        records[-1]["tail_sec"] += out["tail_sec"]
+        return out
+
+    def render_member(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig["_render_member"](self, *args, **kwargs)
+        finally:
+            records[-1]["render_sec"] += time.perf_counter() - t0
+
+    def tail_member(self, m, part, *args, **kwargs):
+        records[-1]["extraction_tails"] += 1
+        records[-1]["extraction_parts"].add(
+            f"{type(part).__name__} on {getattr(part, 'device', 'host')}")
+        return orig["_tail_member"](self, m, part, *args, **kwargs)
+
+    BatchScheduler.run_batch = run_batch
+    BatchScheduler._dispatch_wave = wave
+    BatchScheduler._shared_tail = shared_tail
+    BatchScheduler._tail_member = tail_member
+    BatchScheduler._render_member = render_member
+    PileupAccumulator.counts_host = fetch
+    try:
+        yield records
+    finally:
+        for n, fn in orig.items():
+            setattr(BatchScheduler, n, fn)
+        PileupAccumulator.counts_host = orig_fetch
+
+
+def serve_inputs(paths, out, *extra) -> list:
+    argv = ["serve"]
+    for p in paths:
+        argv += ["-i", p]
+    return argv + ["-o", out, "-c", "0.25", "--decoder", "native",
+                   "--quiet", *extra]
+
+
+def packed_run(tmp: str, card: str, paths: list, name: str, label: str,
+               *extra) -> tuple:
+    """One ``--batch auto`` serve of ``paths`` at ``-c 0.25 --pileup
+    auto`` under :func:`batch_probe` and :func:`counted_syncs`, with the
+    memory allocated before and after it (within 1 MiB, fatal); returns
+    its output directory and the batch records."""
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    out = os.path.join(tmp, name)
+    with counted_syncs() as counted, batch_probe(counted) as batches:
+        t0 = time.perf_counter()
+        rc = cli_quiet(serve_inputs(paths, out, "--pileup", "auto",
+                                    "--batch", "auto", *extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    if rc != 0:
+        fail(f"phase 13.1: the packed queue ({label}) failed")
+    runner = batches[-1]["runner"] if batches else None
+    demotions = runner.registry.value("batch/demotions") if runner else None
+    print(f"  13.1 packed queue, {label} [{card}]: {len(paths)} jobs in "
+          f"{wall:.3f}s ({len(paths) / wall:.2f} jobs/s), "
+          f"{len(batches)} batch(es), batch/demotions={demotions}, "
+          f"memory_allocated before={mem0} B after={mem1} B")
+    if len(batches) != 2:
+        fail(f"phase 13.1: {len(batches)} batches, not a full batch of 8 "
+             f"and a drained batch of 2")
+    for k, b in enumerate(batches):
+        info = b["info"]
+        tail = (f"shared on {b['placement']} ({b['tail_syncs']} host "
+                f"syncs)" if b["placement"] else "extraction")
+        print(f"    batch {k} [{card}]: jobs={info.get('jobs')} flush="
+              f"{info.get('flush_reason')} strategy={info.get('strategy')} "
+              f"merged_slabs={info.get('merged_slabs')} occupancy="
+              f"{info.get('occupancy')} events={info.get('events')} "
+              f"shared_wall={info.get('shared_wall_sec')}s dispatch="
+              f"{info.get('dispatch_sec')}s waves={b['waves']} launches="
+              f"{b['launched']} tail={tail} extraction tails="
+              f"{b['extraction_tails']} "
+              f"{sorted(b['extraction_parts'])} host syncs: waves "
+              f"{b['wave_syncs']}, count fetches {b['fetches']} "
+              f"({b['fetch_syncs']} syncs); batch wall {b['wall']:.4f}s: "
+              f"member decode to the first wave "
+              f"{b.get('first_wave', b['t0']) - b['t0']:.4f}s, shared "
+              f"tail {b['tail_sec']:.4f}s, renders {b['render_sec']:.4f}s")
+        if not b["launched"].get("pileup_rows"):
+            fail(f"phase 13.1: batch {k}'s shared dispatch launched no K1")
+        if info.get("strategy") != "pallas":
+            fail(f"phase 13.1: batch {k}'s shared accumulator is "
+                 f"{info.get('strategy')}, not K1's")
+        if b["wave_syncs"]:
+            fail(f"phase 13.5: batch {k}'s dispatch waves made "
+                 f"{b['wave_syncs']} host synchronisations")
+        if b["fetches"]:
+            fail(f"phase 13.1: batch {k} fetched its shared counts to the "
+                 f"host {b['fetches']} time(s); the tails read them on "
+                 f"the card")
+        if not (b["launched"].get("insertion_vote")
+                or b["launched"].get("insertion_table")):
+            fail(f"phase 13.1: batch {k}'s tail launched neither K2 nor K3")
+    if [b["info"].get("jobs") for b in batches] != [8, 2] or \
+            [b["info"].get("flush_reason") for b in batches] != \
+            ["full", "drained"]:
+        fail("phase 13.1: the batches are not a full 8 and a drained 2")
+    if demotions != 0:
+        fail(f"phase 13.1: batch/demotions={demotions}")
+    if abs(mem1 - mem0) > 1 << 20:
+        fail(f"phase 13.1: memory_allocated after the queue is "
+             f"{mem1 - mem0} B past its value before it")
+    return out, batches, wall
+
+
+def packed_queue(tmp: str, card: str, paths: list) -> dict:
+    """Phase 13.1: the ten-job queue at ``-c 0.25 --pileup auto`` with
+    ``--batch auto`` (each batch's shared tail on the card, over the
+    shared counts), again with the shared tail off under
+    ``--insertion-kernel pallas`` (each member's extraction tail on the
+    card, over its slice of them), and with ``--batch off``; returns the
+    serial run's output directory."""
+    out_p, batches, wall_p = packed_run(tmp, card, paths, "p13_packed",
+                                        "shared tail")
+    for k, b in enumerate(batches):
+        if b["placement"] != "device" or b["extraction_tails"]:
+            fail(f"phase 13.1: batch {k}'s shared tail ran on "
+                 f"{b['placement']} with {b['extraction_tails']} "
+                 f"extraction tails, not on the card")
+    os.environ["S2C_BATCH_SHARED_TAIL"] = "0"
+    try:
+        out_x, xbatches, _w = packed_run(
+            tmp, card, paths, "p13_packed_x",
+            "extraction tails, --insertion-kernel pallas",
+            "--insertion-kernel", "pallas")
+    finally:
+        del os.environ["S2C_BATCH_SHARED_TAIL"]
+    for k, b in enumerate(xbatches):
+        if b["placement"] is not None or \
+                b["extraction_tails"] != b["info"].get("jobs") or \
+                b["extraction_parts"] != {
+                    f"Tensor on cuda:{torch.cuda.current_device()}"}:
+            fail(f"phase 13.1: batch {k}'s extraction tails "
+                 f"({b['extraction_tails']}, {b['extraction_parts']}) did "
+                 f"not all read the card's counts")
+    out_s = os.path.join(tmp, "p13_serial")
+    t0 = time.perf_counter()
+    rc = cli_quiet(serve_inputs(paths, out_s, "--pileup", "auto",
+                                "--batch", "off"))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if rc != 0:
+        fail("phase 13.1: the serial queue failed")
+    print(f"  13.1 serial queue [{card}]: {len(paths)} jobs in "
+          f"{wall_s:.3f}s ({len(paths) / wall_s:.2f} jobs/s)")
+    packed, serial = served_files(out_p), served_files(out_s)
+    if packed != serial:
+        fail(f"phase 13.1: packed outputs differ from serial "
+             f"({sorted(set(packed) ^ set(serial))[:4]} or their bytes)")
+    if served_files(out_x) != serial:
+        fail("phase 13.1: the extraction tails' outputs differ from serial")
+    for path in (paths[0], paths[-1]):
+        stem = os.path.basename(path)[:-4]
+        out_c = os.path.join(tmp, f"p13_cpu_{stem}")
+        run_cli(["-i", path, "-o", out_c, "-c", "0.25", "--pileup", "auto"],
+                "cpu")
+        got = {f: v for f, v in packed.items()
+               if f.endswith(f"__{stem}.fasta")}
+        if not got or got != served_files(out_c):
+            fail(f"phase 13.1: {stem}'s packed output differs from the "
+                 f"port's CPU one-shot run")
+    print(f"  13.1 [{card}]: packed (shared tail and extraction tails) == "
+          f"serial for all {len(packed)} files; both target_capture jobs "
+          f"== the port's CPU one-shot runs")
+    return out_s
+
+
+def batch_bench(card: str) -> None:
+    """Phase 13.2: the reference's batch-bench queue at its defaults
+    (``pileup="scatter"``: the serial side counts with the plain torch
+    scatter, the packed side with K1), then at ``pileup="auto"`` (the
+    serial side takes the auto gate's route)."""
+    from sam2consensus_torch.serve.benchmark import run_serve_batch_bench
+
+    for kw in ({}, {"pileup": "auto"}):
+        t0 = time.perf_counter()
+        s = run_serve_batch_bench(**kw)["summary"]
+        print(f"  13.2 run_serve_batch_bench(pileup={s['pileup']!r}) "
+              f"[{card}]: {s['n_jobs']} jobs x "
+              f"{s['n_reads']} reads, {s['passes']} passes: warm serial "
+              f"{s['warm_serial_jobs_per_sec']} jobs/s (min "
+              f"{s['warm_serial_min_sec']}s, median "
+              f"{s['warm_serial_median_sec']}s), warm packed "
+              f"{s['warm_packed_jobs_per_sec']} jobs/s (min "
+              f"{s['warm_packed_min_sec']}s, median "
+              f"{s['warm_packed_median_sec']}s), identical="
+              f"{s['identical']}, batch {s['batch']} "
+              f"({time.perf_counter() - t0:.1f}s)")
+        if not s["identical"]:
+            fail(f"phase 13.2: run_serve_batch_bench(pileup="
+                 f"{s['pileup']!r})'s packed and serial outputs differ")
+
+
+def demotion_queue(tmp: str, card: str, paths: list, serial: str) -> None:
+    """Phase 13.3: the 8-job batch under pileup_dispatch:oom:0:1 demotes
+    whole to the serial path, every output as phase 13.1's."""
+    out = os.path.join(tmp, "p13_demoted")
+    with batch_probe() as batches:
+        rc = cli_quiet(serve_inputs(paths[:8], out, "--pileup", "auto",
+                                    "--batch", "auto", "--fault-inject",
+                                    "pileup_dispatch:oom:0:1"))
+    if rc != 0:
+        fail("phase 13.3: the demoted queue failed")
+    runner = batches[-1]["runner"] if batches else None
+    demotions = runner.registry.value("batch/demotions") if runner else None
+    packed = runner.registry.value("batch/packed_jobs") if runner else None
+    stems = tuple(f"__{os.path.basename(p)[:-4]}.fasta" for p in paths[:8])
+    want = {f: v for f, v in served_files(serial).items()
+            if f.endswith(stems)}
+    same = served_files(out) == want
+    print(f"  13.3 [{card}]: pileup_dispatch:oom:0:1 -> batch/demotions="
+          f"{demotions} batch/packed_jobs={packed}, outputs == serial: "
+          f"{same}")
+    if demotions != 1 or packed != 0 or not same:
+        fail("phase 13.3: the faulted batch did not demote whole to a "
+             "byte-identical serial run")
+
+
+def count_cache(tmp: str, card: str) -> None:
+    """Phase 13.4-13.5: ecoli_scale split into a base and a +10% delta,
+    served incrementally through the count cache at full size."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.io.fasta import write_outputs
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+    from sam2consensus_torch.serve.benchmark import run_incremental_bench
+
+    src = PHASE7["ecoli_scale"]["path"]
+    with open(src) as fh:
+        lines = fh.readlines()
+    hdr = [ln for ln in lines if ln.startswith("@")]
+    body = [ln for ln in lines if not ln.startswith("@")]
+    os.makedirs(os.path.join(tmp, "p13_incr"))
+    base = os.path.join(tmp, "p13_incr", "base.sam")
+    # the delta carries phase 7's name: its FASTA prefix is the same
+    delta = os.path.join(tmp, "p13_incr", "ecoli_scale.sam")
+    with open(base, "w") as fh:
+        fh.writelines(hdr + body[:INCR_BASE_READS])
+    with open(delta, "w") as fh:
+        fh.writelines(hdr + body[INCR_BASE_READS:])
+    print(f"  13.4 ecoli_scale split: base {INCR_BASE_READS} reads, delta "
+          f"{len(body) - INCR_BASE_READS} reads")
+
+    def spec(path, k, incremental=True, cache=True):
+        out = os.path.join(tmp, f"p13_incr_job{k}{'' if cache else '_u'}")
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["-i", path, "-o", out, "-c", "0.25", "-p", "ecoli_scale",
+             "--decoder", "native", "--pileup", "pallas"]
+            + (["--incremental"] if incremental else [])))
+        return JobSpec(path, cfg, job_id=f"incr{k}")
+
+    def serve(specs, **kw):
+        per_job = []
+        orig = ServeRunner._execute
+
+        def execute(self, *args):
+            a = counted["now"]()
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *args)
+            finally:
+                b = counted["now"]()
+                per_job.append(({k: b[k] - a[k] for k in a},
+                                time.perf_counter() - t0))
+
+        runner = ServeRunner(prewarm="off", **kw)
+        ServeRunner._execute = execute
+        try:
+            with counted_syncs() as counted:
+                results = runner.submit_jobs(specs)
+        finally:
+            ServeRunner._execute = orig
+            runner.close()
+        for s_, res in zip(specs, results):
+            if not res.ok:
+                fail(f"phase 13.4: {res.job_id} failed: {res.error}")
+            write_outputs(res.fastas, s_.config.outfolder, s_.config.prefix,
+                          s_.config.nchar, s_.config.thresholds,
+                          echo=lambda *a, **k: None)
+        return runner, results, per_job
+
+    specs = [spec(base, 0), spec(delta, 1), spec(base, 2)]
+    runner, res, per_job = serve(specs, count_cache="2G")
+    stats = runner.count_cache.stats()
+    want = served_files(PHASE7["ecoli_scale"]["out"])
+    job2 = served_files(specs[1].config.outfolder)
+    job3 = served_files(specs[2].config.outfolder)
+    dup = res[2].stats.extra.get("incremental_duplicate")
+    print(f"  13.4 count cache [{card}]: hits={stats['hits']} misses="
+          f"{stats['misses']} entries={stats['entries']} resident="
+          f"{stats['resident_mb'] / 1.048576:.1f} MiB "
+          f"({stats['resident_mb']} MB)")
+    for k, (r_, (syncs, wall)) in enumerate(zip(res, per_job)):
+        ex = r_.stats.extra
+        print(f"    job {k + 1} [{card}]: wall={wall:.4f}s cache "
+              f"{'hit' if r_.metrics.get('cache/hits') else 'miss'} seed "
+              f"upload={ex.get('count_seed_sec')}s capture fetch="
+              f"{ex.get('count_capture_sec')}s duplicate="
+              f"{bool(ex.get('incremental_duplicate'))} host syncs={syncs}")
+    print(f"  13.4 [{card}]: job 2 (base + delta) wall={per_job[1][1]:.4f}s "
+          f"against phase 7's cold ecoli_scale wall="
+          f"{PHASE7['ecoli_scale']['wall']:.4f}s; job 2 == phase 7: "
+          f"{job2 == want}; job 3 a duplicate: {bool(dup)}, == job 2: "
+          f"{job3 == job2}")
+    if job2 != want:
+        fail("phase 13.4: the warm delta's output differs from phase 7's "
+             "ecoli_scale run")
+    if not dup or job3 != job2:
+        fail("phase 13.4: the re-submitted base is not a duplicate of "
+             "job 2's state")
+    if (stats["hits"], stats["misses"]) != (2, 1):
+        fail(f"phase 13.4: cache hits/misses {stats['hits']}/"
+             f"{stats['misses']}, not 2/1")
+    # 13.5: capture syncs only when armed — the delta served without a
+    # cache makes what its one-shot run makes
+    _r, _res, uncached = serve([spec(delta, 1, False, False)])
+    out = os.path.join(tmp, "p13_incr_oneshot")
+    with counted_syncs() as counted:
+        if cli_quiet(["-i", delta, "-o", out, "-c", "0.25", "-p",
+                      "ecoli_scale", "--decoder", "native", "--pileup",
+                      "pallas"]):
+            fail("phase 13.5: the delta's one-shot run failed")
+    one_shot = dict(counted)
+    print(f"  13.5 host syncs [{card}]: the delta served warm "
+          f"{per_job[1][0]}, served without a cache {uncached[0][0]}, "
+          f"one-shot {one_shot}")
+    if uncached[0][0] != one_shot:
+        fail("phase 13.5: an uncached served job synchronises other than "
+             "its one-shot run")
+    t0 = time.perf_counter()
+    s = run_incremental_bench(n_reads=150_000)["summary"]
+    ratio = s["incr_cost_ratio"]
+    hit = "hit" if ratio <= s["target_ratio"] else "miss"
+    print(f"  13.4 run_incremental_bench(n_reads=150_000) [{card}]: warm "
+          f"{s['warm_incr_min_sec']}s cold {s['cold_min_sec']}s "
+          f"incr_cost_ratio={ratio} ({hit} of the reference's "
+          f"{s['target_ratio']} target), identical={s['identical']} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    if not s["identical"]:
+        fail("phase 13.4: run_incremental_bench's warm and cold outputs "
+             "differ")
+
+
+def batching_and_cache(tmp: str, card: str) -> None:
+    """Phase 13."""
+    t0 = time.perf_counter()
+    paths = phase13_inputs(tmp)
+    print("  13.1: the packed queue, --batch auto then off")
+    serial = packed_queue(tmp, card, paths)
+    print("  13.2: the reference's batch-bench queue")
+    batch_bench(card)
+    print("  13.3: a fault in the shared dispatch demotes the batch")
+    demotion_queue(tmp, card, paths, serial)
+    print("  13.4: the count cache at full size")
+    count_cache(tmp, card)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f}s [{card}]")
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -3039,8 +3562,10 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / CORE_OPS_PER_S * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        dev_ms, dev_src = dev_ms
         print(f"  {kid} {kern.name}: {shape} max_abs_err={err} kernel="
-              f"{ms:.4f} ms (device {dev_ms:.4f} ms) route={route:.4f} ms "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms, {dev_src}) "
+              f"route={route:.4f} ms "
               f"plain={plain:.4f} ms "
               f"(plain/route {plain / route:.1f}x) library="
               f"{'n/a' if lib is None else f'{lib:.4f} ms'} bound="
@@ -3049,7 +3574,7 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
                     "sam2consensus_torch/" + src, "replaces": replaces,
                     "launches": launches[kern.name],
                     "max_abs_err": max(errs[kid], err), "ms": ms,
-                    "device_ms": dev_ms,
+                    "device_ms": dev_ms, "device_ms_source": dev_src,
                     "route_ms": route, "plain_ms": plain,
                     "bound_ms": max(t_bytes, t_ops), "bound_by": bound_by,
                     "library_ms": lib})
@@ -3176,6 +3701,10 @@ def main() -> int:
 
         print(f"phase 12: the warm server [{card}]")
         warm_server(tmp, card)
+
+        print(f"phase 13: continuous batching and the count cache "
+              f"[{card}]")
+        batching_and_cache(tmp, card)
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

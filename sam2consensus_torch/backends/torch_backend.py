@@ -94,6 +94,7 @@ import os
 import queue
 import threading
 import time
+from types import SimpleNamespace
 from typing import Dict, Iterable, List
 
 import numpy as np
@@ -715,6 +716,20 @@ class _Prefetcher:
             yield batch
 
 
+class CountCapture:
+    """One attempt of a served incremental job's exchange with the count
+    cache (``serve/runner.py`` ``_plant_seed``): ``seed`` is the warm
+    per-reference ``CheckpointState`` (None: a cold absorb), and the run
+    writes its final state into ``result``.  A fresh box an attempt: an
+    attempt the watchdog abandoned writes only its own."""
+
+    __slots__ = ("seed", "result")
+
+    def __init__(self, seed=None):
+        self.seed = seed
+        self.result = None
+
+
 class TorchBackend:
     name = "torch"
 
@@ -722,7 +737,7 @@ class TorchBackend:
         self.device = resolve_device(device)
 
     def run(self, contigs: List[Contig], records: Iterable[SamRecord],
-            cfg: RunConfig) -> BackendResult:
+            cfg: RunConfig, count_capture=None) -> BackendResult:
         """One run under fresh instruments and a fresh fault injector (the
         JAX backend's ``run``): ``observability.start_run`` installs the
         run's tracer (enabled by ``cfg.trace_out``), metrics registry and
@@ -741,7 +756,10 @@ class TorchBackend:
         (``observability.prepare_run``) so its decode-ahead thread can
         record into them before the run starts; it hands the handle over
         in the ``serve_prepared_obs`` attribute, consumed (and cleared)
-        here."""
+        here.  A served incremental job passes its
+        :class:`CountCapture` (the count cache's seed in, the final state
+        out): an argument, not an attribute, so an attempt the watchdog
+        abandoned only ever writes its own box."""
         from ..ingest.badrecords import (BadRecordBudgetExceeded,
                                          abort_bookkeeping)
         from ..observability import memplane
@@ -756,7 +774,7 @@ class TorchBackend:
         injector = faultinject.configure(
             getattr(cfg, "fault_inject", "") or None)
         try:
-            result = self._run(contigs, records, cfg)
+            result = self._run(contigs, records, cfg, count_capture)
             memplane.sample(device=self.device)
             obs.finalize_decisions()
             obs.publish_stats_extra(result.stats.extra)
@@ -778,7 +796,7 @@ class TorchBackend:
                                        "device": device_name(self.device)})
 
     def _run(self, contigs: List[Contig], records: Iterable[SamRecord],
-             cfg: RunConfig) -> BackendResult:
+             cfg: RunConfig, count_capture=None) -> BackendResult:
         from ..observability import memplane
 
         stats = BackendStats()
@@ -799,8 +817,12 @@ class TorchBackend:
             chunk_reads=cfg.chunk_reads,
             segment_width=max(0, cfg.segment_width),
             host_counts=isinstance(acc, HostPileupAccumulator))
+        # the serve count cache's seed (``serve/runner.py``
+        # ``_plant_seed``): a warm per-reference ``CheckpointState``
+        count_seed = count_capture.seed if count_capture is not None \
+            else None
         ck, skip_input, prior_sources = self._resume(layout, records, cfg,
-                                                     acc, stats)
+                                                     acc, stats, count_seed)
         base_mapped = ck.reads_mapped if ck else 0
         base_skipped = ck.reads_skipped if ck else 0
         base_aligned = ck.aligned_bases if ck else 0
@@ -943,10 +965,34 @@ class TorchBackend:
         if ck is not None and "incremental_base" not in stats.extra:
             stats.extra["resumed_from_line"] = ck.lines_consumed
 
+        fastas, acc = self._finish_consensus(
+            acc, cfg, layout, encoder, stats, policy,
+            checkpoint if cfg.checkpoint_dir else None)
+        if count_capture is not None:
+            self._capture_counts(count_capture, acc, encoder, cfg, stats,
+                                 ck, skip_input, prior_sources,
+                                 row_width[0])
+        if cfg.checkpoint_dir:
+            self._end_checkpoint(cfg, prior_sources,
+                                 lambda done: checkpoint(acc, done))
+        return BackendResult(fastas=fastas, stats=stats)
+
+    # -- the tail and the render --------------------------------------------
+    def _finish_consensus(self, acc, cfg: RunConfig, layout, encoder, stats,
+                          policy, ckpt_cb=None):
+        """The tail and the render after the pileup (the JAX backend's
+        ``_finish_consensus``): :meth:`_tail_resilient`, the tail's
+        ``stats.extra`` keys, ``--paranoid``'s result check and
+        :meth:`_assemble`.  Shared by :meth:`_run` and
+        :meth:`_run_from_counts` (a packed serve job's extraction tail),
+        so a packed job's consensus is a cold run's by construction.
+        Returns ``(fastas, acc)``; ``acc`` may have been tail-demoted."""
+        tr = obs.tracer()
+        reg = obs.metrics()
         t0 = time.perf_counter()
         acc, (syms, ins_syms, contig_sums, site_cov, ins, dash_counts) = \
             self._tail_resilient(acc, cfg, layout, encoder, stats, policy,
-                                 checkpoint if cfg.checkpoint_dir else None)
+                                 ckpt_cb)
         stats.extra["tail_sec"] = time.perf_counter() - t0
         stats.extra["pileup"] = dict(acc.strategy_used)
         if isinstance(acc, HostPileupAccumulator):
@@ -965,14 +1011,173 @@ class TorchBackend:
                                     dash_counts=dash_counts)
         stats.extra["assemble_sec"] = time.perf_counter() - t0
         reg.add("phase/render_sec", stats.extra["assemble_sec"])
-        if cfg.checkpoint_dir:
-            self._end_checkpoint(cfg, prior_sources,
-                                 lambda done: checkpoint(acc, done))
+        return fastas, acc
+
+    # -- packed serve jobs (serve/scheduler.py) ------------------------------
+    def run_from_counts(self, contigs: List[Contig], cfg: RunConfig, counts,
+                        insertions=None, n_reads: int = 0,
+                        n_skipped: int = 0,
+                        aligned_bases: int = 0) -> BackendResult:
+        """Consensus from a count partition accumulated elsewhere (the
+        JAX backend's ``run_from_counts``): a packed serve job's slice of
+        the batch's shared counts, ``[total_len, 6]`` int32, with the
+        job's own insertion events.  The tail and the render are a cold
+        run's (:meth:`_finish_consensus` over an accumulator seeded with
+        the partition: a ``HostPileupAccumulator`` for host counts, as
+        the reference's, and for a slice of the card's counts a device
+        ``PileupAccumulator``, so the tail stays on the card as a K1
+        job's does), under the
+        lifecycle of :meth:`run`: the serve-prepared instruments, the
+        job's fault-injector scope, ``finalize_decisions``,
+        ``publish_stats_extra`` and ``finish_run`` with ``mode:
+        packed``.  ``checkpoint_dir`` is not read: a packed job replays
+        whole."""
+        prepared = getattr(self, "serve_prepared_obs", None)
+        if prepared is not None:
+            self.serve_prepared_obs = None
+        robs = obs.start_run(trace_out=cfg.trace_out,
+                             metrics_out=cfg.metrics_out, config=cfg,
+                             prepared=prepared)
+        injector = faultinject.configure(
+            getattr(cfg, "fault_inject", "") or None)
+        try:
+            result = self._run_from_counts(contigs, cfg, counts, insertions,
+                                           n_reads, n_skipped,
+                                           aligned_bases)
+            obs.finalize_decisions()
+            obs.publish_stats_extra(result.stats.extra)
+            return result
+        finally:
+            if faultinject.active() is injector:
+                faultinject.configure("")
+            obs.finish_run(robs, meta={"backend": self.name,
+                                       "device": device_name(self.device),
+                                       "mode": "packed"})
+
+    def _run_from_counts(self, contigs, cfg: RunConfig, counts, insertions,
+                         n_reads: int, n_skipped: int,
+                         aligned_bases: int) -> BackendResult:
+        from ..encoder.events import InsertionEvents
+
+        stats = BackendStats()
+        reg = obs.metrics()
+        layout = GenomeLayout(contigs)
+        if layout.total_len == 0:
+            return BackendResult(fastas={}, stats=stats)
+        self._note_partition(stats, n_reads, n_skipped, aligned_bases)
+        if isinstance(counts, torch.Tensor) and counts.device.type != "cpu":
+            acc = PileupAccumulator(layout.total_len, counts.device)
+        else:
+            acc = HostPileupAccumulator(layout.total_len)
+        acc.set_counts(counts)
+        reg.gauge("dispatch/pileup").set_info(
+            {"path": "packed", "strategy": "extracted",
+             "total_len": int(layout.total_len)})
+        # the job's insertion events stand in for the encoder the tail
+        # reads (``_tail_attempt`` reads only ``.insertions``)
+        carrier = SimpleNamespace(
+            insertions=insertions if insertions is not None
+            else InsertionEvents())
+        fastas, _acc = self._finish_consensus(
+            acc, cfg, layout, carrier, stats, RetryPolicy.from_config(cfg))
         return BackendResult(fastas=fastas, stats=stats)
+
+    def assemble_partition(self, contigs: List[Contig], cfg: RunConfig,
+                           syms, contig_sums, ins, ins_syms, site_cov,
+                           n_reads: int = 0, n_skipped: int = 0,
+                           aligned_bases: int = 0,
+                           dash_counts=None) -> BackendResult:
+        """Render one packed job from its slice of a batch's SHARED tail
+        (the JAX backend's ``assemble_partition``): the vote is
+        per-position and insertion sites are keyed (contig, local), so the
+        job's slice of the combined outputs is what its own tail would
+        have given.  The render is :meth:`_assemble`, under the lifecycle
+        of :meth:`run` (``mode: packed``)."""
+        prepared = getattr(self, "serve_prepared_obs", None)
+        if prepared is not None:
+            self.serve_prepared_obs = None
+        robs = obs.start_run(trace_out=cfg.trace_out,
+                             metrics_out=cfg.metrics_out, config=cfg,
+                             prepared=prepared)
+        try:
+            stats = BackendStats()
+            reg = obs.metrics()
+            layout = GenomeLayout(contigs)
+            self._note_partition(stats, n_reads, n_skipped, aligned_bases)
+            reg.gauge("dispatch/pileup").set_info(
+                {"path": "packed", "strategy": "shared_tail",
+                 "total_len": int(layout.total_len)})
+            t0 = time.perf_counter()
+            with obs.tracer().span("render"):
+                fastas = self._assemble(layout, syms, contig_sums, ins,
+                                        ins_syms, site_cov, cfg, stats,
+                                        dash_counts=dash_counts)
+            stats.extra["assemble_sec"] = time.perf_counter() - t0
+            reg.add("phase/render_sec", stats.extra["assemble_sec"])
+            result = BackendResult(fastas=fastas, stats=stats)
+            obs.finalize_decisions()
+            obs.publish_stats_extra(result.stats.extra)
+            return result
+        finally:
+            obs.finish_run(robs, meta={"backend": self.name,
+                                       "device": device_name(self.device),
+                                       "mode": "packed"})
+
+    @staticmethod
+    def _note_partition(stats, n_reads: int, n_skipped: int,
+                        aligned_bases: int) -> None:
+        """A packed job's read and cell counts, from its decode."""
+        stats.reads_mapped = int(n_reads)
+        stats.reads_skipped = int(n_skipped)
+        stats.aligned_bases = int(aligned_bases)
+        stats.extra["decoder"] = "packed"
+        reg = obs.metrics()
+        reg.add("reads/mapped", int(n_reads))
+        reg.add("reads/skipped", int(n_skipped))
+        reg.add("pileup/cells", int(aligned_bases))
+
+    # -- the serve count cache (serve/countcache.py) -------------------------
+    @staticmethod
+    def _capture_counts(capture, acc, encoder, cfg: RunConfig, stats, ck,
+                        skip_input: bool, prior_sources,
+                        max_row_width: int) -> None:
+        """Hand a served incremental job's final state back to the count
+        cache as a ``CheckpointState`` in ``capture.result`` (the JAX
+        backend's ``:1090-1128``): the counts fetched once
+        (``stats.extra["count_capture_sec"]``), the insertion log merged
+        into one chunk, this input added to the absorbed sources.  A
+        duplicate input absorbed nothing: its seed is handed back as it
+        is.  The runner re-inserts it only after the job ended whole."""
+        from ..encoder.events import InsertionEvents
+        from ..utils import checkpoint as ckpt
+
+        if skip_input:
+            capture.result = ck
+            return
+        t0 = time.perf_counter()
+        merge = getattr(encoder, "merge_shadow", None)
+        if merge is not None:
+            merge()
+        done = list(prior_sources)
+        if cfg.source_id and cfg.source_id not in done:
+            done.append(cfg.source_id)
+        ic, il, im, ich = encoder.insertions.to_arrays()
+        ins_ev = InsertionEvents()
+        ins_ev.array_chunks.append((ic.astype(np.int32), il.astype(np.int32),
+                                    im.astype(np.int32), ich))
+        capture.result = ckpt.CheckpointState(
+            counts=acc.counts_host(), lines_consumed=0,
+            reads_mapped=stats.reads_mapped,
+            reads_skipped=stats.reads_skipped,
+            aligned_bases=stats.aligned_bases, insertions=ins_ev,
+            source="", sources=done, byte_offset=-1,
+            max_row_width=max_row_width)
+        stats.extra["count_capture_sec"] = time.perf_counter() - t0
 
     # -- checkpoints -------------------------------------------------------
     @staticmethod
-    def _resume(layout, records, cfg: RunConfig, acc, stats):
+    def _resume(layout, records, cfg: RunConfig, acc, stats,
+                count_seed=None):
         """Checkpoint load and resume (the JAX backend's, ``:782-861``):
         ``(ck, skip_input, prior_sources)``.  Without ``--incremental`` a
         checkpoint is the current input's: the stream skips its consumed
@@ -980,7 +1185,11 @@ class TorchBackend:
         the checkpoint's source identity picks one of three cases: an input
         already absorbed adds nothing; the input in flight resumes; any
         other input starts at line 0 on the accumulated counts (refused
-        while a crashed input is half absorbed)."""
+        while a crashed input is half absorbed).  A serve count-cache seed
+        (``count_seed``) holds only fully absorbed inputs, so only two
+        cases exist for it: a duplicate input, or a new one on the warm
+        counts, which are uploaded into ``acc``
+        (``stats.extra["count_seed_sec"]``)."""
         from ..utils import checkpoint as ckpt
 
         incremental = cfg.incremental
@@ -989,6 +1198,21 @@ class TorchBackend:
             raise RuntimeError(
                 "incremental mode needs a non-empty source_id identifying "
                 "the input (the CLI passes the input file's absolute path)")
+        if count_seed is not None and cfg.checkpoint_dir:
+            raise RuntimeError(
+                "count-cache seeding does not compose with "
+                "--checkpoint-dir (two sources of resumable state)")
+        if count_seed is not None:
+            prior_sources = list(count_seed.sources or [])
+            if incremental and source_id in prior_sources:
+                stats.extra["incremental_duplicate"] = source_id
+            else:
+                stats.extra["incremental_base"] = prior_sources
+            t0 = time.perf_counter()
+            acc.set_counts(count_seed.counts)
+            stats.extra["count_seed_sec"] = time.perf_counter() - t0
+            return (count_seed, "incremental_duplicate" in stats.extra,
+                    prior_sources)
         if not cfg.checkpoint_dir:
             return None, False, []
         if not isinstance(records, ReadStream):

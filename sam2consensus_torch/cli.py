@@ -273,8 +273,6 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         policy_from_config(args)
     except ValueError as exc:
         raise SystemExit(f"error: {exc}") from None
-    if args.incremental and not args.checkpoint_dir:
-        raise SystemExit("--incremental requires --checkpoint-dir")
     if args.fault_inject:
         # a typo'd spec must fail the run, not silently inject nothing
         from .resilience.faultinject import parse_spec
@@ -420,7 +418,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    action="store_false",
                    help="disable cross-job pipelining (job N+1's host "
                         "decode normally overlaps job N's device work)")
-    # --- continuous batching (refused: UNPORTED_SERVE_FLAGS) ---
+    # --- continuous batching (serve/scheduler.py) ---
     p.add_argument("--batch", dest="batch", default="off",
                    help="continuous batching: pack up to N eligible "
                         "small jobs (--pileup auto/scatter, genome <= "
@@ -470,7 +468,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "panel-plan reuse evidence, per-wave "
                         "cohort_wave decisions, per-position call "
                         "concordance) to this path")
-    # --- incremental consensus (refused: UNPORTED_SERVE_FLAGS) ---
+    # --- incremental consensus (serve/countcache.py) ---
     p.add_argument("--count-cache", dest="count_cache", default=None,
                    help="per-reference count cache byte budget (e.g. "
                         "'512M', '2G'; 'off' disables; env "
@@ -691,11 +689,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 #: serve flags of the reference's parser that the port does not run yet,
 #: each with a test for "set away from its default": streaming sessions,
-#: cohorts, serve ``--incremental`` (the count cache), multi-GPU shards
-#: and the MXU pileup.  Batching, the count cache's budget and fleet mode
-#: are the runner's refusals (``serve.runner.refuse_unported_serve``)
+#: cohorts, multi-GPU shards and the MXU pileup.  Fleet mode is the
+#: runner's refusal (``serve.runner.refuse_unported_serve``)
 UNPORTED_SERVE_FLAGS = (
-    ("--incremental", "incremental", bool),
     ("--ingest-port", "ingest_port", lambda v: v is not None),
     ("--stability-waves", "stability_waves", lambda v: v != 3),
     ("--revote-debounce", "revote_debounce", lambda v: v != 0.0),
@@ -717,11 +713,12 @@ def serve_main(argv: List[str], device=None) -> int:
     warm server (``serve.ServeRunner``) on ``device`` (as in
     ``device.resolve_device``: None = CUDA, raising without it); exit 0
     iff every job succeeded.  The reference's ``serve_main``, with its
-    up-front checks (``--slo``, ``--mem-budget``, ``--fault-inject``,
-    at least one input); a flag of :data:`UNPORTED_SERVE_FLAGS` or of
+    up-front checks (``--slo``, ``--batch``, ``--count-cache``,
+    ``--mem-budget``, ``--incremental`` without the cache or under
+    ``--journal``, ``--fault-inject``, at least one input); a flag of
+    :data:`UNPORTED_SERVE_FLAGS` or of
     ``serve.runner.refuse_unported_serve`` set away from its default
-    (``S2C_COUNT_CACHE`` and ``S2C_MESH_HOSTS`` > 0 too) fails the start
-    by name."""
+    (``S2C_MESH_HOSTS`` > 0 too) fails the start by name."""
     import copy
 
     from . import observability
@@ -737,10 +734,7 @@ def serve_main(argv: List[str], device=None) -> int:
             raise SystemExit(f"error: {flag} {value}: not supported by "
                              f"the torch backend yet")
     try:
-        refuse_unported_serve(batch=args.batch,
-                              batch_window=args.batch_window,
-                              count_cache=args.count_cache,
-                              worker_id=args.worker_id,
+        refuse_unported_serve(worker_id=args.worker_id,
                               lease_ttl=args.lease_ttl)
     except ValueError as exc:
         raise SystemExit(f"error: {exc}") from None
@@ -748,9 +742,20 @@ def serve_main(argv: List[str], device=None) -> int:
     # never fire (same up-front discipline as --fault-inject)
     from .observability.telemetry import parse_slo
     from .serve.countcache import parse_budget
+    from .serve.scheduler import parse_batch_mode
 
     try:
         parse_slo(args.slo)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
+    try:
+        parse_batch_mode(args.batch)
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
+    try:
+        cache_on = parse_budget(
+            args.count_cache if args.count_cache is not None
+            else os.environ.get("S2C_COUNT_CACHE")) > 0
     except ValueError as exc:
         raise SystemExit(f"error: {exc}") from None
     try:
@@ -759,6 +764,16 @@ def serve_main(argv: List[str], device=None) -> int:
     except ValueError as exc:
         raise SystemExit("error: " + str(exc).replace(
             "--count-cache", "--mem-budget")) from None
+    if args.incremental and not cache_on:
+        raise SystemExit(
+            "error: --incremental serve jobs need --count-cache SIZE "
+            "(or S2C_COUNT_CACHE) — the warm per-reference count state "
+            "lives there")
+    if args.incremental and args.journal:
+        raise SystemExit(
+            "error: --incremental does not compose with --journal "
+            "(the journal injects per-job checkpoint homes, a second "
+            "source of resumable state)")
     if not args.inputs:
         raise SystemExit(
             "error: at least one -i/--input is required (or "
@@ -811,6 +826,9 @@ def serve_main(argv: List[str], device=None) -> int:
                          telemetry_interval=args.telemetry_interval,
                          slo=args.slo,
                          profile_capture_dir=args.profile_capture_dir,
+                         batch=args.batch,
+                         batch_window=args.batch_window,
+                         count_cache=args.count_cache,
                          mem_budget=args.mem_budget,
                          verify_outputs=args.verify_outputs,
                          device=device)
@@ -912,6 +930,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
         return serve_main(argv[1:], device=device)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    if cfg.incremental and not cfg.checkpoint_dir:
+        raise SystemExit("--incremental requires --checkpoint-dir")
     echo = (lambda *a, **k: None) if args.quiet else print
     observability.configure_logging(cfg.log_level, cfg.log_format)
     backend = TorchBackend(device)

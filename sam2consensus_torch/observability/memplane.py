@@ -71,7 +71,7 @@ logger = logging.getLogger("sam2consensus_torch.observability.memplane")
 #: the allocation families the port's call sites use (informational:
 #: track() accepts any name)
 FAMILIES = ("counts", "counts_host", "wire_staging", "insertion_table",
-            "quarantine", "decode_ahead")
+            "quarantine", "decode_ahead", "count_cache", "packed_batch")
 
 MEM_DUMP_SCHEMA = "s2c-mem-dump/1"
 MEM_DUMP_NAME = "mem_dump.json"

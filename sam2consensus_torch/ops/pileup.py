@@ -495,9 +495,13 @@ class PileupAccumulator:
         return out
 
     def set_counts(self, counts) -> None:
-        """Seed the counts (checkpoint resume): ``[total_len, 6]``."""
-        src = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32))
-        self._counts[: self.total_len].copy_(src)
+        """Seed the counts (checkpoint resume): ``[total_len, 6]``, host
+        counts or a tensor (a packed job's slice of its batch's device
+        counts, copied on the device)."""
+        if not isinstance(counts, torch.Tensor):
+            counts = torch.from_numpy(
+                np.ascontiguousarray(counts, dtype=np.int32))
+        self._counts[: self.total_len].copy_(counts)
 
     @property
     def counts(self) -> torch.Tensor:

@@ -16,8 +16,13 @@ The survivability layer is the reference's (``sam2consensus_tpu/serve``):
 ``--stall-timeout``), :mod:`.admission` (queue bound, tenant quotas,
 ``--mem-budget``, degraded-tenant pinning) and :mod:`.health`; with the
 telemetry plane of ``observability/telemetry.py`` and the burn monitor.
-Batching, the count cache, fleet mode, streaming sessions and cohorts are
-refused by name until their slices land.
+Continuous batching (:mod:`.scheduler`, :mod:`.packing`: ``--batch``,
+``--batch-window``) packs eligible small jobs into shared slabs that K1
+counts in one dispatch sequence on the card; the per-reference count
+cache (:mod:`.countcache`: ``--count-cache``, serve ``--incremental``)
+seeds each incremental job from its reference's warm counts.  Fleet mode,
+streaming sessions and cohorts are refused by name until their slices
+land.
 """
 
 from .runner import JobResult, JobSpec, ServeRunner, submit_jobs

@@ -43,10 +43,16 @@ telemetry plane (the aggregate registry, OpenMetrics file and
 endpoint, SLOs, burn alerts, the rate card and its scale hint, the
 profiler capture).
 
+Continuous batching (``batch`` / ``batch_window``, ``serve/scheduler.py``)
+packs eligible small jobs into shared slabs that K1 counts in one dispatch
+sequence on the card, and the per-reference count cache (``count_cache``,
+``serve/countcache.py``) seeds each incremental job from the warm counts
+of its reference and takes the job's final state back after it ended
+whole.
+
 Where the port differs: the server runs on ``device`` (None = CUDA,
-raising without it; the CPU only when the caller names it); the
-continuous batching scheduler, the count cache, fleet mode and
-``S2C_MESH_HOSTS`` are refused by name at start
+raising without it; the CPU only when the caller names it); fleet mode
+and ``S2C_MESH_HOSTS`` are refused by name at start
 (:func:`refuse_unported_serve`); ``persistent_cache`` names the kernel
 build directory (there is no JIT cache); and the host-rung retry reads
 the job's ``on_device_error`` only, not the reference's
@@ -105,31 +111,15 @@ def _env_float(name: str) -> Optional[float]:
         return None
 
 
-def refuse_unported_serve(batch="off", batch_window=None, count_cache=None,
-                          worker_id: str = "", lease_ttl=None) -> None:
-    """Refuse, naming it, a serve option the port does not run yet: the
-    continuous batching scheduler (``--batch``, ``--batch-window``), the
-    count cache (``--count-cache`` / ``S2C_COUNT_CACHE``), fleet mode
-    (``--worker-id``, ``--lease-ttl``) and the mesh capacity planner
-    (``S2C_MESH_HOSTS`` > 0).  A value that means the default (``--batch
-    off`` / 0 / 1, ``--count-cache off``, ``S2C_MESH_HOSTS=0``) passes;
-    an unparsable one raises the reference's own error.  Raises
-    ``ValueError``."""
-    from .countcache import parse_budget
-
+def refuse_unported_serve(worker_id: str = "", lease_ttl=None) -> None:
+    """Refuse, naming it, a serve option the port does not run yet: fleet
+    mode (``--worker-id``, ``--lease-ttl``) and the mesh capacity planner
+    (``S2C_MESH_HOSTS`` > 0).  A value that means the default
+    (``S2C_MESH_HOSTS=0``) passes.  Raises ``ValueError``."""
     def refuse(flag, value):
         raise ValueError(f"{flag} {value}: not supported by the torch "
                          f"backend yet")
 
-    if str(batch if batch is not None else "off").strip().lower() \
-            not in ("off", "0", "1", ""):
-        refuse("--batch", batch)
-    if batch_window is not None:
-        refuse("--batch-window", batch_window)
-    env_cache = count_cache is None
-    cache = os.environ.get("S2C_COUNT_CACHE") if env_cache else count_cache
-    if parse_budget(cache) > 0:
-        refuse("S2C_COUNT_CACHE" if env_cache else "--count-cache", cache)
     if worker_id:
         refuse("--worker-id", worker_id)
     if lease_ttl is not None:
@@ -143,38 +133,16 @@ def refuse_unported_serve(batch="off", batch_window=None, count_cache=None,
         refuse("S2C_MESH_HOSTS", mesh_hosts)
 
 
-def probe_total_len(filename: str, cfg) -> Optional[int]:
-    """The job's genome length from its header (the reference's
-    ``BatchScheduler._probe_total_len``, which prices ``--mem-budget``);
-    None = unreadable here, and the serial path surfaces the real error.
-    The probe's handle is closed at once."""
-    from ..config import resolve_decode_threads
-    from ..encoder.events import GenomeLayout
-    from ..formats import open_alignment_input
-
-    try:
-        ai = open_alignment_input(filename,
-                                  getattr(cfg, "input_format", "auto"),
-                                  threads=resolve_decode_threads(cfg))
-    except Exception:
-        return None
-    try:
-        return GenomeLayout(ai.contigs).total_len
-    except Exception:
-        return None
-    finally:
-        ai.close()
-
-
 @dataclass
 class JobSpec:
     """One consensus job: an input path plus its full RunConfig.
 
     ``config.backend`` is ignored (the server IS the torch backend);
-    checkpoint/incremental modes are rejected — their contract is
-    serial decode with stream-consistent snapshots, which serve-mode
-    decode-ahead would break (journal mode manages per-job checkpoints
-    itself, with decode-ahead off).  ``tenant`` scopes admission
+    checkpoint mode is rejected — its contract is serial decode with
+    stream-consistent snapshots, which serve-mode decode-ahead would
+    break (journal mode manages per-job checkpoints itself, with
+    decode-ahead off) — and an incremental job needs the count cache.
+    ``tenant`` scopes admission
     quotas and degraded-tenant pinning ("" = untenanted)."""
 
     filename: str
@@ -445,9 +413,12 @@ class ServeRunner:
     ``verify_outputs`` ("fast"/"full") controls resume-time output
     verification (stat fast path vs full re-hash).
 
-    ``batch``, ``batch_window``, ``count_cache``, ``worker_id`` and
-    ``lease_ttl`` are the reference's: set away from their defaults
-    they are refused by name (:func:`refuse_unported_serve`).
+    Continuous batching (``batch``: ``"off"``, ``"auto"`` or a job
+    count; ``batch_window`` in milliseconds; ``serve/scheduler.py``) and
+    the per-reference count cache (``count_cache``, a byte budget like
+    ``"512M"``; env S2C_COUNT_CACHE when None; ``serve/countcache.py``)
+    are the reference's.  ``worker_id`` and ``lease_ttl`` (fleet mode)
+    are refused by name (:func:`refuse_unported_serve`).
     """
 
     def __init__(self, prewarm: str = "auto", decode_ahead: bool = True,
@@ -476,9 +447,7 @@ class ServeRunner:
 
         if prewarm not in ("auto", "off"):
             raise ValueError(f"prewarm={prewarm!r}: use 'auto' or 'off'")
-        refuse_unported_serve(batch=batch, batch_window=batch_window,
-                              count_cache=count_cache,
-                              worker_id=worker_id, lease_ttl=lease_ttl)
+        refuse_unported_serve(worker_id=worker_id, lease_ttl=lease_ttl)
         # capacity-priced admission (observability/memplane.py): a job
         # whose predicted peak exceeds the budget is shed with reason
         # "capacity" instead of being allowed to OOM the warm server.
@@ -526,15 +495,34 @@ class ServeRunner:
         self.admission = AdmissionController(
             max_queue=max_queue, tenant_quota=tenant_quota,
             mem_budget=_mem_budget)
+        # -- continuous batching (serve/scheduler.py) -----------------
+        # a typo'd --batch must fail the server start, same discipline
+        # as --slo / --fault-inject
+        from .scheduler import BatchScheduler
+
+        self.scheduler = BatchScheduler(self, batch=batch,
+                                        window_ms=batch_window)
+        # -- incremental consensus (serve/countcache.py) ---------------
+        # a typo'd budget fails the server start, same discipline as
+        # --batch / --slo
+        self.count_cache = _ccache.from_config(
+            count_cache if count_cache is not None
+            else os.environ.get("S2C_COUNT_CACHE"))
         self.health = shealth.HealthState()
         #: last finished job's tolerant-decode verdict, surfaced in the
         #: health snapshot (per-job history lives in each JobResult)
         self.last_job_badrec: Optional[dict] = None
         self.health_out = health_out
         self._fault = self._build_fault_injector(fault_inject)
-        #: the next job's decode-ahead while the current job runs; its
-        #: gate is planted on the backend (``serve_dispatch_gate``)
+        #: the next job's decode-ahead while the current job runs, and
+        #: the gate the current job's first dispatch sets
+        #: (``serve_dispatch_gate``; None when a packed batch runs
+        #: between the two jobs and sets it instead)
         self._ahead: Optional[_DecodeAhead] = None
+        self._ahead_gate = None
+        #: the count-cache box of the attempt the next ``_execute``
+        #: runs (``_plant_seed``; None for a job the cache does not see)
+        self._next_capture = None
         self.verify_mode = verify_outputs
         self.journal: Optional[sjournal.JobJournal] = None
         if journal_dir:
@@ -789,10 +777,20 @@ class ServeRunner:
                 "checkpoints itself) or run checkpointed jobs through "
                 "the one-shot CLI")
         if spec.config.incremental:
-            # incremental serve jobs ride the count cache, which the
-            # port does not run yet
-            raise ValueError("--incremental: not supported by the torch "
-                             "backend yet")
+            # incremental IS a serve feature — but only through the
+            # count cache (the checkpoint-file flavor needs serial
+            # decode + a --checkpoint-dir, which serve rejects above)
+            if self.count_cache is None:
+                raise ValueError(
+                    "incremental serve jobs need the per-reference "
+                    "count cache: start the server with --count-cache "
+                    "SIZE (e.g. 512M) or S2C_COUNT_CACHE")
+            if self.journal is not None:
+                raise ValueError(
+                    "--journal injects a per-job checkpoint home, "
+                    "which conflicts with count-cache seeding (two "
+                    "sources of resumable state); run incremental "
+                    "jobs on an unjournaled server")
 
     # -- health -----------------------------------------------------------
     def health_snapshot(self) -> dict:
@@ -1130,17 +1128,23 @@ class ServeRunner:
         disowned.  The abandoned thread keeps ITS job's instruments
         thread-bound (``bind_run_to_thread``) and its own accumulator,
         so if it ever wakes it records into its own registry and counts
-        into its own tensor, never the next job's."""
+        into its own tensor, never the next job's.  An incremental
+        job's count-cache box (``_next_capture``, set by the caller just
+        before this call) is taken here, on the runner's thread, and
+        handed to the attempt's ``run`` as an argument, so an abandoned
+        attempt writes only its own box."""
         from ..resilience.policy import (HungDispatchError,
                                          JobDeadlineExceeded)
 
+        capture, self._next_capture = self._next_capture, None
+
         self.backend.serve_prepared_obs = robs
         self.backend.serve_dispatch_log = dlog
-        self.backend.serve_dispatch_gate = \
-            self._ahead.gate if self._ahead is not None else None
+        self.backend.serve_dispatch_gate = self._ahead_gate
         try:
             if self.job_timeout is None and self.stall_timeout is None:
-                return self.backend.run(contigs, records, cfg)
+                return self.backend.run(contigs, records, cfg,
+                                        count_capture=capture)
 
             box: list = []
 
@@ -1151,7 +1155,8 @@ class ServeRunner:
                 with obs.bind_run_to_thread(robs):
                     try:
                         box.append(("ok", self.backend.run(
-                            contigs, records, cfg)))
+                            contigs, records, cfg,
+                            count_capture=capture)))
                     except BaseException as exc:
                         box.append(("exc", exc))
 
@@ -1251,11 +1256,6 @@ class ServeRunner:
         """Run the queue; returns one :class:`JobResult` per spec, in
         order.  The server survives failed jobs (their error rides the
         result) and stays warm afterwards for the next submit."""
-        from ..config import resolve_decode_threads
-        from ..formats import open_alignment_input
-        from ..resilience import ladder as rladder
-        from ..wire.pipeline import intersect_sec
-
         for spec in specs:
             self._validate(spec)
 
@@ -1296,16 +1296,22 @@ class ServeRunner:
                 plan.append(entry)
                 continue
             # capacity signal (observability/memplane.py): only priced
-            # when a --mem-budget is set
+            # when a --mem-budget is set — the header probe is the batch
+            # scheduler's, whose handle a later pack/decode reuses
             predicted = None
             if self.admission.mem_budget:
-                total_len = probe_total_len(spec.filename, spec.config)
+                total_len = self.scheduler._probe_total_len(entry)
                 if total_len:
                     from ..observability import memplane
 
                     predicted = memplane.predict_job_peak_bytes(
                         total_len, spec.config)
                     entry["mem_predicted"] = predicted
+                if not self.scheduler.enabled:
+                    # without batching nothing downstream reuses the
+                    # probe handle: close it now, or a wide submission
+                    # holds one open file per probed spec
+                    self._close_probe(entry)
             dec = self.admission.admit(spec.tenant,
                                        predicted_bytes=predicted)
             if not dec.admitted:
@@ -1313,6 +1319,7 @@ class ServeRunner:
                 entry["admission"] = dec.reason
                 if dec.reason == "capacity":
                     self.registry.add("serve/admission_capacity", 1)
+                    self._close_probe(entry)
                 plan.append(entry)
                 continue
             cfg = spec.config
@@ -1396,12 +1403,82 @@ class ServeRunner:
         window_t0 = time.perf_counter()
         self.telemetry_tick(force=True)
 
+        # -- continuous batching (serve/scheduler.py): compose packed
+        #    batches over the eligible small jobs up front; the loop
+        #    below runs each batch when it reaches the batch's first
+        #    member and routes demoted members back through the serial
+        #    path
+        batch_results: dict = {}
+        batch_by_first: dict = {}
+        batched: set = set()
+        if self.scheduler.enabled:
+            for b in self.scheduler.compose(plan):
+                batch_by_first[b.indices[0]] = b
+                batched.update(b.indices)
+            # entries probed but not packed must not leak their probe
+            # handles (the packed ones are consumed by the decode phase)
+            for j, e in enumerate(plan):
+                if j not in batched:
+                    self._close_probe(e)
+            if batched:
+                logger.info("continuous batching: %d job(s) in %d "
+                            "batch(es)", len(batched),
+                            len(batch_by_first))
+
         results: List[JobResult] = []
+        try:
+            self._drain(plan, results, batch_results, batch_by_first,
+                        batched, replay, recovery_info, window_t0)
+        finally:
+            self.scheduler.release_handles(plan)  # no probe-handle leaks
+        self.telemetry_tick(force=True)
+        return results
+
+    def _close_probe(self, entry: dict) -> None:
+        """Close the header probe's handle left on ``entry``, if any."""
+        ai = entry.pop("batch_handle", None)
+        if ai is not None:
+            ai.close()
+
+    def _drain(self, plan: List[dict], results: List[JobResult],
+               batch_results: dict, batch_by_first: dict, batched: set,
+               replay, recovery_info, window_t0: float) -> None:
+        """The queue's loop over the plan, in order: a packed batch at
+        its first member (:meth:`BatchScheduler.run_batch`), else the
+        serial path with decode-ahead of the next serial entry."""
+        from ..config import resolve_decode_threads
+        from ..formats import open_alignment_input
+        from ..resilience import ladder as rladder
+        from ..wire.pipeline import intersect_sec
+
+        def after_batch(i: int, k: int) -> bool:
+            """A packed batch runs between plan entries ``i`` and ``k``."""
+            return any(j in batch_by_first for j in range(i + 1, k))
+
         ahead: Optional[_DecodeAhead] = None
         ahead_for: Optional[int] = None
         cap = _ahead_batch_cap()
         first_run_seen = False
         for i, entry in enumerate(plan):
+            if i in batch_results:
+                results.append(batch_results.pop(i))
+                continue
+            b = batch_by_first.pop(i, None)
+            if b is not None:
+                done, leftovers = self.scheduler.run_batch(
+                    b, plan, window_t0,
+                    gate=ahead.gate if ahead is not None else None)
+                if ahead is not None:
+                    # the batch dispatched (or was demoted): the next
+                    # serial job's decode-ahead runs now at the latest
+                    ahead.release()
+                batch_results.update(done)
+                for k in leftovers:
+                    batched.discard(k)  # serial re-run when reached
+                if i in batch_results:
+                    results.append(batch_results.pop(i))
+                    continue
+                # i itself demoted: fall through to the serial path
             spec = entry["spec"]
             job_id = entry["job_id"]
             cfg = entry["cfg"]
@@ -1449,16 +1526,22 @@ class ServeRunner:
                     records = _PredecodedJob(ahead)
                     header_err = ahead.error if contigs is None else None
                     close_handle = ahead.close
+                self._ahead = None
             else:
                 if ahead is not None:
                     ahead.cancel()       # stale (intervening skip/reject)
                     ahead.close()
+                    self._ahead = None
                 robs = self._prepare(cfg, jobnum)
                 try:
-                    ai = open_alignment_input(
-                        spec.filename,
-                        getattr(cfg, "input_format", "auto"),
-                        threads=resolve_decode_threads(cfg))
+                    # a batch demotion may have left this entry's probe
+                    # handle open (header already parsed): resume from it
+                    ai = entry.pop("batch_handle", None)
+                    if ai is None:
+                        ai = open_alignment_input(
+                            spec.filename,
+                            getattr(cfg, "input_format", "auto"),
+                            threads=resolve_decode_threads(cfg))
                     close_handle = ai.close
                     contigs, records = ai.contigs, ai.stream
                 except Exception as exc:
@@ -1477,7 +1560,7 @@ class ServeRunner:
             # -- launch the NEXT runnable job's decode-ahead -----------
             if self.decode_ahead:
                 for k in range(i + 1, len(plan)):
-                    if plan[k]["action"] == "run":
+                    if plan[k]["action"] == "run" and k not in batched:
                         nxt = plan[k]
                         ahead = _DecodeAhead(
                             self.backend, JobSpec(
@@ -1491,6 +1574,8 @@ class ServeRunner:
                             if self._fault is not None else None)
                         ahead_for = k
                         self._ahead = ahead
+                        self._ahead_gate = None if after_batch(i, k) \
+                            else ahead.gate
                         break
             # -- run this job -----------------------------------------
             if recovery_info is not None:
@@ -1504,6 +1589,16 @@ class ServeRunner:
                    if replay is not None else {})})
             res = JobResult(job_id=job_id, filename=spec.filename,
                             index=i, admission=entry["admission"])
+            # incremental consensus: seed the job from the warm
+            # per-reference count state (serve/countcache.py) and ask
+            # the backend to hand back the final state for re-insertion
+            cache_key = cache_seed = capture = None
+            if header_err is None:
+                cache_key, cache_seed, cfg = self._cache_begin(
+                    spec, cfg, contigs, robs)
+                entry["cfg"] = cfg
+                if cache_key is not None:
+                    capture = self._plant_seed(cache_seed)
             dlog: List[Tuple[float, float]] = []
             # log-correlation IDs for every record this job emits —
             # the watchdog worker and (already-bound) decode-ahead
@@ -1526,6 +1621,7 @@ class ServeRunner:
             else:
                 out = None
                 try:
+                    self._next_capture = capture
                     out = self._execute(contigs, records, cfg, robs,
                                         dlog, job_id)
                 except Exception as exc:
@@ -1534,8 +1630,16 @@ class ServeRunner:
                     self._note_capacity(spec, exc, robs)
                     retry_cfg = self._retry_config(cfg, exc)
                     if retry_cfg is not None:
+                        if cache_key is not None:
+                            # the host-rung retry runs against the SAME
+                            # warm base (else its output would cover
+                            # only the delta reads), in a box of its
+                            # own: the first attempt, if abandoned, may
+                            # still write its box
+                            capture = self._plant_seed(cache_seed)
                         out, robs, res.error = self._retry_on_host_rung(
-                            spec, retry_cfg, exc, jobnum, job_id)
+                            spec, retry_cfg, exc, jobnum, job_id,
+                            capture)
                     else:
                         res.error = f"{type(exc).__name__}: {exc}"
                     if res.error is not None:
@@ -1550,10 +1654,14 @@ class ServeRunner:
                 if out is not None:
                     res.fastas, res.stats = out.fastas, out.stats
                     res.error = None
-            if ahead is not None:
+                if cache_key is not None:
+                    self._cache_end(cache_key, out is not None, capture)
+            self._ahead_gate = None
+            if ahead is not None and not after_batch(i, ahead_for):
                 # a job that never dispatched still lets the next decode
+                # (a batch before the next serial job sets the gate at
+                # its first shared dispatch instead)
                 ahead.release()
-                self._ahead = None
             res.elapsed_sec = time.perf_counter() - t0
             self._finalize_job(entry, res, robs, spec,
                                queue_wait=t0 - window_t0)
@@ -1570,8 +1678,6 @@ class ServeRunner:
                     "decode_ahead_sec": round(ahead.decode_sec(), 4),
                     "overlapped_job": job_id})
                 self.registry.add("serve/overlap_sec", ov)
-        self.telemetry_tick(force=True)
-        return results
 
     # -- plan-entry resolution ---------------------------------------------
     def _resolve_nonrun(self, entry: dict, i: int) -> JobResult:
@@ -1607,12 +1713,14 @@ class ServeRunner:
         return res
 
     def _finalize_job(self, entry: dict, res: JobResult, robs,
-                      spec: JobSpec, queue_wait: float) -> None:
-        """Everything after a job's run attempt: metrics subset +
-        rung/manifest capture, journal commit/failed events (outputs
-        durably on disk BEFORE the commit event), telemetry fold +
-        per-tenant SLO verdict, the rate card, admission feedback,
-        health bookkeeping, operator echo."""
+                      spec: JobSpec, queue_wait: float,
+                      echo_suffix: str = "") -> None:
+        """Everything after a job's run attempt, shared by the serial
+        loop and the batch scheduler (serve/scheduler.py) so the two
+        paths cannot drift: metrics subset + rung/manifest capture,
+        journal commit/failed events (outputs durably on disk BEFORE the
+        commit event), telemetry fold + per-tenant SLO verdict, the rate
+        card, admission feedback, health bookkeeping, operator echo."""
         from ..io.fasta import write_outputs
         from ..resilience import ladder as rladder
 
@@ -1694,7 +1802,8 @@ class ServeRunner:
                     snap, res.elapsed_sec, input_bytes=in_bytes,
                     decode_cores=max(
                         1, int(getattr(cfg, "decode_threads", 1) or 1)),
-                    packed=False, lifecycle=lifecycle)
+                    packed=snap["counters"].get("serve/batched", 0) > 0,
+                    lifecycle=lifecycle)
             except Exception as exc:
                 logger.warning("rate card fold failed for %s: %s",
                                job_id, exc)
@@ -1720,7 +1829,94 @@ class ServeRunner:
         self.telemetry_tick(force=True)
         self.echo(f"[serve] {job_id}: "
                   + (f"ok in {res.elapsed_sec:.2f}s"
-                     if res.ok else f"FAILED ({res.error})"))
+                     if res.ok else f"FAILED ({res.error})")
+                  + echo_suffix)
+
+    # -- incremental consensus (serve/countcache.py) -----------------------
+    @staticmethod
+    def _plant_seed(seed):
+        """Arm one attempt of a count-cache job: a fresh
+        :class:`~..backends.torch_backend.CountCapture` that hands the
+        run ``seed`` (None = cold absorb) and takes its final state
+        back.  The box goes to the attempt's ``run`` as an argument, so
+        an attempt the watchdog abandoned never writes another's."""
+        from ..backends.torch_backend import CountCapture
+
+        return CountCapture(seed)
+
+    def _cache_begin(self, spec: JobSpec, cfg: RunConfig, contigs, robs):
+        """Seed an incremental job from the warm per-reference state.
+
+        Returns ``(key, seed, cfg)`` — key None for non-incremental
+        jobs (cache off / flag off / header unread); cfg gains a
+        default ``source_id`` (the input's absolute path, the one-shot
+        CLI's convention) so duplicate-input detection works without
+        per-job plumbing.  The warm/cold verdict is a priced ledger
+        decision in the JOB's manifest: predicted decode seconds for
+        THIS input's bytes, joined against the measured decode phase
+        (band=0: the decode-threads decision owns enforcing the rate
+        model; this one documents what the cache saved)."""
+        if self.count_cache is None \
+                or not getattr(cfg, "incremental", False) \
+                or contigs is None:
+            return None, None, cfg
+        from . import countcache as ccache
+
+        if not cfg.source_id:
+            cfg = dataclasses.replace(
+                cfg, source_id=os.path.abspath(spec.filename))
+        key = ccache.reference_key(contigs, cfg, spec.tenant)
+        seed = self.count_cache.get(key, self.registry)
+        chosen = "warm" if seed is not None else "cold"
+        # same (plural) counter names as the cache's server-lifetime
+        # family, so a per-job manifest joins the s2c_cache_*
+        # exposition key-for-key
+        robs.registry.add(
+            f"cache/{'hits' if seed is not None else 'misses'}", 1)
+        try:
+            size = os.path.getsize(spec.filename)
+        except OSError:
+            size = 0
+        # decode rate by precedence: env override, learned rate card,
+        # baked default — the ladder the decode_threads decision prices
+        # from, stamped with the consultation's provenance
+        if "S2C_DECODE_MBPS_PER_CORE" in os.environ:
+            try:
+                rate_mbps = float(
+                    os.environ["S2C_DECODE_MBPS_PER_CORE"])
+            except ValueError:
+                rate_mbps = 330.0
+            rc_prov = {"source": "env", "key": "decode_mbps_per_core"}
+        else:
+            rate_mbps, rc_prov = rcard.consult("decode_mbps_per_core",
+                                               330.0)
+        rate = rate_mbps * 1e6
+        cstats = self.count_cache.stats()
+        with obs.bind_run_to_thread(robs):
+            obs.record_decision(
+                "count_cache", chosen,
+                inputs={"entries": cstats["entries"],
+                        "resident_mb": cstats["resident_mb"],
+                        "input_bytes": int(size),
+                        "base_sources": len(seed.sources or [])
+                        if seed is not None else 0,
+                        "tenant": spec.tenant or ""},
+                predicted={"sec": size / rate} if size else {},
+                measured={"sec": {"counters": ["phase/decode_sec"]}},
+                band=0, provenance=rc_prov)
+        return key, seed, cfg
+
+    def _cache_end(self, key: str, ok: bool, capture) -> None:
+        """Commit or invalidate the job's entry — the count-bank rule:
+        only a job that finished whole re-inserts its state (the state
+        its last attempt wrote into ``capture``); ANY failure after
+        seeding drops the entry entirely (a half-applied base must never
+        seed the next job)."""
+        result = capture.result if capture is not None else None
+        if ok and result is not None:
+            self.count_cache.put(key, result, self.registry)
+        else:
+            self.count_cache.invalidate(key, self.registry)
 
     def _note_capacity(self, spec: JobSpec, exc: BaseException,
                        robs) -> None:
@@ -1789,9 +1985,10 @@ class ServeRunner:
 
     def _retry_on_host_rung(self, spec: JobSpec, cfg: RunConfig,
                             exc: BaseException, jobnum: int,
-                            job_id: str):
+                            job_id: str, capture=None):
         """Re-run a failed job pinned to the host rung, with fresh
-        instruments (the abandoned attempt may still hold its own).
+        instruments (the abandoned attempt may still hold its own) and,
+        for an incremental job, a fresh count-cache box (``capture``).
         Returns ``(result_or_None, robs, error_or_None)``."""
         from ..config import resolve_decode_threads
         from ..formats import open_alignment_input
@@ -1820,6 +2017,7 @@ class ServeRunner:
                 spec.filename, getattr(cfg, "input_format", "auto"),
                 threads=resolve_decode_threads(cfg))
             contigs, records = handle.contigs, handle.stream
+            self._next_capture = capture
             out = self._execute(contigs, records, cfg, robs, dlog,
                                 f"{job_id}#retry")
             return out, robs, None

@@ -1102,7 +1102,8 @@ def _pair(name):
 
 
 @pytest.mark.parametrize("name", ["serve.admission", "serve.health",
-                                  "serve.journal", "observability.burn",
+                                  "serve.journal", "serve.packing",
+                                  "serve.countcache", "observability.burn",
                                   "observability.metrics"])
 def test_verbatim_serve_copies(name):
     """Copied whole: the code is the original's, the package name and
@@ -1117,6 +1118,17 @@ def test_verbatim_serve_copies(name):
                                 "card_path"]),
     ("observability.flight", ["trace_id"]),
     ("serve.countcache", ["parse_budget"]),
+    ("serve.scheduler", ["parse_batch_mode", "BatchScheduler.compose",
+                         "BatchScheduler.eligible",
+                         "BatchScheduler.release_handles",
+                         "BatchScheduler._burning",
+                         "BatchScheduler._plan_members",
+                         "BatchScheduler._predict_wall",
+                         "BatchScheduler._note_rate",
+                         "BatchScheduler._tail_compatible",
+                         "BatchScheduler._render_member",
+                         "BatchScheduler._tail_member",
+                         "BatchScheduler._demote_all"]),
     ("ops.pileup", ["canonical_slab_shapes", "padded_total_len"]),
     ("resilience.ladder", ["job_rungs", "job_host_rung_config",
                            "record_job_demotion"]),
@@ -1249,9 +1261,9 @@ def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
     aside: ``backend``).  The deliberate difference: the flags of the
-    parts the port does not run yet (batching, the count cache, fleet
-    mode, sessions, cohorts, shards, the MXU pileup) are refused by name
-    at server start (``cli.UNPORTED_SERVE_FLAGS``,
+    parts the port does not run yet (fleet mode, sessions, cohorts,
+    shards, the MXU pileup) are refused by name at server start
+    (``cli.UNPORTED_SERVE_FLAGS``,
     ``serve.runner.refuse_unported_serve``), never ignored."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
@@ -1267,6 +1279,64 @@ def test_cli_serve_flags():
     assert t_def.pop("backend") == "torch" and r_def.pop("backend") == "jax"
     assert t_def == r_def
     refused = {f for f, _d, _s in t_cli.UNPORTED_SERVE_FLAGS} | {
-        "--batch", "--batch-window", "--count-cache", "--worker-id",
-        "--lease-ttl"}
+        "--worker-id", "--lease-ttl"}
     assert refused <= {s for a in t_p._actions for s in a.option_strings}
+    assert not refused & {"--batch", "--batch-window", "--count-cache",
+                          "--incremental"}
+
+
+def _cache_state(mod, n_rows, tag):
+    """A ``CheckpointState`` of ``mod``'s package: ``n_rows`` positions
+    of counts and one insertion chunk."""
+    import importlib
+
+    pkg = mod.__name__.split(".")[0]
+    ckpt = importlib.import_module(f"{pkg}.utils.checkpoint")
+    ev = importlib.import_module(f"{pkg}.encoder.events")
+    ins = ev.InsertionEvents()
+    ins.array_chunks.append((np.zeros(3, np.int32), np.ones(3, np.int32),
+                             np.ones(3, np.int32), np.zeros(3, np.uint8)))
+    return ckpt.CheckpointState(
+        counts=np.zeros((n_rows, 6), np.int32), lines_consumed=0,
+        reads_mapped=0, reads_skipped=0, aligned_bases=0, insertions=ins,
+        source="", sources=[tag])
+
+
+def test_count_cache_bookkeeping_equals_reference():
+    """The same puts, gets and invalidations on both packages' caches
+    (LRU order, eviction under the budget, an oversize entry refused)
+    leave equal stats and registries; ``reference_key`` and
+    ``entry_nbytes`` agree on the same inputs."""
+    t_cc, r_cc = _pair("serve.countcache")
+    t_m, r_m = _pair("observability.metrics")
+    outs = []
+    for cc, met in ((t_cc, t_m), (r_cc, r_m)):
+        reg = met.MetricsRegistry()
+        cache = cc.CountCache(cc.parse_budget("40K"))
+        seen = []
+        for op, key, rows in (("put", "a", 600), ("put", "b", 600),
+                              ("get", "a", 0), ("put", "c", 600),
+                              ("get", "b", 0), ("put", "huge", 5000),
+                              ("get", "c", 0), ("inv", "a", 0),
+                              ("inv", "a", 0), ("get", "z", 0)):
+            if op == "put":
+                cache.put(key, _cache_state(cc, rows, key), reg)
+            elif op == "get":
+                got = cache.get(key, reg)
+                seen.append(None if got is None else got.sources)
+            else:
+                seen.append(cache.invalidate(key, reg))
+        outs.append((cache.stats(), list(cache._entries), seen,
+                     reg.snapshot()["counters"],
+                     cc.entry_nbytes(_cache_state(cc, 600, "x"))))
+    assert outs[0] == outs[1]
+    assert outs[0][0]["evictions"] >= 1
+    cfgs = (t_config.RunConfig(), r_config.RunConfig())
+    for kw in ({}, {"maxdel": 3}, {"py2_compat": True},
+               {"thresholds": [0.5], "fill": "N"}):
+        cfg_t, cfg_r = (dataclasses.replace(c, **kw) for c in cfgs)
+        for tenant in ("", "t1"):
+            contigs_t = [t_sam.Contig("c1", 100), t_sam.Contig("c2", 250)]
+            contigs_r = [r_sam.Contig("c1", 100), r_sam.Contig("c2", 250)]
+            assert t_cc.reference_key(contigs_t, cfg_t, tenant) == \
+                r_cc.reference_key(contigs_r, cfg_r, tenant)

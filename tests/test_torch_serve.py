@@ -5,9 +5,11 @@ device="cpu")``: a served queue writes the FASTA bytes of ``--backend
 jax`` one-shot runs of the same inputs (plain, gzip and BAM SAM, two
 thresholds, ``--py2-compat``; with and without decode-ahead), publishes
 ``serve/overlap_sec`` on the jobs it decoded ahead, demotes only a
-faulting job, survives a failed job, refuses checkpoint and incremental
-jobs and every serve flag the port does not run yet by name, and without
-a named device needs CUDA.  The prewarm runs the pileup route over all-PAD
+faulting job, survives a failed job, refuses checkpoint jobs, incremental
+jobs without the count cache and every serve flag the port does not run
+yet by name, runs the batching and count-cache options it does run (each
+queue's bytes equal to the JAX package's ``ServeRunner`` on the same
+queue and flags), and without a named device needs CUDA.  The prewarm runs the pileup route over all-PAD
 rows without counting anything.  Admission control (queue bound, tenant
 quota, ``--mem-budget``, degraded-tenant pinning) and the decode-ahead
 fault site behave as the reference's.
@@ -291,7 +293,8 @@ def test_failed_job_does_not_kill_the_server(tmp_path):
 
 @pytest.mark.parametrize("cfg,match", [
     (dict(checkpoint_dir="ck"), "checkpoint"),
-    (dict(incremental=True), "--incremental: not supported by the torch"),
+    (dict(incremental=True), "incremental serve jobs need the "
+                             "per-reference count cache"),
     (dict(shards=2), "RunConfig.shards=2: not supported by the torch"),
     (dict(shard_mode="dp"), "RunConfig.shard_mode='dp': not supported"),
     (dict(pileup="mxu"), "--pileup mxu: not supported by the torch"),
@@ -331,11 +334,6 @@ def test_env_metrics_out_suffixed_per_job(tmp_path, monkeypatch):
 
 # -- refusals and the device policy ------------------------------------------
 UNPORTED = [
-    (["--batch", "4"], "--batch 4"),
-    (["--batch", "auto"], "--batch auto"),
-    (["--batch-window", "20"], "--batch-window 20.0"),
-    (["--count-cache", "512M"], "--count-cache 512M"),
-    (["--incremental"], "--incremental True"),
     (["--worker-id", "w1"], "--worker-id w1"),
     (["--lease-ttl", "5"], "--lease-ttl 5.0"),
     (["--ingest-port", "0"], "--ingest-port 0"),
@@ -365,8 +363,7 @@ def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
                                    f"the torch backend yet")
 
 
-@pytest.mark.parametrize("env,value", [("S2C_MESH_HOSTS", "2"),
-                                       ("S2C_COUNT_CACHE", "1G")])
+@pytest.mark.parametrize("env,value", [("S2C_MESH_HOSTS", "2")])
 def test_unported_serve_env_refused_by_name(tmp_path, monkeypatch, env,
                                             value):
     from sam2consensus_torch import cli
@@ -381,14 +378,90 @@ def test_unported_serve_env_refused_by_name(tmp_path, monkeypatch, env,
 
 
 @pytest.mark.parametrize("kw,named", [
-    (dict(batch="2"), "--batch 2"), (dict(batch_window=5.0),
-                                     "--batch-window 5.0"),
-    (dict(count_cache="64M"), "--count-cache 64M"),
     (dict(worker_id="w"), "--worker-id w"), (dict(lease_ttl=3.0),
                                              "--lease-ttl 3.0")])
 def test_unported_runner_options_refused_by_name(kw, named):
     with pytest.raises(ValueError, match=f"{named}: not supported"):
         runner(**kw)
+
+
+# -- the batching and count-cache options now run -----------------------------
+def small(tmp, name, seed):
+    return sim(tmp, name, seed, contig_len=1500, n_reads=400)
+
+
+def jax_serve_dir(argv, out):
+    """The JAX package's ``serve`` over the same argv into ``out``."""
+    from sam2consensus_tpu import cli as r_cli
+
+    assert r_cli.main(["serve", *argv, "-o", out, "--quiet"]) == 0
+    return read_dir(out)
+
+
+PORTED = [["--batch", "4"], ["--batch", "auto"], ["--batch-window", "20"],
+          ["--count-cache", "512M"], ["--count-cache", "64M",
+                                      "--incremental"]]
+
+
+@pytest.mark.parametrize("argv", PORTED, ids=[" ".join(a) for a in PORTED])
+def test_ported_serve_flag_runs_a_job(tmp_path, argv):
+    """Each option the refusal list no longer names starts a server
+    and runs its jobs, with the JAX package's serve bytes."""
+    from sam2consensus_torch import cli
+
+    inputs = sum((["-i", small(tmp_path, f"p{k}.sam", 95 + k)]
+                  for k in range(2)), [])
+    out = str(tmp_path / "o")
+    assert cli.main(["serve", *inputs, "-o", out, "--quiet", *argv],
+                    device="cpu") == 0
+    assert read_dir(out) == jax_serve_dir([*inputs, *argv],
+                                          str(tmp_path / "ref"))
+
+
+def test_count_cache_env_runs_incremental_jobs(tmp_path, monkeypatch):
+    """``S2C_COUNT_CACHE`` arms the cache of the CLI's server and of
+    a ``ServeRunner`` built in code: incremental jobs run, the second
+    on the first's warm counts."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.serve import JobSpec
+
+    monkeypatch.setenv("S2C_COUNT_CACHE", "1G")
+    inputs = sum((["-i", small(tmp_path, f"e{k}.sam", 97 + k)]
+                  for k in range(2)), [])
+    out = str(tmp_path / "o")
+    assert cli.main(["serve", *inputs, "-o", out, "--quiet",
+                     "--incremental"], device="cpu") == 0
+    assert read_dir(out) == jax_serve_dir([*inputs, "--incremental"],
+                                          str(tmp_path / "ref"))
+    r = runner()
+    try:
+        assert r.count_cache is not None and r.count_cache.budget == 1 << 30
+        res = r.submit_jobs([JobSpec(inputs[1], TConfig(incremental=True))])
+    finally:
+        r.close()
+    assert res[0].ok and res[0].metrics.get("cache/misses") == 1
+
+
+@pytest.mark.parametrize("kw", [dict(batch="2"), dict(batch_window=5.0),
+                                dict(count_cache="64M")],
+                         ids=["batch", "batch_window", "count_cache"])
+def test_ported_runner_options_run_jobs(tmp_path, kw):
+    """The runner's ``batch``, ``batch_window`` and ``count_cache``
+    start a server whose jobs equal independent ``--backend jax`` runs
+    (``batch="2"`` packs them)."""
+    from sam2consensus_torch.serve import JobSpec
+
+    paths = [small(tmp_path, f"k{k}.sam", 100 + k) for k in range(2)]
+    r = runner(**kw)
+    try:
+        results = r.submit_jobs([JobSpec(p, TConfig()) for p in paths])
+    finally:
+        r.close()
+    assert all(x.ok for x in results), [x.error for x in results]
+    for path, res in zip(paths, results):
+        assert rendered(res) == jax_cold(path)
+    packed = r.registry.value("batch/packed_jobs")
+    assert packed == (2 if kw.get("batch") == "2" else 0)
 
 
 @pytest.mark.parametrize("argv", [
