@@ -208,7 +208,41 @@ Phases, each fatal on failure (exit code 1, no result line):
    ratio printed against the reference's 0.15 target; (5) host
    synchronisations: none in a batch's dispatch waves (fatal), its
    shared tail's printed; the delta served without a cache makes its
-   one-shot run's (fatal), with one printed beside it.
+   one-shot run's (fatal), with one printed beside it;
+14. fleet mode (``serve --worker-id``): a queue of ``ecoli_scale`` (SAM
+   and BGZF SAM: a journaled server refuses BAM), ``amplicon_deep``, ``longread_sv``, ``target_capture`` and
+   three ``phix`` at ``-c 0.25 --pileup auto``, and ``ecoli_scale`` at
+   ``--pileup pallas``, each job into its own directory, first run one
+   shot on the card (launches) and on the CPU (bytes); then drained by
+   worker processes on one journal (the kernels built before any starts):
+   (1) one worker, (2) two workers, (3) worker A SIGKILLed while it holds
+   the lease of ``ecoli_scale`` at ``--pileup pallas`` (its second K1
+   dispatch hangs), worker B stealing and committing it.  Each drain: every output equal to the CPU one-shot
+   run, the journal audit with no lost and no duplicated job,
+   ``flight.validate`` of the assembled journal empty and every track
+   without a gap, every job committed once by a worker whose per-job
+   launches (its ``JobResult.metrics``) equal the job's one-shot run's,
+   no job on the host rung; the drain walls, each process's peak device
+   memory and the steal gap (within the lease TTL, the queue's longest
+   job and a second) printed; (4) ``run_fleet_bench()`` at its default
+   and at ``pileup="auto"``, both ``ok``;
+15. streaming sessions: (1) one ``serve --ingest-port 0 --journal J``
+   server process at ``-c 0.25 --pileup pallas``; over HTTP an
+   ``ecoli_scale`` session of 150,000 reads in 6 waves, ``amplicon_deep``
+   in 4 and ``longread_sv`` in 3, each with a re-vote and a close: every
+   wave launches K1 and the tail kernels its one-shot run launched, a
+   re-vote launches no K1 and keeps the digest, each closed session's
+   FASTA equals the one-shot run over all its reads, the audit is clean;
+   each wave's seed, K1 route, tail, capture, checkpoint save and journal
+   append seconds printed from the session's ``waves.jsonl``; (2) a torn
+   spool answered ``resend`` and never absorbed, a session at its pending
+   bound answered 429 with ``Retry-After``, and waves absorbed on the
+   HTTP handler threads with K1's route under
+   ``set_sync_debug_mode("error")``; (3) two fleet workers serving
+   sessions, the owner SIGKILLed with two waves journaled and not
+   absorbed: the peer adopts the session, replays exactly those waves, no
+   read lost or counted twice, the bytes equal to the one-shot run; (4)
+   ``run_streaming_bench()``'s summary.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -3368,6 +3402,7 @@ def batching_and_cache(tmp: str, card: str) -> None:
     """Phase 13."""
     t0 = time.perf_counter()
     paths = phase13_inputs(tmp)
+    PHASE13_PATHS[:] = paths
     print("  13.1: the packed queue, --batch auto then off")
     serial = packed_queue(tmp, card, paths)
     print("  13.2: the reference's batch-bench queue")
@@ -3377,6 +3412,717 @@ def batching_and_cache(tmp: str, card: str) -> None:
     print("  13.4: the count cache at full size")
     count_cache(tmp, card)
     print(f"  phase 13 took {time.perf_counter() - t0:.1f}s [{card}]")
+
+
+# -- phase 14: fleet mode ---------------------------------------------------
+#: phase 14's queue: (name, input, flags), each job into its own output
+#: directory (the directory is part of the journal key, so ecoli_scale
+#: under --pileup pallas is a job of its own).  Filled by fleet_queue().
+PHASE14_QUEUE = []
+#: phase 13.1's inputs, kept for phase 14
+PHASE13_PATHS = []
+#: the lease TTL of phase 14's workers (seconds)
+FLEET_TTL = 3.0
+#: phase 14.3's job: ecoli_scale under --pileup pallas (three K1
+#: dispatches at full size), first in the queue so worker A claims it;
+#: its second dispatch hangs on A (KILL_FAULT), after its first launched
+KILL_JOB = "ecoli_scale_pallas"
+KILL_FAULT = "job_hang:timeout:1:1"
+
+def drain_as_worker(jobs, out: str, jdir: str, worker: str, ttl: float,
+                    hang: str = "", gate: str = "") -> dict:
+    """One fleet worker's drain of ``jobs`` ([name, path, flags]), each job
+    into ``out/<name>``: the kernel extension loaded before its first
+    claim (so a worker killed later never holds the build's lock), then
+    ``ServeRunner(journal_dir=jdir, worker_id=worker)``; ``hang`` names
+    the job whose second dispatch hangs (:data:`KILL_FAULT`),
+    ``gate`` a file to wait for before the queue starts.  Returns the
+    drain's wall, the process's peak device memory and per job its id,
+    outcome, committing worker, error, rungs and launches (its
+    ``JobResult.metrics``, the per-job record)."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.kernels.build import extension
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+
+    extension()
+    specs = []
+    for name, path, flags in jobs:
+        fault = ["--fault-inject", KILL_FAULT] if name == hang else []
+        cfg = cli.config_from_args(cli.build_parser().parse_args(
+            ["-i", path, "-o", os.path.join(out, name), *flags,
+             "--decoder", "native", *fault]))
+        specs.append(JobSpec(path, cfg, job_id=name))
+    while gate and not os.path.exists(gate):
+        time.sleep(0.02)
+    torch.cuda.reset_peak_memory_stats()
+    runner = ServeRunner(journal_dir=jdir, worker_id=worker,
+                         lease_ttl=float(ttl))
+    try:
+        t0 = time.perf_counter()
+        results = runner.submit_jobs(specs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        runner.close()
+    return {"worker": worker, "drain_sec": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "results": [{"job": r.job_id, "ok": r.ok, "resumed": r.resumed,
+                         "worker": r.worker, "error": r.error,
+                         "rungs": r.rungs, "elapsed": r.elapsed_sec,
+                         "launches": {k.rsplit("/", 1)[1]: int(v)
+                                      for k, v in r.metrics.items()
+                                      if k.startswith("kernel/launches/")}}
+                        for r in results]}
+
+
+#: a fleet worker in a process of its own: :func:`drain_as_worker` over
+#: argv (the queue as JSON, then its other arguments), its report printed
+#: as one JSON line
+FLEET_DRIVER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+rep = chip_smoke.drain_as_worker(json.loads(sys.argv[2]), *sys.argv[3:])
+print(json.dumps(rep), flush=True)
+sys.exit(0 if all(r["ok"] for r in rep["results"]) else 1)
+"""
+
+
+def fleet_env() -> dict:
+    return dict(os.environ, S2C_FAULT_HANG_S="3600",
+                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+
+
+def fleet_worker(out: str, jdir: str, worker: str, hang: str = "",
+                 gate: str = ""):
+    """Start one FLEET_DRIVER process over phase 14's queue."""
+    return subprocess.Popen(
+        [sys.executable, "-c", FLEET_DRIVER, REPO,
+         json.dumps([list(q) for q in PHASE14_QUEUE]), out, jdir, worker,
+         str(FLEET_TTL), hang, gate], env=fleet_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def worker_report(proc, what: str, timeout: float = 600) -> dict:
+    """A worker's JSON line; fatal if it failed."""
+    try:
+        o, e = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        o, e = proc.communicate()
+    lines = [ln for ln in o.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"phase 14: {what} rc={proc.returncode}: {e[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def fleet_queue(tmp: str, card: str) -> dict:
+    """Phase 14's queue and, per job, its one-shot run on the card at the
+    same flags (launches, wall) and its CPU one-shot output directory.
+    A journaled server refuses BAM input (no checkpoint resume for it,
+    as in the JAX package), so ecoli_scale's second container is BGZF
+    SAM."""
+    from sam2consensus_torch.formats.bgzf import write_bgzf
+    from sam2consensus_torch.kernels.build import all_kernels
+
+    kernels = all_kernels()
+    tc, phix = PHASE13_PATHS[0], PHASE13_PATHS[1:4]
+    flags = ["-c", "0.25", "--pileup", "auto"]
+    bgzf = os.path.join(tmp, "ecoli_scale.sam.gz")
+    with open(PHASE7["ecoli_scale"]["path"], "rb") as fh:
+        write_bgzf(fh.read(), bgzf)
+    PHASE14_QUEUE[:] = (
+        [(KILL_JOB, PHASE7["ecoli_scale"]["path"],
+          ["-c", "0.25", "--pileup", "pallas"]),
+         ("ecoli_scale", PHASE7["ecoli_scale"]["path"], flags),
+         ("ecoli_scale_bgzf", bgzf, flags),
+         ("amplicon_deep", PHASE7["amplicon_deep"]["path"], flags),
+         ("longread_sv", PHASE7["longread_sv"]["path"], flags),
+         ("target_capture", tc, flags)]
+        + [(f"phix_{k}", p, flags) for k, p in enumerate(phix)])
+    ref = {}
+    t0 = time.perf_counter()
+    for name, path, fl in PHASE14_QUEUE:
+        out = os.path.join(tmp, f"p14_one_{name}")
+        before = {k.name: k.launches for k in kernels}
+        wall = run_cli(["-i", path, "-o", out, *fl, "--decoder", "native"],
+                       None)
+        ref[name] = {"wall": wall, "out": out, "launched": {
+            k.name: k.launches - before[k.name] for k in kernels}}
+        if name.startswith("ecoli_scale"):
+            cpu = os.path.join(os.path.dirname(PHASE7["ecoli_scale"]["out"]),
+                               "ecoli_scale_cpu")
+        else:
+            cpu = os.path.join(tmp, f"p14_cpu_{name}")
+            run_cli(["-i", path, "-o", cpu, *fl, "--decoder", "native"],
+                    "cpu")
+        ref[name]["cpu"] = cpu
+        if read_dir(out) != read_dir(cpu):
+            fail(f"phase 14: {name}'s one-shot run on the card differs "
+                 f"from its CPU run")
+    print(f"  14 one-shot references [{card}] "
+          f"({time.perf_counter() - t0:.1f}s): " + "; ".join(
+              f"{n} wall={r['wall']:.3f}s launches={r['launched']}"
+              for n, r in ref.items()))
+    return ref
+
+
+def check_drain(label: str, out: str, jdir: str, reports: list,
+                ref: dict) -> dict:
+    """Fatal checks of one drain: bytes equal the CPU one-shot runs, the
+    audit is clean, the assembled journal validates, every job committed
+    once by a worker whose launches equal the one-shot run's, no job on
+    the host rung.  Returns the assembled lifecycles."""
+    from sam2consensus_torch.observability import flight
+    from sam2consensus_torch.serve.journal import JobJournal
+
+    for name, _p, _f in PHASE14_QUEUE:
+        if served_files(os.path.join(out, name)) != \
+                served_files(ref[name]["cpu"]):
+            fail(f"phase 14 ({label}): {name}'s output differs from the "
+                 f"CPU one-shot run")
+    jn = JobJournal(jdir)
+    audit = jn.audit()
+    if audit["lost"] or audit["duplicated"] or \
+            len(audit["commit_counts"]) != len(PHASE14_QUEUE):
+        fail(f"phase 14 ({label}): the journal audit: {audit}")
+    events = jn.events()
+    jobs = flight.assemble(events)
+    errs = flight.validate(flight.chrome_events(jobs))
+    if errs:
+        fail(f"phase 14 ({label}): flight.validate: {errs[:5]}")
+    ran = {}
+    for rep in reports:
+        for r in rep["results"]:
+            if r["ok"] and not r["resumed"]:
+                if r["job"] in ran:
+                    fail(f"phase 14 ({label}): {r['job']} ran twice")
+                ran[r["job"]] = (rep["worker"], r)
+    for name, _p, _f in PHASE14_QUEUE:
+        if name not in ran:
+            fail(f"phase 14 ({label}): no worker reported running {name}")
+        worker, r = ran[name]
+        got = {k: r["launches"].get(k, 0) for k in ref[name]["launched"]}
+        if got != ref[name]["launched"]:
+            fail(f"phase 14 ({label}): {name} on {worker} launched {got}, "
+                 f"its one-shot run {ref[name]['launched']}")
+        if r["rungs"]:
+            fail(f"phase 14 ({label}): {name} ran on the rung {r['rungs']}")
+    by_worker = {}
+    for name, (worker, _r) in sorted(ran.items()):
+        by_worker.setdefault(worker, []).append(name)
+    print(f"  14 {label}: audit lost={audit['lost']} duplicated="
+          f"{audit['duplicated']}, flight.validate=[], committed by "
+          f"{by_worker}")
+    for key, jl in jobs.items():
+        segs = jl.segments
+        if any(b.t0 != a.t1 for a, b in zip(segs, segs[1:])) or \
+                any(s.t1 < s.t0 for s in segs):
+            fail(f"phase 14 ({label}): {jl.job_id}'s track has a gap or "
+                 f"a negative segment")
+    return jobs
+
+
+def fleet_drains(tmp: str, card: str, ref: dict) -> None:
+    """Phase 14.1-14.3: one worker, two workers, the kill cycle."""
+    from sam2consensus_torch.serve.journal import JobJournal
+
+    # (a) one worker (this process) drains the queue serially
+    out, jdir = os.path.join(tmp, "p14a"), os.path.join(tmp, "p14a_j")
+    rep = drain_as_worker(PHASE14_QUEUE, out, jdir, "solo", FLEET_TTL)
+    if not all(r["ok"] for r in rep["results"]):
+        fail(f"phase 14.1: the serial drain failed: {rep['results']}")
+    check_drain("serial drain", out, jdir, [rep], ref)
+    print(f"  14.1 serial drain (this process) [{card}]: drain="
+          f"{rep['drain_sec']:.3f}s peak device memory="
+          f"{rep['peak_bytes'] / 2**20:.1f} MiB")
+    # (b) two worker processes drain a fresh copy
+    out, jdir = os.path.join(tmp, "p14b"), os.path.join(tmp, "p14b_j")
+    t0 = time.perf_counter()
+    procs = [fleet_worker(out, jdir, w) for w in ("fw0", "fw1")]
+    reps = [worker_report(p, f"worker {w}")
+            for p, w in zip(procs, ("fw0", "fw1"))]
+    wall = time.perf_counter() - t0
+    check_drain("two workers", out, jdir, reps, ref)
+    print(f"  14.2 two workers [{card}]: process wall={wall:.2f}s " +
+          " ".join(f"{r['worker']}: drain={r['drain_sec']:.3f}s peak "
+                   f"device memory={r['peak_bytes'] / 2**20:.1f} MiB"
+                   for r in reps))
+    # (c) worker A is SIGKILLed holding KILL_JOB's lease; B steals it.
+    # B starts beside A and waits on a gate file until A has started the
+    # job, so B's start-up overlaps A's and B cannot claim it first
+    out, jdir = os.path.join(tmp, "p14c"), os.path.join(tmp, "p14c_j")
+    gate = os.path.join(tmp, "p14c_gate")
+    a = fleet_worker(out, jdir, "fw0", hang=KILL_JOB)
+    b = fleet_worker(out, jdir, "fw1", gate=gate)
+    try:
+        deadline = time.monotonic() + 240
+        started = None
+        while time.monotonic() < deadline and a.poll() is None:
+            if os.path.isdir(jdir):
+                evs = JobJournal(jdir).events()
+                started = next((e for e in evs if e["ev"] == "started"
+                                and e.get("job") == KILL_JOB
+                                and e.get("worker") == "fw0"), None)
+                if started is not None:
+                    break
+            time.sleep(0.05)
+        if started is None:
+            fail(f"phase 14.3: worker A never started {KILL_JOB}: "
+                 f"{a.communicate(timeout=30)[1][-2000:]}")
+        open(gate, "w").close()
+        # B is draining (its first claim) and A is past its first
+        # dispatch: A's second dispatch hangs while it holds the lease
+        while time.monotonic() < deadline and b.poll() is None and not \
+                any(e["ev"] == "claimed" and e.get("worker") == "fw1"
+                    for e in JobJournal(jdir).events()):
+            time.sleep(0.05)
+        while time.time() < started["t"] + 2.0:
+            time.sleep(0.05)
+        evs = JobJournal(jdir).events()
+        done = any(e["ev"] == "committed" and e.get("job") == KILL_JOB
+                   for e in evs)
+        if done or a.poll() is not None or b.poll() is not None:
+            dead = [p.communicate()[1][-1500:] for p in (a, b)
+                    if p.poll() is not None]
+            fail(f"phase 14.3: no kill window ({KILL_JOB} held by A and "
+                 f"not committed, B draining): committed={done} A rc="
+                 f"{a.poll()} B rc={b.poll()} {dead}")
+        a.kill()
+        t_kill = time.time()
+        a.communicate(timeout=60)
+        rep_b = worker_report(b, "worker B (the thief)")
+    finally:
+        for p in (a, b):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    jobs = check_drain("kill cycle", out, jdir, [rep_b], ref)
+    stolen = [jl for jl in jobs.values() if jl.job_id == KILL_JOB][0]
+    gap = stolen.steal_latency_sec
+    # the lease runs out at most a TTL after A's last renewal; B notices
+    # at its next drain round, after the job it may be running then
+    bound = FLEET_TTL + max(r["wall"] for r in ref.values()) + 1.0
+    print(f"  14.3 kill cycle [{card}]: A killed {t_kill - started['t']:.2f}s "
+          f"after it started {KILL_JOB}; B drain={rep_b['drain_sec']:.3f}s "
+          f"peak device memory={rep_b['peak_bytes'] / 2**20:.1f} MiB; steal "
+          f"gap={gap}s (lease TTL {FLEET_TTL}s, bound {bound}s), "
+          f"{KILL_JOB} committed by {stolen.committed_worker}, steals="
+          f"{stolen.steals}; A's peak device memory not measured (killed)")
+    if stolen.committed_worker != "fw1" or stolen.steals != 1:
+        fail(f"phase 14.3: B did not steal and commit {KILL_JOB}")
+    if gap is None or gap > bound:
+        fail(f"phase 14.3: the steal gap {gap}s is past {bound}s")
+
+
+def fleet_bench(card: str) -> None:
+    """Phase 14.4: run_fleet_bench at its default and at pileup="auto"."""
+    from sam2consensus_torch.serve.benchmark import run_fleet_bench
+
+    for kw in ({}, {"pileup": "auto"}):
+        t0 = time.perf_counter()
+        s = run_fleet_bench(**kw)["summary"]
+        print(f"  14.4 run_fleet_bench(pileup={s['pileup']!r}) [{card}]: "
+              f"{s['n_jobs']} jobs x {s['n_reads']} reads, serial drain "
+              f"{s['serial_drain_sec']}s, {s['n_workers']} workers "
+              f"{s['fleet_drain_sec']}s, drain_speedup="
+              f"{s['drain_speedup']}, host_cores={s['host_cores']}, "
+              f"identical={s['identical']} lost={s['lost']} duplicated="
+              f"{s['duplicated']} ({time.perf_counter() - t0:.1f}s)")
+        if not s["ok"]:
+            fail(f"phase 14.4: run_fleet_bench({kw}) is not ok: {s}")
+
+
+def fleet_mode(tmp: str, card: str) -> None:
+    """Phase 14."""
+    t0 = time.perf_counter()
+    ref = fleet_queue(tmp, card)
+    fleet_drains(tmp, card, ref)
+    fleet_bench(card)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f}s [{card}]")
+
+
+# -- phase 15: streaming sessions --------------------------------------------
+#: phase 15.1's sessions: (input, waves)
+PHASE15_SESSIONS = (("ecoli_scale", 6), ("amplicon_deep", 4),
+                    ("longread_sv", 3))
+SESSION_FLAGS = ["-c", "0.25", "--pileup", "pallas", "--decoder", "native"]
+
+
+def http_call(port: int, method: str, path: str, body: bytes = b"",
+              headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        hdrs = dict(headers or {})
+        if method == "POST":
+            hdrs.setdefault("Content-Length", str(len(body)))
+        conn.request(method, path, body=body or None, headers=hdrs)
+        resp = conn.getresponse()
+        payload = resp.read()
+        try:
+            doc = json.loads(payload.decode("utf-8"))
+        except ValueError:
+            doc = {}
+        return resp.status, doc, dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def split_waves(path: str, n: int):
+    """A SAM file's header and its reads cut into ``n`` wave bodies."""
+    header, reads = [], []
+    with open(path, "rb") as fh:
+        for ln in fh:
+            (header if ln.startswith(b"@") else reads).append(ln)
+    per = -(-len(reads) // n)
+    return b"".join(header), [b"".join(reads[i:i + per])
+                              for i in range(0, len(reads), per)]
+
+
+def session_server(jdir: str, *extra):
+    """``serve --ingest-port 0 --journal jdir`` in a process of its own,
+    its output in files beside the journal; returns the process and the
+    port it printed."""
+    log = f"{jdir}.{len(extra)}.{time.monotonic_ns()}"
+    out, err = open(log + ".out", "w"), open(log + ".err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "sam2consensus_torch.cli", "serve",
+         "--ingest-port", "0", "--journal", jdir, *SESSION_FLAGS, *extra],
+        env=fleet_env(), stdout=out, stderr=err, text=True)
+    out.close()
+    err.close()
+    proc.log = log
+    deadline = time.monotonic() + 180
+    while time.monotonic() < deadline and proc.poll() is None:
+        text = open(log + ".out").read()
+        if "Streaming sessions on 127.0.0.1:" in text:
+            return proc, int(text.split("127.0.0.1:")[1].split()[0])
+        time.sleep(0.1)
+    proc.kill()
+    proc.wait()
+    fail(f"phase 15: the session server did not start: "
+         f"{open(log + '.err').read()[-2000:]}")
+
+
+def stop_server(proc, what: str) -> None:
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0:
+        fail(f"phase 15: {what} exited {proc.returncode}: "
+             f"{open(proc.log + '.err').read()[-2000:]}")
+
+
+def one_shot_fastas(path: str) -> dict:
+    """The one-shot run on the card over ``path`` at the sessions' flags
+    (prefix "", as a session's vote), rendered per reference."""
+    import dataclasses
+
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.io.fasta import render_file
+    from sam2consensus_torch.serve import JobSpec, submit_jobs
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-i", path, *SESSION_FLAGS]))
+    res = submit_jobs([JobSpec(path, dataclasses.replace(cfg, prefix=""))],
+                      prewarm="off")[0]
+    if not res.ok:
+        fail(f"phase 15: the one-shot run over {path} failed: {res.error}")
+    return {ref: render_file(recs, 0) for ref, recs in res.fastas.items()}
+
+
+def session_outputs(paths) -> dict:
+    return {os.path.basename(p).split("__")[0]: open(p).read()
+            for p in paths}
+
+
+def wave_log(jdir: str, sid: str) -> list:
+    from sam2consensus_torch.serve.session import WAVE_LOG
+
+    with open(os.path.join(jdir, "sessions", sid, WAVE_LOG)) as fh:
+        return [json.loads(ln) for ln in fh]
+
+
+def print_waves(name: str, log: list, card: str) -> None:
+    for w in log:
+        print(f"    {name} wave {w['wave']}{' revote' if w['revote'] else ''}"
+              f" [{card}]: seed={w['seed_sec']:.4f}s K1 route="
+              f"{w['pileup_sec']:.4f}s tail={w['tail_sec']:.4f}s capture="
+              f"{w['capture_sec']:.4f}s checkpoint save={w['save_sec']:.4f}s"
+              f" journal append={w['journal_sec']:.4f}s launches="
+              f"{w['launches']}")
+
+
+def served_sessions(tmp: str, card: str) -> None:
+    """Phase 15.1: one server process, three sessions over HTTP."""
+    jdir = os.path.join(tmp, "p15_j")
+    proc, port = session_server(jdir)
+    try:
+        for name, n_waves in PHASE15_SESSIONS:
+            path = PHASE7[name]["path"]
+            header, bodies = split_waves(path, n_waves)
+            t0 = time.perf_counter()
+            st, doc, _ = http_call(port, "POST", "/session/open", header,
+                                   {"X-Tenant": "smoke"})
+            if st != 200:
+                fail(f"phase 15.1: open {name}: {st} {doc}")
+            sid = doc["sid"]
+            import hashlib
+
+            for body in bodies:
+                st, ack, _ = http_call(
+                    port, "POST", f"/session/{sid}/wave", body,
+                    {"X-Wave-Sha256": "sha256:"
+                     + hashlib.sha256(body).hexdigest()})
+                if st != 200 or ack.get("status") != "absorbed":
+                    fail(f"phase 15.1: {name} wave: {st} {ack}")
+            st, rv, _ = http_call(port, "POST", f"/session/{sid}/revote")
+            if st != 200 or rv["digest"] != ack["digest"]:
+                fail(f"phase 15.1: {name}'s revote changed the digest: "
+                     f"{rv} vs {ack}")
+            st, closed, _ = http_call(port, "POST", f"/session/{sid}/close")
+            if st != 200:
+                fail(f"phase 15.1: close {name}: {st} {closed}")
+            wall = time.perf_counter() - t0
+            log = wave_log(jdir, sid)
+            print(f"  15.1 {name} [{card}]: {len(bodies)} waves of "
+                  f"{len(bodies[0].splitlines())} reads, session wall "
+                  f"{wall:.3f}s, reads_total={closed['reads_total']}")
+            print_waves(name, log, card)
+            absorbs = [w for w in log if not w["revote"]]
+            revotes = [w for w in log if w["revote"]]
+            if len(absorbs) != len(bodies) or \
+                    any(not w["launches"].get("pileup_rows") for w in absorbs):
+                fail(f"phase 15.1: a {name} wave launched no K1")
+            want_tail = {k for k in ("insertion_vote", "insertion_table")
+                         if PHASE7[name]["launched"].get(k)}
+            got_tail = {k for w in absorbs for k in w["launches"]
+                        if k != "pileup_rows" and w["launches"][k]}
+            if want_tail and not want_tail <= got_tail:
+                fail(f"phase 15.1: {name}'s waves launched {got_tail}, its "
+                     f"one-shot run {want_tail}")
+            if not revotes or any(w["launches"].get("pileup_rows")
+                                  for w in revotes):
+                fail(f"phase 15.1: {name}'s revote launched K1")
+            if session_outputs(closed["outputs"]) != one_shot_fastas(path):
+                fail(f"phase 15.1: {name}'s session output differs from "
+                     f"the one-shot run over all its reads")
+    finally:
+        stop_server(proc, "the session server")
+    from sam2consensus_torch.serve.journal import JobJournal
+
+    audit = JobJournal(jdir).audit(full=True)
+    for sid, aud in audit.get("sessions", {}).items():
+        if aud["lost_waves"] or aud["duplicated_waves"]:
+            fail(f"phase 15.1: session {sid}'s audit: {aud}")
+    print(f"  15.1 [{card}]: {len(audit.get('sessions', {}))} sessions "
+          f"audited clean; every session == its one-shot run")
+
+
+def torn_and_backpressure(tmp: str, card: str) -> None:
+    """Phase 15.2: a torn spool is answered ``resend`` and never
+    absorbed, and a session at its pending bound answers 429 with
+    Retry-After (a session manager in this process, on the card)."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.serve import ServeRunner
+    from sam2consensus_torch.serve.session import SessionManager
+    from sam2consensus_torch.serve.stream_server import IngestServer
+
+    path = PHASE13_PATHS[1]
+    header, bodies = split_waves(path, 2)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-i", path, *SESSION_FLAGS]))
+    runner = ServeRunner(prewarm="off", journal_dir=os.path.join(
+        tmp, "p15_2_j"))
+    mgr = SessionManager(runner, cfg, revote_debounce=0.3, max_pending=1)
+    srv = IngestServer(mgr, port=0)
+    try:
+        _st, doc, _ = http_call(srv.port, "POST", "/session/open", header)
+        sid = doc["sid"]
+        st1, a1, _ = http_call(srv.port, "POST", f"/session/{sid}/wave",
+                               bodies[0])
+        st2, a2, hdrs = http_call(srv.port, "POST", f"/session/{sid}/wave",
+                                  bodies[1])
+        with open(mgr.sessions[sid].body_path(a1["wave"]), "wb") as fh:
+            fh.write(bodies[0][: len(bodies[0]) // 2])
+        time.sleep(0.4)
+        mgr.tick()
+        _s, torn, _ = http_call(srv.port, "GET", f"/session/{sid}")
+        for body in bodies:
+            http_call(srv.port, "POST", f"/session/{sid}/wave", body)
+            time.sleep(0.4)
+            mgr.tick()
+        _s, healed, _ = http_call(srv.port, "GET", f"/session/{sid}")
+    finally:
+        srv.close()
+        runner.close()
+    print(f"  15.2 [{card}]: wave {a1['wave']} -> {st1} {a1['status']}; "
+          f"next -> {st2} {a2.get('error')} Retry-After="
+          f"{hdrs.get('Retry-After')}; torn spool -> absorbed="
+          f"{torn['absorbed']} resend={torn['resend']}; re-sent -> "
+          f"absorbed={healed['absorbed']} reads={healed['reads_total']}")
+    if (st1, st2) != (202, 429) or not float(hdrs.get("Retry-After", 0)) > 0:
+        fail("phase 15.2: no 429 with Retry-After at the pending bound")
+    if torn["absorbed"] != 0 or torn["resend"] != [a1["wave"]]:
+        fail("phase 15.2: the torn spool was not answered resend")
+    if healed["absorbed"] != 2:
+        fail("phase 15.2: the re-sent waves were not absorbed")
+
+
+def handler_thread_waves(tmp: str, card: str) -> None:
+    """Phase 15.2: waves absorbed on the HTTP handler threads (no
+    debounce) run K1's route (``PileupAccumulator.add``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host
+    synchronisation there, as on the runner's thread (phase 8)."""
+    from sam2consensus_torch import cli
+    from sam2consensus_torch.ops.pileup import PileupAccumulator
+    from sam2consensus_torch.serve import ServeRunner
+    from sam2consensus_torch.serve.session import SessionManager
+    from sam2consensus_torch.serve.stream_server import IngestServer
+
+    path = PHASE13_PATHS[2]
+    header, bodies = split_waves(path, 2)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-i", path, *SESSION_FLAGS]))
+    runner = ServeRunner(prewarm="off", journal_dir=os.path.join(
+        tmp, "p15_2b_j"))
+    mgr = SessionManager(runner, cfg)
+    srv = IngestServer(mgr, port=0)
+    orig_add = PileupAccumulator.add
+    threads = []
+
+    def add(self, *args, **kwargs):
+        threads.append(threading.current_thread().name)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig_add(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    PileupAccumulator.add = add
+    try:
+        _st, doc, _ = http_call(srv.port, "POST", "/session/open", header)
+        sid = doc["sid"]
+        acks = [http_call(srv.port, "POST", f"/session/{sid}/wave", body)
+                for body in bodies]
+    finally:
+        PileupAccumulator.add = orig_add
+        srv.close()
+        runner.close()
+    log = wave_log(os.path.join(tmp, "p15_2b_j"), sid)
+    print(f"  15.2 handler threads [{card}]: waves -> "
+          f"{[(st, a.get('status')) for st, a, _h in acks]}, K1 route "
+          f"under set_sync_debug_mode('error') {len(threads)} time(s) on "
+          f"{sorted(set(threads))}, launches {[w['launches'] for w in log]}")
+    if [(st, a.get("status")) for st, a, _h in acks] != \
+            [(200, "absorbed")] * len(bodies):
+        fail(f"phase 15.2: a wave absorbed on a handler thread failed "
+             f"(a host synchronisation in K1's route?): {acks}")
+    if not threads or "MainThread" in threads or \
+            any(not w["launches"].get("pileup_rows") for w in log):
+        fail("phase 15.2: the waves did not run K1 on handler threads")
+
+
+def session_steal(tmp: str, card: str) -> None:
+    """Phase 15.3: two fleet workers serve sessions; the owner is
+    SIGKILLed with waves journaled and not absorbed, the peer adopts the
+    session and replays exactly those waves."""
+    from sam2consensus_torch.serve.journal import JobJournal
+    from sam2consensus_torch.serve.session import _count_reads
+
+    name = "amplicon_deep"
+    path = PHASE7[name]["path"]
+    header, bodies = split_waves(path, 4)
+    jdir = os.path.join(tmp, "p15_3_j")
+    ttl = "3"
+    a, port_a = session_server(jdir, "--worker-id", "sw0", "--lease-ttl",
+                               ttl, "--revote-debounce", "600")
+    b, port_b = session_server(jdir, "--worker-id", "sw1", "--lease-ttl",
+                               ttl, "--revote-debounce", "600")
+    try:
+        _st, doc, _ = http_call(port_a, "POST", "/session/open", header)
+        sid = doc["sid"]
+        for body in bodies[:2]:
+            http_call(port_a, "POST", f"/session/{sid}/wave", body)
+        http_call(port_a, "POST", f"/session/{sid}/revote")  # absorbs 1-2
+        acks = [http_call(port_a, "POST", f"/session/{sid}/wave", body)
+                for body in bodies[2:]]
+        view = JobJournal(jdir).read_state().sessions[sid]
+        uncovered = sorted(set(int(w) for w in view["waves"])
+                           - set(int(w) for w in view["absorbed"]))
+        if [x[0] for x in acks] != [202, 202] or len(uncovered) != 2:
+            fail(f"phase 15.3: no kill window: {acks} {view}")
+        a.kill()
+        t_kill = time.monotonic()
+        a.wait(timeout=60)
+        st = {}
+        while time.monotonic() - t_kill < 120:
+            code, st, _ = http_call(port_b, "GET", f"/session/{sid}")
+            if code == 200 and st["absorbed"] == 4:
+                break
+            time.sleep(0.25)
+        adopt = time.monotonic() - t_kill
+        code, closed, _ = http_call(port_b, "POST", f"/session/{sid}/close")
+    finally:
+        if a.poll() is None:
+            a.kill()
+            a.wait()
+        stop_server(b, "the thief's session server")
+    log = wave_log(jdir, sid)
+    print(f"  15.3 [{card}]: owner killed with waves {uncovered} journaled "
+          f"and not absorbed; the peer absorbed all 4 {adopt:.2f}s later "
+          f"(lease TTL {ttl}s), stolen_from={st.get('stolen_from')}, "
+          f"reads_total={closed.get('reads_total')}")
+    print_waves(f"{name} (stolen)", log, card)
+    aud = JobJournal(jdir).audit(full=True)["sessions"][sid]
+    total = sum(_count_reads(bd) for bd in bodies)
+    if code != 200 or st.get("stolen_from") != "sw0":
+        fail(f"phase 15.3: the peer did not adopt and close: {code} {st}")
+    if aud["lost_waves"] or aud["duplicated_waves"] or \
+            closed["reads_total"] != total:
+        fail(f"phase 15.3: lost or double-counted reads: {aud} "
+             f"reads_total={closed['reads_total']} of {total}")
+    replayed = [w["wave"] for w in log if not w["revote"]][2:]
+    if replayed != uncovered:
+        fail(f"phase 15.3: the peer replayed {replayed}, not {uncovered}")
+    if session_outputs(closed["outputs"]) != one_shot_fastas(path):
+        fail("phase 15.3: the stolen session's output differs from the "
+             "one-shot run")
+
+
+def streaming_bench(card: str) -> None:
+    from sam2consensus_torch.serve.benchmark import run_streaming_bench
+
+    t0 = time.perf_counter()
+    s = run_streaming_bench()["summary"]
+    print(f"  15.4 run_streaming_bench() [{card}]: {s['waves_fed']}/"
+          f"{s['n_waves']} waves of {s['n_reads']} reads: stream "
+          f"{s['stream_sec']}s, cold one-shot {s['cold_sec']}s, warm "
+          f"one-shot {s['warm_one_shot_sec']}s, stream_cost_ratio="
+          f"{s['stream_cost_ratio']} stream_vs_warm={s['stream_vs_warm']} "
+          f"early_stop_wave={s['early_stop_wave']} digest_matches_cold="
+          f"{s['digest_matches_cold']} ({time.perf_counter() - t0:.1f}s)")
+    if not s["digest_matches_cold"]:
+        fail("phase 15.4: the streamed digest differs from the one-shot")
+
+
+def streaming_sessions(tmp: str, card: str) -> None:
+    """Phase 15."""
+    t0 = time.perf_counter()
+    served_sessions(tmp, card)
+    torn_and_backpressure(tmp, card)
+    handler_thread_waves(tmp, card)
+    session_steal(tmp, card)
+    streaming_bench(card)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f}s [{card}]")
 
 
 # -- phase 9: the C++ decoder against the Python encoder --------------------
@@ -3593,6 +4339,14 @@ def main() -> int:
     from sam2consensus_torch.backends.torch_backend import TorchBackend
 
     t_start = time.perf_counter()
+    walls, last = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """The wall since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+
     card = card_line()
     print(card)
     dev = torch.device("cuda")
@@ -3634,6 +4388,7 @@ def main() -> int:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+    lap("1-2 build")
     rng = np.random.default_rng(2024)
     print("phase 3: K1 vs plain")
     errs = {"K1": check_k1(rng, dev)}
@@ -3669,7 +4424,9 @@ def main() -> int:
     kernels = build.all_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         build.reset_launches(kernels)
+        lap("3-5 kernels")
         paths = main_path(tmp, card, cap)
+        lap("6-7 main path")
         launches = {k.name: k.launches for k in kernels}
         print(f"main-path launches: {launches}")
         missing = [n for n, c in launches.items() if c == 0]
@@ -3683,31 +4440,48 @@ def main() -> int:
               "and scatter routes, every tail encoding and the host-count "
               "route make no host synchronisation")
         sync_free(cap)
+        lap("8 sync-free")
 
         print(f"the device-side choices at the main path's shapes [{card}]")
         choice_timing(cap, card)
+        lap("choice timing")
 
         print(f"phase 9: NativeReadEncoder vs ReadEncoder at full size "
               f"[{card}]")
         encoder_parity(paths, card)
+        lap("9 encoders")
 
         print(f"phase 10: failure handling on the card [{card}]")
         failure_handling(tmp, card, cap, paths)
+        lap("10 failures")
 
         print(f"phase 11: observability on the card: the tracer, the "
               f"metrics, the manifest, the profile and the memory plane "
               f"[{card}]")
         observability_runs(tmp, card, cap, paths)
+        lap("11 observability")
 
         print(f"phase 12: the warm server [{card}]")
         warm_server(tmp, card)
+        lap("12 warm server")
 
         print(f"phase 13: continuous batching and the count cache "
               f"[{card}]")
         batching_and_cache(tmp, card)
+        lap("13 batching, cache")
+
+        print(f"phase 14: fleet mode [{card}]")
+        fleet_mode(tmp, card)
+        lap("14 fleet")
+
+        print(f"phase 15: streaming sessions [{card}]")
+        streaming_sessions(tmp, card)
+        lap("15 sessions")
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)
+    lap("kernel timing")
+    print(f"phase walls (s) [{card}]: {walls}")
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,15 @@ BGZF SAM, or BAM, sniffed by magic bytes
 (``formats.open_alignment_input``).  The run goes
 to CUDA and raises without it; ``main``'s ``device`` argument is the only
 way to choose another device.  ``serve`` runs many inputs through one
-warm server (:func:`serve_main`, ``serve.ServeRunner``).
+warm server (:func:`serve_main`, ``serve.ServeRunner``): a queue of
+``-i`` inputs, one of N fleet workers on a shared ``--journal``
+(``--worker-id``), or streaming sessions behind ``--ingest-port``.
 
     python -m sam2consensus_torch.cli -i reads.bam -o out
     python -m sam2consensus_torch.cli serve -i a.sam -i b.bam -o out
+    python -m sam2consensus_torch.cli serve -i a.sam -i b.sam -o out \
+        --journal J --worker-id w0
+    python -m sam2consensus_torch.cli serve --ingest-port 0 --journal J
 """
 
 from __future__ import annotations
@@ -334,7 +339,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     flag set, run through a persistent warm backend (``serve/``).  Every
     flag of ``sam2consensus_tpu/cli.build_serve_parser`` parses, with
     its dest, default and choices; the ones the port does not run yet
-    are refused by name in :func:`serve_main` (:data:`UNPORTED_SERVE_FLAGS`)."""
+    (cohorts, shards, the MXU pileup) are refused by name in
+    :func:`serve_main` (:data:`UNPORTED_SERVE_FLAGS`)."""
     p = argparse.ArgumentParser(
         prog="sam2consensus-torch serve",
         description="persistent multi-job serving: one warm torch "
@@ -501,7 +507,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "written per job at commit time, not at queue "
                         "end")
     p.add_argument("--worker-id", dest="worker_id", default="",
-                   help="fleet mode (sam2consensus_tpu/serve/fleet.py; "
+                   help="fleet mode (sam2consensus_torch/serve/fleet.py; "
                         "requires --journal): join the journal as a "
                         "work-stealing worker under this UNIQUE id — "
                         "N processes launched with the same --journal "
@@ -533,7 +539,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "large committed queue is O(stat); full "
                         "re-hashes every committed output "
                         "unconditionally")
-    # --- streaming sessions (refused: UNPORTED_SERVE_FLAGS) ---
+    # --- streaming sessions (serve/{session,stream_server}.py) ---
     p.add_argument("--ingest-port", dest="ingest_port", type=int,
                    default=None,
                    help="streaming-session mode (requires --journal; "
@@ -688,17 +694,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 #: serve flags of the reference's parser that the port does not run yet,
-#: each with a test for "set away from its default": streaming sessions,
-#: cohorts, multi-GPU shards and the MXU pileup.  Fleet mode is the
-#: runner's refusal (``serve.runner.refuse_unported_serve``)
+#: each with a test for "set away from its default": cohorts, multi-GPU
+#: shards and the MXU pileup
 UNPORTED_SERVE_FLAGS = (
-    ("--ingest-port", "ingest_port", lambda v: v is not None),
-    ("--stability-waves", "stability_waves", lambda v: v != 3),
-    ("--revote-debounce", "revote_debounce", lambda v: v != 0.0),
-    ("--ingest-max-body", "ingest_max_body", lambda v: v is not None),
-    ("--ingest-timeout", "ingest_timeout", lambda v: v is not None),
-    ("--ingest-max-pending", "ingest_max_pending",
-     lambda v: v is not None),
     ("--cohort-manifest", "cohort_manifest", lambda v: v is not None),
     ("--cohort-wave", "cohort_wave", lambda v: v != 0),
     ("--cohort-summary", "cohort_summary", lambda v: v is not None),
@@ -708,17 +706,112 @@ UNPORTED_SERVE_FLAGS = (
 )
 
 
+def _serve_sessions(args: argparse.Namespace, echo, device=None) -> int:
+    """``serve --journal DIR --ingest-port P``: host streaming consensus
+    sessions behind the live ingest endpoint (``serve.stream_server``)
+    on ``device`` until told to stop (SIGTERM / SIGINT) — there is no
+    fixed queue to drain.  Open sessions survive the stop: their
+    journaled waves are replayed by whichever worker (this one
+    restarted, or a fleet peer) claims them next."""
+    import copy
+    import logging
+    import signal
+
+    from .serve import ServeRunner
+    from .serve.session import DEFAULT_MAX_PENDING, SessionManager
+    from .serve.stream_server import (DEFAULT_MAX_BODY,
+                                      DEFAULT_TIMEOUT_S, IngestServer)
+
+    base_args = copy.copy(args)
+    base_args.filename = ""             # per-session prefix, not per-job
+    base_args.prefix = ""
+    base_cfg = config_from_args(base_args)
+
+    runner = ServeRunner(prewarm=args.prewarm,
+                         decode_ahead=args.decode_ahead, echo=echo,
+                         journal_dir=args.journal,
+                         job_timeout=args.job_timeout,
+                         stall_timeout=args.stall_timeout,
+                         max_queue=args.max_queue,
+                         tenant_quota=args.tenant_quota,
+                         health_out=args.health_out,
+                         fault_inject=args.fault_inject,
+                         telemetry_out=args.telemetry_out,
+                         telemetry_port=args.telemetry_port,
+                         telemetry_interval=args.telemetry_interval,
+                         slo=args.slo,
+                         profile_capture_dir=args.profile_capture_dir,
+                         mem_budget=args.mem_budget,
+                         worker_id=args.worker_id,
+                         lease_ttl=args.lease_ttl,
+                         verify_outputs=args.verify_outputs,
+                         device=device)
+    server = None
+    try:
+        manager = SessionManager(
+            runner, base_cfg,
+            stability_waves=args.stability_waves,
+            revote_debounce=args.revote_debounce,
+            max_pending=(args.ingest_max_pending
+                         if args.ingest_max_pending is not None
+                         else DEFAULT_MAX_PENDING))
+        runner.sessions = manager       # health snapshot `sessions` gate
+        server = IngestServer(
+            manager, port=args.ingest_port,
+            max_body=(args.ingest_max_body
+                      if args.ingest_max_body is not None
+                      else DEFAULT_MAX_BODY),
+            timeout=(args.ingest_timeout
+                     if args.ingest_timeout is not None
+                     else DEFAULT_TIMEOUT_S))
+        echo(f"\nStreaming sessions on 127.0.0.1:{server.port} "
+             f"[{runner.backend.device}]"
+             + (f" as fleet worker {args.worker_id!r}"
+                if args.worker_id else "")
+             + f" (journal: {runner.journal.root})\n")
+        stop = {"flag": False}
+
+        def _stop(signum, frame):
+            stop["flag"] = True
+
+        prev = signal.signal(signal.SIGTERM, _stop)
+        try:
+            while not stop["flag"]:
+                try:
+                    manager.tick()
+                    runner.telemetry_tick()
+                except Exception as exc:  # the loop must outlive anything
+                    logging.getLogger("sam2consensus_torch.serve").warning(
+                        "session tick failed (%s: %s)",
+                        type(exc).__name__, exc)
+                time.sleep(0.1)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+    finally:
+        if server is not None:
+            server.close()
+        runner.close()
+    echo(f"Ingest stopped; {len(manager.sessions)} open session(s) "
+         f"remain journaled for takeover.\n")
+    return 0
+
+
 def serve_main(argv: List[str], device=None) -> int:
     """``serve -i a.sam -i b.bam [...]``: run every input through one
     warm server (``serve.ServeRunner``) on ``device`` (as in
     ``device.resolve_device``: None = CUDA, raising without it); exit 0
-    iff every job succeeded.  The reference's ``serve_main``, with its
-    up-front checks (``--slo``, ``--batch``, ``--count-cache``,
-    ``--mem-budget``, ``--incremental`` without the cache or under
-    ``--journal``, ``--fault-inject``, at least one input); a flag of
-    :data:`UNPORTED_SERVE_FLAGS` or of
-    ``serve.runner.refuse_unported_serve`` set away from its default
-    (``S2C_MESH_HOSTS`` > 0 too) fails the start by name."""
+    iff every job succeeded.  ``--worker-id`` joins a fleet on the
+    shared ``--journal``; ``--ingest-port`` serves streaming sessions
+    instead of a queue (:func:`_serve_sessions`).  The reference's
+    ``serve_main``, with its up-front checks (``--slo``, ``--batch``,
+    ``--count-cache``, ``--mem-budget``, ``--incremental`` without the
+    cache or under ``--journal``, the fleet's and the sessions'
+    cross-checks, ``--fault-inject``, an input or a session port); a
+    flag of :data:`UNPORTED_SERVE_FLAGS` set away from its default, or
+    ``S2C_MESH_HOSTS`` > 0 (``serve.runner.refuse_unported_serve``),
+    fails the start by name."""
     import copy
 
     from . import observability
@@ -734,8 +827,7 @@ def serve_main(argv: List[str], device=None) -> int:
             raise SystemExit(f"error: {flag} {value}: not supported by "
                              f"the torch backend yet")
     try:
-        refuse_unported_serve(worker_id=args.worker_id,
-                              lease_ttl=args.lease_ttl)
+        refuse_unported_serve()
     except ValueError as exc:
         raise SystemExit(f"error: {exc}") from None
     # a typo'd SLO objective must fail the server start, not silently
@@ -774,11 +866,65 @@ def serve_main(argv: List[str], device=None) -> int:
             "error: --incremental does not compose with --journal "
             "(the journal injects per-job checkpoint homes, a second "
             "source of resumable state)")
-    if not args.inputs:
+    if args.worker_id and not args.journal:
+        raise SystemExit(
+            "error: --worker-id requires --journal (the shared "
+            "journal IS the fleet's work-stealing queue)")
+    if args.worker_id and args.batch != "off":
+        raise SystemExit(
+            "error: --worker-id does not compose with --batch "
+            "(packed batches would need batch-level leases; the "
+            "fleet IS the parallelism)")
+    if args.worker_id and cache_on:
+        raise SystemExit(
+            "error: --worker-id does not compose with --count-cache "
+            "(incremental jobs are rejected on a journaled server, "
+            "so the cache would be a silent no-op)")
+    if args.lease_ttl is not None and not args.lease_ttl > 0:
+        raise SystemExit("error: --lease-ttl must be > 0")
+    # --- streaming-session cross-checks: a typo'd session flag must
+    # fail the server start, not surface as a deep mid-wave error
+    session_mode = args.ingest_port is not None
+    if session_mode and not args.journal:
+        raise SystemExit(
+            "error: --ingest-port requires --journal (sessions are "
+            "journal entities — the durable wave intent log IS the "
+            "crash-safety story)")
+    if session_mode and args.inputs:
+        raise SystemExit(
+            "error: --ingest-port does not compose with -i/--input "
+            "(waves arrive over the ingest API, not a fixed queue)")
+    if not session_mode and not args.inputs:
         raise SystemExit(
             "error: at least one -i/--input is required (or "
             "--ingest-port to serve streaming sessions, or "
             "--cohort-manifest to serve a cohort)")
+    if session_mode and args.batch != "off":
+        raise SystemExit(
+            "error: --ingest-port does not compose with --batch "
+            "(waves of one session must absorb serially in arrival "
+            "order; packed batches would break the count-bank rule)")
+    if session_mode and args.incremental:
+        raise SystemExit(
+            "error: --ingest-port does not compose with --incremental "
+            "(sessions ARE the incremental path — per-wave "
+            "checkpoint-seeded absorption, journal-fenced)")
+    if session_mode and cache_on:
+        raise SystemExit(
+            "error: --ingest-port does not compose with --count-cache "
+            "(session count state lives in per-session checkpoint "
+            "homes under the journal, not the LRU cache)")
+    if args.stability_waves < 1:
+        raise SystemExit("error: --stability-waves must be >= 1")
+    if args.revote_debounce < 0:
+        raise SystemExit("error: --revote-debounce must be >= 0")
+    if args.ingest_max_body is not None and args.ingest_max_body <= 0:
+        raise SystemExit("error: --ingest-max-body must be > 0")
+    if args.ingest_timeout is not None and not args.ingest_timeout > 0:
+        raise SystemExit("error: --ingest-timeout must be > 0")
+    if args.ingest_max_pending is not None \
+            and args.ingest_max_pending < 1:
+        raise SystemExit("error: --ingest-max-pending must be >= 1")
     if args.fault_inject:
         from .resilience.faultinject import parse_spec
 
@@ -786,6 +932,9 @@ def serve_main(argv: List[str], device=None) -> int:
             parse_spec(args.fault_inject)
         except ValueError as exc:
             raise SystemExit(f"error: {exc}") from None
+
+    if session_mode:
+        return _serve_sessions(args, echo, device=device)
 
     specs = []
     for k, path in enumerate(args.inputs):
@@ -830,11 +979,15 @@ def serve_main(argv: List[str], device=None) -> int:
                          batch_window=args.batch_window,
                          count_cache=args.count_cache,
                          mem_budget=args.mem_budget,
+                         worker_id=args.worker_id,
+                         lease_ttl=args.lease_ttl,
                          verify_outputs=args.verify_outputs,
                          device=device)
     try:
         echo(f"\nServing {len(specs)} job(s) on one warm backend "
              f"[{runner.backend.device}]"
+             + (f" as fleet worker {args.worker_id!r}"
+                if args.worker_id else "")
              + (f" (kernel build: {runner.cache_dir})" if runner.cache_dir
                 else "")
              + (f" (journal: {runner.journal.root})" if runner.journal

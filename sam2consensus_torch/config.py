@@ -2,7 +2,8 @@
 
 Copy of ``RunConfig``, ``resolve_decode_threads``, ``default_prefix`` and
 ``normalize_outfolder`` from ``sam2consensus_tpu/config.py`` (field names
-kept, pinned by ``tests/test_torch_copies.py``).  The port honours
+kept, pinned by ``tests/test_torch_copies.py``; ``normalize_outfolder``
+tolerates a folder a concurrent fleet worker makes first).  The port honours
 ``thresholds, min_depth, fill, maxdel, prefix, nchar, outfolder, strict,
 py2_compat, input_format, segment_width, decoder, pileup (auto, pallas,
 scatter or host), wire, decode_threads, ins_kernel, chunk_reads``; the other fields exist so a config
@@ -92,10 +93,12 @@ def default_prefix(filename: str) -> str:
 
 
 def normalize_outfolder(outfolder: str) -> str:
-    """rstrip slash + ensure exists + trailing slash (sam2consensus.py:127-130)."""
+    """rstrip slash + ensure exists + trailing slash (sam2consensus.py:127-130).
+    ``exist_ok``: fleet workers sharing ``-o`` make it at once (the
+    reference's exists-then-create lets the second one raise)."""
     out = outfolder.rstrip("/")
     if out == "":
         out = "/"
     if not os.path.exists(out):
-        os.makedirs(out)
+        os.makedirs(out, exist_ok=True)
     return out + "/"

@@ -61,7 +61,10 @@ class Kernel:
 
     :meth:`launch` calls it with the wrapper's tensors and ints (the entry
     point checks them, raises on a refused launch and returns the number of
-    kernel launches it made) and is the only place ``launches`` grows.
+    kernel launches it made) and is the only place ``launches`` grows.  It
+    also adds them to the launching thread's run registry
+    (``kernel/launches/<name>``), so a served job's or a session wave's own
+    launches land in its per-job record.
     """
 
     def __init__(self, name: str, source: str):
@@ -89,6 +92,9 @@ class Kernel:
             _mark(exc, "kernel_launch")
             raise
         self.launches += n
+        from ..observability.metrics import current
+
+        current().add(f"kernel/launches/{self.name}", n)
 
 
 def _mark(exc: BaseException, marker: str) -> None:

@@ -20,9 +20,12 @@ Continuous batching (:mod:`.scheduler`, :mod:`.packing`: ``--batch``,
 ``--batch-window``) packs eligible small jobs into shared slabs that K1
 counts in one dispatch sequence on the card; the per-reference count
 cache (:mod:`.countcache`: ``--count-cache``, serve ``--incremental``)
-seeds each incremental job from its reference's warm counts.  Fleet mode,
-streaming sessions and cohorts are refused by name until their slices
-land.
+seeds each incremental job from its reference's warm counts.  Fleet mode
+(:mod:`.fleet`: ``--worker-id``, ``--lease-ttl``) drains one journaled
+queue from N worker processes under claim leases; streaming sessions
+(:mod:`.session`, :mod:`.stream_server`: ``--ingest-port``) absorb waves
+of reads over HTTP, one backend run a wave.  Cohorts are refused by name
+until their slice lands.
 """
 
 from .runner import JobResult, JobSpec, ServeRunner, submit_jobs

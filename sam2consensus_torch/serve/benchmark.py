@@ -10,14 +10,21 @@ serial queue, continuous batching and the count cache run:
 * :func:`run_serve_batch_bench`: warm-SERIAL vs warm-PACKED jobs/s over
   one queue of small jobs;
 * :func:`run_incremental_bench`: +N% reads against a warm reference (the
-  count cache) vs the cold job over the combined input.
+  count cache) vs the cold job over the combined input;
+* :func:`run_fleet_bench`: one journaled queue drained by one worker
+  process vs N work-stealing worker processes (``serve/fleet.py``);
+* :func:`run_streaming_bench`: the same reads absorbed live in waves
+  through a journaled session (``serve/session.py``) vs the cold
+  one-shot and a warm in-process one-shot.
 
 Every leg compares the FASTA bytes of its sides before it reports a time
 (``identical`` in the summary).  The servers run on ``device`` (None =
 CUDA, as ``device.resolve_device``; the CPU only when named); the cold
-one-shot subprocesses run on CUDA, so on a machine without a card every
-cold row fails and is recorded with its return code.  The fleet,
-streaming and cohort legs wait for their modules.
+one-shot subprocesses of the serve, batch and incremental legs run on
+CUDA, so on a machine without a card every cold row fails and is
+recorded with its return code, while the fleet workers and the
+streaming leg's cold run take ``device`` too.  The cohort leg waits for
+its module.
 """
 
 from __future__ import annotations
@@ -63,9 +70,19 @@ def _simulate_jobs(tmp: str, n_jobs: int, n_reads: int, contig_len: int,
     return paths
 
 
-def _cold_cmd(path: str, outdir: str, pileup: str) -> list:
-    return [sys.executable, "-m", "sam2consensus_torch.cli",
-            "-i", path, "-o", outdir, "--pileup", pileup, "--quiet"]
+def _port_cli(device=None) -> list:
+    """The port's CLI as a subprocess command: ``-m`` on the default
+    device (CUDA), else ``main(argv, device=...)`` through ``-c``."""
+    if device is None:
+        return [sys.executable, "-m", "sam2consensus_torch.cli"]
+    return [sys.executable, "-c",
+            "import sys; from sam2consensus_torch.cli import main; "
+            f"sys.exit(main(sys.argv[1:], device={str(device)!r}))"]
+
+
+def _cold_cmd(path: str, outdir: str, pileup: str, device=None) -> list:
+    return _port_cli(device) + ["-i", path, "-o", outdir, "--pileup",
+                                pileup, "--quiet"]
 
 
 def _cold_env() -> dict:
@@ -487,3 +504,276 @@ def _sha_dir(d: str) -> dict:
             h.update(fh.read())
         out[name] = h.hexdigest()
     return out
+
+
+def _fleet_cmd(paths, outdir, jdir, worker, lease_ttl, pileup,
+               device=None):
+    cmd = _port_cli(device) + ["serve"]
+    for p in paths:
+        cmd += ["-i", p]
+    cmd += ["-o", outdir, "--journal", jdir, "--worker-id", worker,
+            "--lease-ttl", str(lease_ttl), "--pileup", pileup,
+            "--quiet"]
+    return cmd
+
+
+def _build_kernels(device) -> None:
+    """Build (or load) the kernel extension once in this process, so the
+    timed workers only load the finished build and none of them is the
+    one that compiles it (a worker killed mid-build would leave the
+    build's lock behind)."""
+    import torch
+
+    if device is None or torch.device(device).type == "cuda":
+        from ..kernels.build import extension
+
+        extension()
+
+
+def run_fleet_bench(n_jobs: int = 6, n_reads: int = 4000,
+                    contig_len: int = 3000, read_len: int = 100,
+                    n_workers: int = 2, lease_ttl: float = 10.0,
+                    pileup: str = "scatter",
+                    per_process_timeout: float = 900.0,
+                    log: Optional[Callable] = None, device=None) -> dict:
+    """Fleet queue-drain benchmark: the SAME journaled queue drained by
+    one worker process vs ``n_workers`` work-stealing worker processes
+    (serve/fleet.py), byte-compared, each audited for lost and
+    duplicated jobs.
+
+    The reference warms a shared persistent compile cache with an
+    untimed pass first; here the kernel extension is built once in this
+    process before the timed drains (:func:`_build_kernels`), so both
+    sides only load it.  ``drain_speedup`` is serial / fleet drain wall;
+    the workers share one card and the host's cores, and the summary
+    carries ``host_cores`` so the artifact says which world it measured.
+    ``pileup`` defaults to the reference's explicit scatter.
+    """
+    log = log or (lambda *a, **k: None)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        from ..utils.simulate import SimSpec, simulate
+
+        paths = []
+        for k in range(n_jobs):
+            spec = SimSpec(n_contigs=1, contig_len=contig_len,
+                           n_reads=n_reads, read_len=read_len,
+                           contig_len_jitter=0.0, seed=7100 + k,
+                           contig_prefix=f"fb{k:02d}_")
+            p = os.path.join(tmp, f"fleet_job{k}.sam")
+            with open(p, "w") as fh:
+                fh.write(simulate(spec))
+            paths.append(p)
+        _build_kernels(device)
+
+        def drain(tag, workers):
+            from .journal import JobJournal
+
+            outdir = os.path.join(tmp, f"out_{tag}")
+            jdir = os.path.join(tmp, f"j_{tag}")
+            t0 = time.monotonic()
+            procs = [subprocess.Popen(
+                _fleet_cmd(paths, outdir, jdir, w, lease_ttl, pileup,
+                           device),
+                env=_cold_env(), cwd=REPO, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE) for w in workers]
+            rcs = []
+            for pr in procs:
+                try:
+                    _, err = pr.communicate(timeout=per_process_timeout)
+                except subprocess.TimeoutExpired:
+                    pr.kill()
+                    _, err = pr.communicate()
+                rcs.append(pr.returncode)
+                if pr.returncode != 0:
+                    log(f"[fleet_bench] {tag} worker rc="
+                        f"{pr.returncode}: "
+                        f"{(err or b'').decode()[-800:]}")
+            wall = time.monotonic() - t0
+            return outdir, wall, rcs, JobJournal(jdir).audit()
+
+        out1, serial_sec, rc1, audit1 = drain("serial", ["solo"])
+        workers = [f"fw{i}" for i in range(max(1, n_workers))]
+        out2, fleet_sec, rc2, audit2 = drain("fleet", workers)
+        want, got = _sha_dir(out1), _sha_dir(out2)
+        identical = bool(want) and want == got
+        speedup = round(serial_sec / fleet_sec, 3) if fleet_sec else 0.0
+        # first NON-zero code per drain (a timed-out worker's -9 must not
+        # be masked by a peer's clean 0)
+        bad1 = next((rc for rc in rc1 if rc != 0), 0)
+        bad2 = next((rc for rc in rc2 if rc != 0), 0)
+        rows.append({"mode": "serial_drain", "workers": 1,
+                     "drain_sec": round(serial_sec, 3),
+                     "rc": bad1, "lost": len(audit1["lost"]),
+                     "duplicated": len(audit1["duplicated"])})
+        rows.append({"mode": "fleet_drain", "workers": len(workers),
+                     "drain_sec": round(fleet_sec, 3),
+                     "rc": bad2, "lost": len(audit2["lost"]),
+                     "duplicated": len(audit2["duplicated"])})
+        summary = {
+            "summary": True,
+            "n_jobs": n_jobs, "n_reads": n_reads,
+            "contig_len": contig_len, "n_workers": len(workers),
+            "lease_ttl_sec": lease_ttl, "pileup": pileup,
+            "serial_drain_sec": round(serial_sec, 3),
+            "fleet_drain_sec": round(fleet_sec, 3),
+            "fleet_per_job_sec": round(fleet_sec / n_jobs, 4),
+            "drain_speedup": speedup,
+            "identical": identical,
+            "lost": len(audit2["lost"]),
+            "duplicated": len(audit2["duplicated"]),
+            "host_cores": os.cpu_count(),
+            "ok": (identical and bad1 == 0 and bad2 == 0
+                   and not audit2["lost"]
+                   and not audit2["duplicated"]),
+        }
+        log(f"[fleet_bench] 1 worker {serial_sec:.1f}s vs "
+            f"{len(workers)} workers {fleet_sec:.1f}s = {speedup}x "
+            f"({os.cpu_count()} host core(s)), identical={identical}")
+    return {"rows": rows, "summary": summary}
+
+
+def run_streaming_bench(n_waves: int = 10, n_reads: int = 40000,
+                        contig_len: int = 8000, read_len: int = 100,
+                        stability_waves: int = 3,
+                        per_process_timeout: float = 600.0,
+                        log: Optional[Callable] = None,
+                        device=None) -> dict:
+    """Streaming-session benchmark: the SAME reads absorbed live in
+    ``n_waves`` waves through a journaled session (serve/session.py) vs
+    the one-shot COLD job (the port's CLI in a fresh subprocess:
+    interpreter, torch import, kernel extension load, the whole ingest)
+    and a WARM in-process one-shot of the same reads.
+
+    ``stream_cost_ratio`` = session wall (open + waves + close) / cold
+    wall; ``stream_vs_warm`` the same over the warm one-shot — the
+    durability bill with no start-up to hide behind: each wave pays a
+    seed upload, a capture fetch, an atomic checkpoint save and a
+    journal fsync.  The session stops being fed at its stability verdict
+    (``early_stop_wave``), and its consensus must still match the full
+    run at sequence level (``consensus_digest``).  ``wave_steps`` lists
+    each run's seed / K1 route / tail / capture / save / journal seconds
+    and launches from the session's wave log.
+    """
+    import json
+
+    log = log or (lambda *a, **k: None)
+    from ..config import RunConfig
+    from .runner import JobSpec, ServeRunner
+    from .session import WAVE_LOG, SessionManager, consensus_digest
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        from ..utils.simulate import SimSpec, simulate
+
+        # low-noise corpus: stability must mean CONVERGED
+        spec = SimSpec(n_contigs=1, contig_len=contig_len,
+                       n_reads=n_reads, read_len=read_len,
+                       contig_len_jitter=0.0, seed=8300,
+                       contig_prefix="st_", sub_rate=0.002,
+                       n_rate=0.0005)
+        text = simulate(spec)
+        lines = text.splitlines(keepends=True)
+        header = "".join(ln for ln in lines if ln.startswith("@"))
+        reads = [ln for ln in lines if not ln.startswith("@")]
+        per = max(1, (len(reads) + n_waves - 1) // n_waves)
+        waves = ["".join(reads[i:i + per]).encode("utf-8")
+                 for i in range(0, len(reads), per)]
+        concat = os.path.join(tmp, "stream.sam")
+        with open(concat, "w") as fh:
+            fh.write(text)
+        _build_kernels(device)
+
+        # cold leg: the one-shot CLI in a fresh subprocess
+        cold_out = os.path.join(tmp, "out_cold")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            _cold_cmd(concat, cold_out, "auto", device), env=_cold_env(),
+            cwd=REPO, capture_output=True, timeout=per_process_timeout)
+        cold_sec = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"cold one-shot failed rc={proc.returncode}: "
+                f"{proc.stderr.decode()[-800:]}")
+
+        noop = lambda *a, **k: None  # noqa: E731
+        cfg = RunConfig(prefix="", outfolder=tmp + os.sep)
+        # the warm comparator runs on a journal-free runner (a journaled
+        # one would skip the timed job as a duplicate of the warm-up's
+        # commit); the session on a journaled one
+        batch_runner = ServeRunner(prewarm="off", decode_ahead=False,
+                                   echo=noop, device=device)
+        runner = ServeRunner(prewarm="off", decode_ahead=False, echo=noop,
+                             journal_dir=os.path.join(tmp, "journal"),
+                             device=device)
+        try:
+            def warm_shot(job_id):
+                t0 = time.monotonic()
+                res = batch_runner.submit_jobs(
+                    [JobSpec(filename=concat, config=cfg,
+                             job_id=job_id)])[0]
+                if res.error or res.fastas is None:
+                    raise RuntimeError(f"warm one-shot failed: "
+                                       f"{res.error}")
+                return time.monotonic() - t0, res.fastas
+
+            warm_shot("warmup")
+            warm_sec, warm_fastas = warm_shot("warm")
+            full_digest = consensus_digest(warm_fastas)
+
+            manager = SessionManager(runner, cfg,
+                                     stability_waves=stability_waves,
+                                     revote_debounce=0.0)
+            t0 = time.monotonic()
+            sid = manager.open_session(header, tenant="bench")["sid"]
+            waves_fed = 0
+            early_stop_wave = None
+            for body in waves:
+                ack = manager.receive_wave(sid, body)
+                waves_fed += 1
+                if ack.get("stable"):
+                    early_stop_wave = ack.get("stable_wave")
+                    break
+            final = manager.close_session(sid)
+            stream_sec = time.monotonic() - t0
+            with open(os.path.join(manager.sessions_root, sid,
+                                   WAVE_LOG)) as fh:
+                steps = [json.loads(ln) for ln in fh]
+        finally:
+            runner.close()
+            batch_runner.close()
+
+        ratio = round(stream_sec / cold_sec, 3) if cold_sec else 0.0
+        vs_warm = round(stream_sec / warm_sec, 3) if warm_sec else 0.0
+        digest_matches = final.get("digest") == full_digest
+        rows.append({"mode": "one_shot_cold", "waves": 1,
+                     "wall_sec": round(cold_sec, 3)})
+        rows.append({"mode": "one_shot_warm", "waves": 1,
+                     "wall_sec": round(warm_sec, 3)})
+        rows.append({"mode": "streaming", "waves": waves_fed,
+                     "wall_sec": round(stream_sec, 3),
+                     "early_stop_wave": early_stop_wave})
+        summary = {
+            "summary": True,
+            "n_waves": len(waves), "waves_fed": waves_fed,
+            "n_reads": n_reads, "contig_len": contig_len,
+            "stability_waves": stability_waves,
+            "cold_sec": round(cold_sec, 3),
+            "warm_one_shot_sec": round(warm_sec, 3),
+            "stream_sec": round(stream_sec, 3),
+            "stream_cost_ratio": ratio,
+            "stream_vs_warm": vs_warm,
+            "early_stop_wave": early_stop_wave,
+            "stable": early_stop_wave is not None,
+            "digest_matches_cold": digest_matches,
+            "host_cores": os.cpu_count(),
+            "wave_steps": steps,
+            "ok": (digest_matches and early_stop_wave is not None
+                   and ratio <= 1.3),
+        }
+        log(f"[streaming_bench] {waves_fed}/{len(waves)} wave(s) "
+            f"{stream_sec:.2f}s vs cold one-shot {cold_sec:.2f}s = "
+            f"{ratio}x (vs warm in-process {warm_sec:.2f}s = "
+            f"{vs_warm}x), early_stop_wave={early_stop_wave}, "
+            f"digest_matches_cold={digest_matches}")
+    return {"rows": rows, "summary": summary}

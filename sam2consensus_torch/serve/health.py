@@ -3,9 +3,9 @@
 Copy of ``sam2consensus_tpu/serve/health.py`` (pinned by
 ``tests/test_torch_copies.py``); the memory plane and the atomic writer
 are the port's.  The sections of runner parts the port does not run yet
-(the fleet, sessions, cohorts, the mesh) are absent from its snapshots,
-as the reference's are when those are off; the ``batch`` and
-``count_cache`` sections are filled.
+(cohorts, the mesh) are absent from its snapshots, as the reference's
+are when those are off; the ``batch``, ``count_cache``, ``lease`` (fleet
+mode) and ``sessions`` sections are filled.
 
 One JSON-shaped answer to "is this server alive and where is it?" —
 the thing an external prober, a fleet scheduler, or a human with a

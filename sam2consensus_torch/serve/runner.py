@@ -50,9 +50,15 @@ sequence on the card, and the per-reference count cache (``count_cache``,
 of its reference and takes the job's final state back after it ended
 whole.
 
+Fleet mode (``worker_id`` / ``lease_ttl``, ``serve/fleet.py``) joins the
+journal as one of N work-stealing workers: each job is claimed under a
+lease before it runs, the watchdog tick renews and reaps leases, and a
+commit is fenced by the lease (a worker whose lease was reaped never
+commits, also when its abandoned attempt finishes later).
+
 Where the port differs: the server runs on ``device`` (None = CUDA,
-raising without it; the CPU only when the caller names it); fleet mode
-and ``S2C_MESH_HOSTS`` are refused by name at start
+raising without it; the CPU only when the caller names it);
+``S2C_MESH_HOSTS`` is refused by name at start
 (:func:`refuse_unported_serve`); ``persistent_cache`` names the kernel
 build directory (there is no JIT cache); and the host-rung retry reads
 the job's ``on_device_error`` only, not the reference's
@@ -111,26 +117,18 @@ def _env_float(name: str) -> Optional[float]:
         return None
 
 
-def refuse_unported_serve(worker_id: str = "", lease_ttl=None) -> None:
-    """Refuse, naming it, a serve option the port does not run yet: fleet
-    mode (``--worker-id``, ``--lease-ttl``) and the mesh capacity planner
-    (``S2C_MESH_HOSTS`` > 0).  A value that means the default
-    (``S2C_MESH_HOSTS=0``) passes.  Raises ``ValueError``."""
-    def refuse(flag, value):
-        raise ValueError(f"{flag} {value}: not supported by the torch "
-                         f"backend yet")
-
-    if worker_id:
-        refuse("--worker-id", worker_id)
-    if lease_ttl is not None:
-        refuse("--lease-ttl", lease_ttl)
+def refuse_unported_serve() -> None:
+    """Refuse, naming it, a serve option the port does not run yet: the
+    mesh capacity planner (``S2C_MESH_HOSTS`` > 0).  A value that means
+    the default (``S2C_MESH_HOSTS=0``) passes.  Raises ``ValueError``."""
     try:
         mesh_hosts = int(os.environ.get("S2C_MESH_HOSTS", "0"))
     except ValueError:
         raise ValueError(
             "S2C_MESH_HOSTS must be an integer host count") from None
     if mesh_hosts > 0:
-        refuse("S2C_MESH_HOSTS", mesh_hosts)
+        raise ValueError(f"S2C_MESH_HOSTS {mesh_hosts}: not supported by "
+                         f"the torch backend yet")
 
 
 @dataclass
@@ -413,12 +411,17 @@ class ServeRunner:
     ``verify_outputs`` ("fast"/"full") controls resume-time output
     verification (stat fast path vs full re-hash).
 
+    Fleet mode (``worker_id``/``lease_ttl`` — serve/fleet.py; requires
+    ``journal_dir``, excludes ``batch`` and ``count_cache``): this runner
+    joins the journal as one of N work-stealing workers — submit_jobs
+    arbitrates every entry through atomic claim/lease events instead of
+    the serial loop.
+
     Continuous batching (``batch``: ``"off"``, ``"auto"`` or a job
     count; ``batch_window`` in milliseconds; ``serve/scheduler.py``) and
     the per-reference count cache (``count_cache``, a byte budget like
     ``"512M"``; env S2C_COUNT_CACHE when None; ``serve/countcache.py``)
-    are the reference's.  ``worker_id`` and ``lease_ttl`` (fleet mode)
-    are refused by name (:func:`refuse_unported_serve`).
+    are the reference's.
     """
 
     def __init__(self, prewarm: str = "auto", decode_ahead: bool = True,
@@ -447,7 +450,7 @@ class ServeRunner:
 
         if prewarm not in ("auto", "off"):
             raise ValueError(f"prewarm={prewarm!r}: use 'auto' or 'off'")
-        refuse_unported_serve(worker_id=worker_id, lease_ttl=lease_ttl)
+        refuse_unported_serve()
         # capacity-priced admission (observability/memplane.py): a job
         # whose predicted peak exceeds the budget is shed with reason
         # "capacity" instead of being allowed to OOM the warm server.
@@ -537,6 +540,38 @@ class ServeRunner:
                 logger.info("journal mode: decode-ahead disabled "
                             "(per-job checkpoints need serial decode)")
                 self.decode_ahead = False
+        # -- fleet mode (serve/fleet.py): N workers, one journal -------
+        from .fleet import FleetCoordinator, resolve_lease_ttl
+
+        self.worker_id = str(worker_id or "")
+        self.fleet: Optional[FleetCoordinator] = None
+        if self.worker_id:
+            if self.journal is None:
+                raise ValueError(
+                    "--worker-id requires --journal: the shared "
+                    "journal IS the fleet's work-stealing queue")
+            if self.scheduler.enabled:
+                raise ValueError(
+                    "--worker-id does not compose with --batch: "
+                    "packed batches would need batch-level leases; "
+                    "run fleet workers serial (the fleet IS the "
+                    "parallelism)")
+            if self.count_cache is not None:
+                raise ValueError(
+                    "--worker-id does not compose with --count-cache: "
+                    "incremental jobs are already rejected on a "
+                    "journaled server, so the cache could never be "
+                    "consulted — configuring it would be a silent "
+                    "no-op")
+            ttl = resolve_lease_ttl(lease_ttl)
+            self.fleet = FleetCoordinator(self.journal, self.worker_id,
+                                          ttl, self.registry,
+                                          verify_mode=self.verify_mode)
+            self.registry.gauge("fleet/worker").set_info(
+                {"worker": self.worker_id, "lease_ttl_sec": ttl})
+            self._fleet_first_run_seen = False
+            logger.info("fleet worker %r on journal %s (lease TTL "
+                        "%gs)", self.worker_id, self.journal.root, ttl)
         # -- telemetry plane (observability/telemetry.py) --------------
         # strictly best-effort: every write path below degrades to the
         # per-job manifests (telemetry/write_failed counter + warning)
@@ -575,7 +610,7 @@ class ServeRunner:
         # restart resumes with aged-but-confident estimates instead of
         # cold defaults.  A corrupt or stale card reads as absent (with
         # a counter) — it never fails a job.
-        card_name = "serve"
+        card_name = self.worker_id or "serve"
         if self.journal is not None:
             self.ratecard = rcard.RateCard.load(
                 rcard.card_path(self.journal.root, card_name),
@@ -594,6 +629,10 @@ class ServeRunner:
         self._drain_t0: Optional[float] = None
         self._drain_hint: Optional[dict] = None
         self._scale_hint_episodes = 0
+        #: journal keys already fed to the burn monitor (local
+        #: finalizes + fleet replay) — prevents double-counting when
+        #: drain() replays this life's own commits
+        self._burn_fed_keys: set = set()
         # a daemon thread killed mid-launch at interpreter exit can
         # abort the process from C++; close() stops the prewarm loop at
         # the next shape boundary and joins, so exit costs at most one
@@ -824,6 +863,9 @@ class ServeRunner:
         since = h.in_flight_since
         reg.gauge("serve/inflight_age_sec").set(
             round(now - since, 3) if since is not None else 0.0)
+        if self.fleet is not None:
+            reg.gauge("fleet/leases_held").set(
+                float(len(self.fleet.held)))
         # occupancy: fraction of serve uptime spent in run attempts
         uptime = now - h._started_mono
         reg.gauge("sched/occupancy_ratio").set(
@@ -834,7 +876,11 @@ class ServeRunner:
         aggregate, gauges refreshed first — an HTTP scrape between
         watchdog ticks still sees current heartbeat ages."""
         self._update_live_gauges()
-        return stele.render_openmetrics(self.registry.snapshot())
+        return stele.render_openmetrics(
+            self.registry.snapshot(),
+            worker=self.worker_id or None,
+            restart_epoch=self.ratecard.restarts
+            if self.worker_id else None)
 
     def telemetry_tick(self, force: bool = False) -> None:
         """One heartbeat of the telemetry plane, driven from the
@@ -847,6 +893,10 @@ class ServeRunner:
         here waits on the device.  Every failure degrades to the
         per-job manifests: counted, warned, never raised."""
         self._update_live_gauges()
+        if self.fleet is not None:
+            # lease duty cycle rides the same heartbeat: renew what we
+            # hold, reap what peers abandoned (serve/fleet.py)
+            self.fleet.tick()
         if self.profiler.pending():
             path = self.profiler.capture(
                 tracer=obs.tracer(), registry=self.registry,
@@ -919,9 +969,10 @@ class ServeRunner:
             peer = rcard.RateCard.load(p)
             if peer.restarts or peer.snapshot()["rates"]:
                 cards.append(peer.snapshot())
+        workers = max(1, len(cards)) if self.worker_id else 1
         hint = rcard.compute_scale_hint(
             cards, queue_depth=self.health.queue_depth,
-            workers=1, burn_states=self.burn.states())
+            workers=workers, burn_states=self.burn.states())
         self.last_scale_hint = hint
         g = self.registry.gauge("fleet/scale_hint")
         g.set(float(hint["delta"]))
@@ -971,6 +1022,31 @@ class ServeRunner:
         self.registry.add("fleet/drain_episodes", 1)
         self.registry.gauge("fleet/drain_measured_sec").set(
             round(measured_sec, 3))
+
+    def note_fleet_burn(self, replay) -> None:
+        """Feed peer-committed SLO breaches from a journal replay into
+        the windowed burn monitor WITH their commit stamps — an old
+        breach ages out of the fast/slow windows naturally, unlike the
+        lifetime ``slo_burn_by_tenant`` dict it complements.  Keys this
+        life already observed locally are skipped (no double count)."""
+        obj = self.slo.get("e2e")
+        if obj is None or replay is None:
+            return
+        for key, rec in getattr(replay, "committed", {}).items():
+            if key in self._burn_fed_keys:
+                continue
+            self._burn_fed_keys.add(key)
+            elapsed = rec.get("elapsed_sec")
+            if elapsed is None:
+                continue
+            stamp = float(rec.get("t", 0.0)) or None
+            try:
+                self.burn.observe_job(
+                    rec.get("tenant") or "default", evaluated=1,
+                    violated=1 if float(elapsed) > obj else 0,
+                    now=stamp)
+            except Exception:
+                continue
 
     def _telemetry_job_end(self, robs, res: JobResult, snap: dict,
                            tenant: str, queue_wait: float) -> None:
@@ -1058,6 +1134,8 @@ class ServeRunner:
         info = {"trace_id": flight.trace_id(key) if key
                 else entry["job_id"],
                 "key": key or "", "job": entry["job_id"]}
+        if self.worker_id:
+            info["worker"] = self.worker_id
         tr = getattr(robs, "tracer", None)
         if tr is not None and hasattr(tr, "meta"):
             tr.meta.update(info)
@@ -1078,7 +1156,7 @@ class ServeRunner:
             "trace_id": flight.trace_id(key) if key
             else entry["job_id"],
             "key": key or "",
-            "worker": "",
+            "worker": self.worker_id or "",
             "window_queue_wait_sec": round(
                 max(0.0, window_queue_wait), 4)}
         sub = self._submit_unix.get(key) if key else None
@@ -1091,6 +1169,15 @@ class ServeRunner:
         if sub is not None and started is not None:
             journal_qw = max(0.0, started - sub)
             lc["queue_wait_sec"] = round(journal_qw, 4)
+        if self.fleet is not None and key:
+            cu = self.fleet.claim_unix.get(key)
+            if cu is not None and sub is not None:
+                lc["claim_latency_sec"] = round(
+                    max(0.0, cu - sub), 4)
+            sg = self.fleet.steal_gaps.get(key)
+            if sg is not None:
+                lc["steal_latency_sec"] = round(sg, 4)
+                lc["stolen"] = True
         return lc, journal_qw
 
     # -- journal helpers ---------------------------------------------------
@@ -1128,7 +1215,11 @@ class ServeRunner:
         disowned.  The abandoned thread keeps ITS job's instruments
         thread-bound (``bind_run_to_thread``) and its own accumulator,
         so if it ever wakes it records into its own registry and counts
-        into its own tensor, never the next job's.  An incremental
+        into its own tensor, never the next job's; its result lands in
+        a box no one reads, so a fleet job it belonged to is never
+        committed from it.  Fleet mode always takes the monitored path:
+        the poll's ``telemetry_tick`` renews this worker's leases
+        mid-job (no deadline is enforced unless one is set).  An incremental
         job's count-cache box (``_next_capture``, set by the caller just
         before this call) is taken here, on the runner's thread, and
         handed to the attempt's ``run`` as an argument, so an abandoned
@@ -1142,7 +1233,8 @@ class ServeRunner:
         self.backend.serve_dispatch_log = dlog
         self.backend.serve_dispatch_gate = self._ahead_gate
         try:
-            if self.job_timeout is None and self.stall_timeout is None:
+            if self.job_timeout is None and self.stall_timeout is None \
+                    and self.fleet is None:
                 return self.backend.run(contigs, records, cfg,
                                         count_capture=capture)
 
@@ -1262,17 +1354,24 @@ class ServeRunner:
         # -- plan: admission + journal replay, before anything runs ---
         replay = self.journal.replay() if self.journal is not None \
             else None
-        if replay is not None and replay.claimed_ever:
+        if self.fleet is None and replay is not None \
+                and replay.claimed_ever:
             # commits on ever-claimed keys are lease-fenced: a
             # worker-less server's commits on them would be VOID on
             # replay (it can hold no lease) — refuse loudly instead
             # of running jobs whose commits silently never land
             raise ValueError(
                 "this journal has fleet claim/lease history "
-                f"({len(replay.claimed_ever)} claimed key(s)): a fleet "
-                "worker (--worker-id) must resume it, and fleet mode is "
-                "not supported by the torch backend yet")
+                f"({len(replay.claimed_ever)} claimed key(s)): "
+                "restart with --worker-id so commits carry the lease "
+                "lineage the journal now enforces")
         self.admission.open_window()
+        if self.fleet is not None and replay is not None:
+            # fleet-global quotas: peers' journal-visible live jobs
+            # count against this window's per-tenant quota too
+            self.admission.seed_window(self.fleet.seed_window_counts(
+                replay, {sjournal.job_key(s.filename, s.config)
+                         for s in specs}))
         jobs_base = self.jobs_run
         plan: List[dict] = []           # one entry per spec, in order
         n_skipped = 0
@@ -1402,6 +1501,20 @@ class ServeRunner:
         #: successor's queue_wait, which is exactly the signal)
         window_t0 = time.perf_counter()
         self.telemetry_tick(force=True)
+
+        # -- fleet mode (serve/fleet.py): claim/lease arbitration over
+        #    the shared journal replaces the serial loop — this worker
+        #    runs the entries whose leases it wins, observes peers'
+        #    commits for the rest, and steals expired leases
+        if self.fleet is not None:
+            for e in plan:
+                self._close_probe(e)
+            try:
+                return self.fleet.drain(self, plan, window_t0, replay,
+                                        recovery_info)
+            finally:
+                self.scheduler.release_handles(plan)
+                self.telemetry_tick(force=True)
 
         # -- continuous batching (serve/scheduler.py): compose packed
         #    batches over the eligible small jobs up front; the loop
@@ -1679,7 +1792,7 @@ class ServeRunner:
                     "overlapped_job": job_id})
                 self.registry.add("serve/overlap_sec", ov)
 
-    # -- plan-entry resolution ---------------------------------------------
+    # -- plan-entry resolution (shared: serial loop + fleet drain) ---------
     def _resolve_nonrun(self, entry: dict, i: int) -> JobResult:
         """A plan entry that never executes: journal-resumed skip or
         admission reject — one result, counters, echo, bookkeeping."""
@@ -1712,9 +1825,173 @@ class ServeRunner:
         self.jobs_run += 1
         return res
 
+    def _resolve_completed_elsewhere(self, entry: dict, i: int,
+                                     rec: dict) -> JobResult:
+        """Fleet: a peer's journal commit resolves this entry — the
+        drain verified the recorded outputs before calling this (a
+        drifted commit is re-claimed and re-run instead), so this
+        worker never decodes a byte."""
+        job_id = entry["job_id"]
+        res = JobResult(job_id=job_id, filename=entry["spec"].filename,
+                        index=i, resumed=True)
+        res.worker = rec.get("worker", "")
+        res.output_paths = list(rec.get("outputs") or {})
+        res.metrics = {"fleet/completed_elsewhere": 1}
+        # NOT serve/jobs: that family counts jobs THIS worker ran —
+        # the peer already counted the run on its side
+        self.registry.add("fleet/completed_elsewhere", 1)
+        self.jobs_run += 1
+        self.health.queue_depth = max(0, self.health.queue_depth - 1)
+        self.echo(f"[serve] {job_id}: committed by worker "
+                  f"{res.worker or '?'} in "
+                  f"{rec.get('elapsed_sec', 0.0):.2f}s")
+        return res
+
+    def _resolve_failed_elsewhere(self, entry: dict, i: int,
+                                  error: str) -> JobResult:
+        """Fleet: a peer journaled this job failed — terminal for the
+        queue run, exactly as a local failure would be."""
+        job_id = entry["job_id"]
+        res = JobResult(job_id=job_id, filename=entry["spec"].filename,
+                        index=i)
+        res.error = f"failed on another worker: {error}"
+        self.registry.add("fleet/failed_elsewhere", 1)
+        self.jobs_run += 1
+        self.health.queue_depth = max(0, self.health.queue_depth - 1)
+        self.echo(f"[serve] {job_id}: FAILED on another worker "
+                  f"({error})")
+        return res
+
+    def _run_claimed_entry(self, entry: dict, i: int, window_t0: float,
+                           recovery_info) -> JobResult:
+        """Run one claim-won plan entry — the fleet drain's execution
+        body: the serial loop's run path minus decode-ahead (journal
+        mode already forces serial decode), batching and count-cache
+        seeding (both refused with ``worker_id``), plus the lease fence
+        before the commit.  The attempt always runs on the monitored
+        path (:meth:`_execute`), so the leases renew while it runs; an
+        attempt the watchdog abandoned leaves its result in a box no
+        one reads, so a reaped lease's late CUDA work is never
+        committed and never seeds the thief's run (which starts from
+        the job's last durable checkpoint)."""
+        from ..config import resolve_decode_threads
+        from ..formats import open_alignment_input
+        from ..resilience import ladder as rladder
+
+        spec = entry["spec"]
+        job_id = entry["job_id"]
+        cfg = entry["cfg"]
+        jobnum = entry["jobnum"]
+        self.registry.add("serve/admission_admitted", 1)
+        rung = self.admission.pin_rung(spec.tenant)
+        if rung is not None and cfg.pileup != "host":
+            cfg = rladder.job_host_rung_config(cfg)
+            entry["cfg"] = cfg
+            entry["admission"] = f"pinned:{rung}"
+        if entry["admission"]:
+            self.registry.add("serve/admission_pinned", 1)
+        robs = self._prepare(cfg, jobnum)
+        self._stamp_trace(robs, entry)
+        close_handle = None
+        contigs = records = None
+        header_err = None
+        try:
+            ai = open_alignment_input(
+                spec.filename, getattr(cfg, "input_format", "auto"),
+                threads=resolve_decode_threads(cfg))
+            close_handle = ai.close
+            contigs, records = ai.contigs, ai.stream
+        except Exception as exc:
+            header_err = exc
+        if contigs is not None and not self._fleet_first_run_seen:
+            from ..encoder.events import GenomeLayout
+
+            self._auto_prewarm(spec, GenomeLayout(contigs).total_len)
+            self._fleet_first_run_seen = True
+        if recovery_info is not None:
+            robs.registry.gauge("serve/recovery").set_info(
+                recovery_info)
+        robs.registry.gauge("serve/health").set_info({
+            "queue_depth": self.health.queue_depth,
+            "in_flight": job_id, "worker": self.worker_id,
+            "tenant_rungs": dict(self.admission.tenant_rungs)})
+        res = JobResult(job_id=job_id, filename=spec.filename,
+                        index=i, admission=entry["admission"])
+        res.worker = self.worker_id
+        dlog: List[Tuple[float, float]] = []
+        stele.set_log_context(
+            job_id=job_id, tenant=spec.tenant,
+            rung=(entry["admission"] or cfg.pileup),
+            worker=self.worker_id)
+        self.health.job_started(job_id)
+        self._journal_append("started", job=job_id, key=entry["key"],
+                             ckpt=cfg.checkpoint_dir or "",
+                             worker=self.worker_id,
+                             tenant=spec.tenant or "")
+        entry["started_unix"] = round(time.time(), 3)
+        t0 = time.perf_counter()
+        if header_err is not None:
+            res.error = f"{type(header_err).__name__}: {header_err}"
+            if close_handle is not None:
+                close_handle()
+        else:
+            out = None
+            try:
+                out = self._execute(contigs, records, cfg, robs,
+                                    dlog, job_id)
+            except Exception as exc:
+                self._note_timeout_if_deadline(robs, exc)
+                self._note_poison(spec, exc, res)
+                self._note_capacity(spec, exc, robs)
+                retry_cfg = self._retry_config(cfg, exc)
+                if retry_cfg is not None:
+                    out, robs, res.error = self._retry_on_host_rung(
+                        spec, retry_cfg, exc, jobnum, job_id)
+                else:
+                    res.error = f"{type(exc).__name__}: {exc}"
+                if res.error is not None:
+                    logger.warning("job %s failed: %s", job_id,
+                                   res.error)
+            finally:
+                if close_handle is not None:
+                    close_handle()
+                records = None
+            if out is not None:
+                res.fastas, res.stats = out.fastas, out.stats
+                res.error = None
+        res.elapsed_sec = time.perf_counter() - t0
+        # -- lease confirmation: only the live holder may journal -----
+        # (ok AND failed outcomes: a woken zombie's "failed" append
+        # would pop the thief's live claim and wreck ITS commit — the
+        # thief owns the whole lifecycle once it re-claims)
+        journal_lifecycle = True
+        if not self.fleet.holds(entry["key"]):
+            self.registry.add("fleet/lease_lost", 1)
+            journal_lifecycle = False
+            if res.ok:
+                # abandon the result: no outputs, no journal events —
+                # a second commit is exactly the duplication the
+                # audit forbids
+                res.fastas = None
+                res.error = (
+                    f"lease lost: worker {self.worker_id!r} held job "
+                    f"{job_id} past its TTL and the lease was "
+                    f"re-claimed by a peer; result abandoned (the "
+                    f"re-claiming worker commits it)")
+            else:
+                res.error = (
+                    f"{res.error} [lease lost mid-run: failure not "
+                    f"journaled — the re-claiming worker owns the "
+                    f"job's lifecycle]")
+        self._finalize_job(entry, res, robs, spec,
+                           queue_wait=t0 - window_t0,
+                           journal_lifecycle=journal_lifecycle)
+        return res
+
     def _finalize_job(self, entry: dict, res: JobResult, robs,
                       spec: JobSpec, queue_wait: float,
-                      echo_suffix: str = "") -> None:
+                      echo_suffix: str = "",
+                      journal_lifecycle: bool = True) -> None:
         """Everything after a job's run attempt, shared by the serial
         loop and the batch scheduler (serve/scheduler.py) so the two
         paths cannot drift: metrics subset + rung/manifest capture,
@@ -1731,7 +2008,8 @@ class ServeRunner:
             k: v for k, v in snap["counters"].items()
             if k.startswith(("serve/", "compile/", "resilience/",
                              "fault/", "phase/", "ingest/",
-                             "quarantine/", "cache/", "epilogue/"))}
+                             "quarantine/", "cache/", "epilogue/",
+                             "kernel/"))}
         res.bad_records = int(
             snap["counters"].get("ingest/bad_records", 0))
         res.quarantined = int(
@@ -1742,7 +2020,13 @@ class ServeRunner:
             self.registry.add("serve/bad_records", res.bad_records)
         res.rungs = rladder.job_rungs(snap)
         res.manifest = obs.last_manifest() if res.ok else None
-        # journal-measured lifecycle (stamped BEFORE the slo rewrite
+        if self.worker_id and res.manifest is not None:
+            # which worker committed the job — stamped BEFORE the slo
+            # rewrite below persists the manifest file
+            res.manifest.setdefault("serve", {})["worker"] = \
+                self.worker_id
+        # journal-measured lifecycle (computed BEFORE the commit below
+        # releases the fleet's claim bookkeeping) (stamped BEFORE the slo rewrite
         # persists the manifest).  When a journal is present its
         # wall-clock queue wait is the SLO truth source; the
         # window-epoch measure rides in the lifecycle section as the
@@ -1752,11 +2036,23 @@ class ServeRunner:
         if journal_qw is not None:
             self.registry.observe(f"sched/{tlabel}/queue_wait",
                                   journal_qw)
+        if "claim_latency_sec" in lifecycle:
+            self.registry.observe(f"sched/{tlabel}/claim_latency",
+                                  lifecycle["claim_latency_sec"])
+        if "steal_latency_sec" in lifecycle:
+            self.registry.observe(f"sched/{tlabel}/steal_latency",
+                                  lifecycle["steal_latency_sec"])
         self._busy_sec += max(0.0, res.elapsed_sec)
         if res.manifest is not None:
             res.manifest["lifecycle"] = lifecycle
         # -- commit: outputs durably on disk, then the journal -----
-        if res.ok and res.fastas is not None and self.journal is not None:
+        if res.ok and res.fastas is not None \
+                and self.journal is not None and journal_lifecycle:
+            if self.fleet is not None:
+                # the output write + fingerprint pass below runs with
+                # no watchdog ticks (no renewals): start the commit
+                # window with a full TTL of margin
+                self.fleet.renew_now(entry["key"])
             try:
                 res.output_paths = write_outputs(
                     res.fastas, cfg.outfolder, cfg.prefix,
@@ -1774,13 +2070,40 @@ class ServeRunner:
                 res.output_paths = []
                 logger.warning("job %s: %s", job_id, res.error)
             else:
-                self._journal_append(
-                    "committed", job=job_id, key=entry["key"],
-                    outputs=fps,
-                    elapsed_sec=round(res.elapsed_sec, 3),
-                    worker="", tenant=spec.tenant or "")
-                self.journal.drop_ckpt(entry["key"])
-        if not res.ok:
+                if self.fleet is not None \
+                        and not self.fleet.holds(entry["key"]):
+                    # the write outlived even the renewed lease and a
+                    # peer re-claimed: appending "committed" NOW would
+                    # be the duplicate commit the audit forbids — the
+                    # thief owns the lifecycle.  (The bytes on disk
+                    # are identical to what the thief writes.)
+                    self.registry.add("fleet/lease_lost", 1)
+                    journal_lifecycle = False
+                    res.output_paths = []
+                    res.fastas = None
+                    res.error = (
+                        f"lease lost during commit: job {job_id}'s "
+                        f"output write outlived the lease TTL and a "
+                        f"peer re-claimed the job; commit abandoned "
+                        f"(the re-claiming worker commits it)")
+                    logger.warning("job %s: %s", job_id, res.error)
+                else:
+                    fence = {}
+                    if self.fleet is not None:
+                        # lease lineage: replay voids a commit whose
+                        # (worker, claim_seq) does not match the open
+                        # lease — the structural duplicate guard
+                        cs = self.fleet.claim_seqs.get(entry["key"])
+                        if cs is not None:
+                            fence["claim_seq"] = cs
+                    self._journal_append(
+                        "committed", job=job_id, key=entry["key"],
+                        outputs=fps,
+                        elapsed_sec=round(res.elapsed_sec, 3),
+                        worker=self.worker_id,
+                        tenant=spec.tenant or "", **fence)
+                    self.journal.drop_ckpt(entry["key"])
+        if not res.ok and journal_lifecycle:
             self._journal_append("failed", job=job_id,
                                  key=entry["key"], error=res.error)
         # fold the job's registry into the server-lifetime
@@ -1807,6 +2130,11 @@ class ServeRunner:
             except Exception as exc:
                 logger.warning("rate card fold failed for %s: %s",
                                job_id, exc)
+        if entry.get("key"):
+            # this life observed the job's SLO verdict directly — a
+            # later fleet replay must not feed it to the burn monitor
+            # again
+            self._burn_fed_keys.add(entry["key"])
         self.jobs_run += 1
         self.registry.add("serve/jobs", 1)
         if not res.ok:

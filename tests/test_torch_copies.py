@@ -1104,7 +1104,9 @@ def _pair(name):
 @pytest.mark.parametrize("name", ["serve.admission", "serve.health",
                                   "serve.journal", "serve.packing",
                                   "serve.countcache", "observability.burn",
-                                  "observability.metrics"])
+                                  "observability.metrics", "serve.fleet",
+                                  "serve.stream_server",
+                                  "observability.flight"])
 def test_verbatim_serve_copies(name):
     """Copied whole: the code is the original's, the package name and
     the docstrings aside."""
@@ -1261,10 +1263,9 @@ def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
     aside: ``backend``).  The deliberate difference: the flags of the
-    parts the port does not run yet (fleet mode, sessions, cohorts,
-    shards, the MXU pileup) are refused by name at server start
-    (``cli.UNPORTED_SERVE_FLAGS``,
-    ``serve.runner.refuse_unported_serve``), never ignored."""
+    parts the port does not run yet (cohorts, shards, the MXU pileup)
+    are refused by name at server start (``cli.UNPORTED_SERVE_FLAGS``),
+    never ignored; fleet mode and the session flags run."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
 
@@ -1278,11 +1279,13 @@ def test_cli_serve_flags():
     t_def, r_def = dict(t_p._defaults), dict(r_p._defaults)
     assert t_def.pop("backend") == "torch" and r_def.pop("backend") == "jax"
     assert t_def == r_def
-    refused = {f for f, _d, _s in t_cli.UNPORTED_SERVE_FLAGS} | {
-        "--worker-id", "--lease-ttl"}
+    refused = {f for f, _d, _s in t_cli.UNPORTED_SERVE_FLAGS}
     assert refused <= {s for a in t_p._actions for s in a.option_strings}
     assert not refused & {"--batch", "--batch-window", "--count-cache",
-                          "--incremental"}
+                          "--incremental", "--worker-id", "--lease-ttl",
+                          "--ingest-port", "--stability-waves",
+                          "--revote-debounce", "--ingest-max-body",
+                          "--ingest-timeout", "--ingest-max-pending"}
 
 
 def _cache_state(mod, n_rows, tag):

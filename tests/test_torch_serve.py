@@ -334,14 +334,6 @@ def test_env_metrics_out_suffixed_per_job(tmp_path, monkeypatch):
 
 # -- refusals and the device policy ------------------------------------------
 UNPORTED = [
-    (["--worker-id", "w1"], "--worker-id w1"),
-    (["--lease-ttl", "5"], "--lease-ttl 5.0"),
-    (["--ingest-port", "0"], "--ingest-port 0"),
-    (["--stability-waves", "5"], "--stability-waves 5"),
-    (["--revote-debounce", "1"], "--revote-debounce 1.0"),
-    (["--ingest-max-body", "100"], "--ingest-max-body 100"),
-    (["--ingest-timeout", "3"], "--ingest-timeout 3.0"),
-    (["--ingest-max-pending", "4"], "--ingest-max-pending 4"),
     (["--cohort-manifest", "m.txt"], "--cohort-manifest m.txt"),
     (["--cohort-wave", "4"], "--cohort-wave 4"),
     (["--cohort-summary", "s.json"], "--cohort-summary s.json"),
@@ -377,14 +369,6 @@ def test_unported_serve_env_refused_by_name(tmp_path, monkeypatch, env,
         runner()
 
 
-@pytest.mark.parametrize("kw,named", [
-    (dict(worker_id="w"), "--worker-id w"), (dict(lease_ttl=3.0),
-                                             "--lease-ttl 3.0")])
-def test_unported_runner_options_refused_by_name(kw, named):
-    with pytest.raises(ValueError, match=f"{named}: not supported"):
-        runner(**kw)
-
-
 # -- the batching and count-cache options now run -----------------------------
 def small(tmp, name, seed):
     return sim(tmp, name, seed, contig_len=1500, n_reads=400)
@@ -400,21 +384,102 @@ def jax_serve_dir(argv, out):
 
 PORTED = [["--batch", "4"], ["--batch", "auto"], ["--batch-window", "20"],
           ["--count-cache", "512M"], ["--count-cache", "64M",
-                                      "--incremental"]]
+                                      "--incremental"],
+          ["--worker-id", "w1", "--journal", "{j}"], ["--lease-ttl", "5"],
+          ["--ingest-port", "0", "--journal", "{j}"],
+          ["--stability-waves", "5"], ["--revote-debounce", "1"],
+          ["--ingest-max-body", "100"], ["--ingest-timeout", "3"],
+          ["--ingest-max-pending", "4"]]
+
+
+def _session_through_cli(tmp_path, paths, argv):
+    """``serve --ingest-port`` on this thread; a client thread opens a
+    session over ``paths[0]``'s header, posts each input's reads as one
+    wave, closes it and interrupts the server.  Returns the session's
+    outputs (reference -> FASTA text) and the server's exit code."""
+    import _thread
+    import http.client
+    import json
+    import socket
+    import threading
+    import time
+
+    from sam2consensus_torch import cli
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    argv = [a if a != "0" or argv[i - 1] != "--ingest-port" else str(port)
+            for i, a in enumerate(argv)]
+    texts = [open(p).read() for p in paths]
+    header = "".join(ln for ln in texts[0].splitlines(True)
+                     if ln.startswith("@"))
+    waves = ["".join(ln for ln in t.splitlines(True)
+                     if not ln.startswith("@")).encode() for t in texts]
+    got = {}
+
+    def post(path, body=b""):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("POST", path, body=body,
+                         headers={"Content-Length": str(len(body))})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def client():
+        try:
+            for _ in range(300):
+                try:
+                    st, doc = post("/session/open", header.encode())
+                    break
+                except OSError:
+                    time.sleep(0.05)
+            sid = doc["sid"]
+            got["waves"] = [post(f"/session/{sid}/wave", w)[0]
+                            for w in waves]
+            st, doc = post(f"/session/{sid}/close")
+            got["close"] = st
+            got["outputs"] = {os.path.basename(p).split("__")[0]:
+                              open(p).read() for p in doc["outputs"]}
+        finally:
+            _thread.interrupt_main()
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    rc = cli.main(["serve", *argv, "--quiet"], device="cpu")
+    t.join(30)
+    assert got.get("waves") == [200] * len(paths) and got["close"] == 200
+    return got["outputs"], rc
 
 
 @pytest.mark.parametrize("argv", PORTED, ids=[" ".join(a) for a in PORTED])
 def test_ported_serve_flag_runs_a_job(tmp_path, argv):
     """Each option the refusal list no longer names starts a server
-    and runs its jobs, with the JAX package's serve bytes."""
+    and runs its jobs, with the JAX package's serve bytes (a session
+    server: the JAX package's one-shot bytes over every posted read)."""
     from sam2consensus_torch import cli
 
-    inputs = sum((["-i", small(tmp_path, f"p{k}.sam", 95 + k)]
-                  for k in range(2)), [])
+    paths = [small(tmp_path, f"p{k}.sam", 95 + k) for k in range(2)]
+    inputs = sum((["-i", p] for p in paths), [])
     out = str(tmp_path / "o")
-    assert cli.main(["serve", *inputs, "-o", out, "--quiet", *argv],
+    if "--ingest-port" in argv:
+        argv = [a.replace("{j}", str(tmp_path / "j")) for a in argv]
+        outputs, rc = _session_through_cli(tmp_path, paths, argv)
+        assert rc == 0
+        both = str(tmp_path / "both.sam")
+        with open(both, "w") as fh:
+            fh.write(open(paths[0]).read())
+            fh.writelines(ln for ln in open(paths[1])
+                          if not ln.startswith("@"))
+        assert outputs == jax_cold(both, TConfig(prefix=""))
+        return
+    t_argv = [a.replace("{j}", str(tmp_path / "j_t")) for a in argv]
+    r_argv = [a.replace("{j}", str(tmp_path / "j_r")) for a in argv]
+    assert cli.main(["serve", *inputs, "-o", out, "--quiet", *t_argv],
                     device="cpu") == 0
-    assert read_dir(out) == jax_serve_dir([*inputs, *argv],
+    assert read_dir(out) == jax_serve_dir([*inputs, *r_argv],
                                           str(tmp_path / "ref"))
 
 
@@ -443,23 +508,35 @@ def test_count_cache_env_runs_incremental_jobs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(batch="2"), dict(batch_window=5.0),
-                                dict(count_cache="64M")],
-                         ids=["batch", "batch_window", "count_cache"])
+                                dict(count_cache="64M"),
+                                dict(worker_id="w", journal_dir="{j}"),
+                                dict(lease_ttl=3.0)],
+                         ids=["batch", "batch_window", "count_cache",
+                              "worker_id", "lease_ttl"])
 def test_ported_runner_options_run_jobs(tmp_path, kw):
-    """The runner's ``batch``, ``batch_window`` and ``count_cache``
-    start a server whose jobs equal independent ``--backend jax`` runs
-    (``batch="2"`` packs them)."""
+    """The runner's ``batch``, ``batch_window``, ``count_cache``,
+    ``worker_id`` and ``lease_ttl`` start a server whose jobs equal
+    independent ``--backend jax`` runs (``batch="2"`` packs them; a
+    fleet worker commits each job into its output folder)."""
     from sam2consensus_torch.serve import JobSpec
 
+    kw = {k: str(tmp_path / "j") if v == "{j}" else v
+          for k, v in kw.items()}
     paths = [small(tmp_path, f"k{k}.sam", 100 + k) for k in range(2)]
+    cfgs = [TConfig() for _ in paths]
+    if "journal_dir" in kw:
+        os.makedirs(tmp_path / "o")
+        cfgs = [TConfig(outfolder=str(tmp_path / "o") + os.sep,
+                        prefix=f"k{k}") for k in range(2)]
     r = runner(**kw)
     try:
-        results = r.submit_jobs([JobSpec(p, TConfig()) for p in paths])
+        results = r.submit_jobs([JobSpec(p, c)
+                                 for p, c in zip(paths, cfgs)])
     finally:
         r.close()
     assert all(x.ok for x in results), [x.error for x in results]
-    for path, res in zip(paths, results):
-        assert rendered(res) == jax_cold(path)
+    for path, cfg, res in zip(paths, cfgs, results):
+        assert rendered(res) == jax_cold(path, cfg)
     packed = r.registry.value("batch/packed_jobs")
     assert packed == (2 if kw.get("batch") == "2" else 0)
 

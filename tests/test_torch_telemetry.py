@@ -48,14 +48,25 @@ PORT_ONLY = {"s2c_epilogue_device_tails_total"}
 @pytest.fixture(autouse=True)
 def _collect_jax_garbage(monkeypatch):
     """No automatic collection during a test (ROADMAP §C 2); no JAX
-    persistent compilation cache."""
+    persistent compilation cache, also where an earlier test of this
+    process turned it on: a program that another process wrote there
+    loads as a hit and adds the reference's ``compile/persist_hit``
+    family, which a fresh process never shows."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache
+
     monkeypatch.setenv("S2C_JIT_CACHE", "")
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     gc.disable()
     try:
         yield
     finally:
         gc.enable()
         gc.collect()
+        jax.config.update("jax_enable_compilation_cache", was)
+        compilation_cache.reset_cache()
 
 
 def _families(text):
@@ -100,9 +111,11 @@ def test_exposition_families_equal_reference_and_lint(tmp_path,
     assert t_tel.lint_openmetrics(t1) == []
     assert t_tel.lint_openmetrics(t2, prev=t1) == []
     got, want = _families(t1), _families(r1)
-    assert {f for f in want - got
-            if not f.startswith(JAX_ONLY_PREFIX)} <= JAX_ONLY
-    assert got - want <= PORT_ONLY
+    missing = {f for f in want - got
+               if not f.startswith(JAX_ONLY_PREFIX)} - JAX_ONLY
+    extra = got - want - PORT_ONLY
+    assert not missing and not extra, (
+        f"want - got: {sorted(missing)}; got - want: {sorted(extra)}")
     for fam in ("s2c_slo_phase_seconds", "s2c_slo_violations_total",
                 "s2c_serve_jobs_total", "s2c_serve_overlap_sec_total",
                 "s2c_burn_rate", "s2c_burn_alert_state",
