@@ -243,6 +243,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    absorbed: the peer adopts the session, replays exactly those waves, no
    read lost or counted twice, the bytes equal to the one-shot run; (4)
    ``run_streaming_bench()``'s summary.
+16. cohorts (``serve --cohort-manifest``): 48 members of 10,000 x 100 bp
+   reads on ``bench.py``'s ``target_capture`` panel (350 x 1,200 bp,
+   ``contig_len_jitter=0``: one fingerprint), simulated on 8 processes, at
+   ``-c 0.25 --pileup auto`` (a pinned pileup keeps a job off the packed
+   path): (1) the cohort rate-sized and at ``--cohort-wave 16`` under
+   :func:`batch_probe` and :func:`cohort_probe`, every member's bytes
+   equal to ``serve --batch off``'s and ``--batch 16``'s, 8 members drawn
+   with a fixed seed equal to the CPU one-shot runs; one panel plan,
+   ``compile/persist_miss`` flat after wave 1, no demotion and no
+   admission trip; in every wave K1 launched, the shared tail on the card
+   with one K2/K3 launch, no host sync in its dispatch, no fetch of the
+   shared counts, one tap a member handed a slice of the device counts
+   with no sync, the tally fetched once a cohort; per wave its wall,
+   jobs/s, occupancy, rows, K1's route, the tail, the taps' seconds and
+   the allocator's peak against ``memplane``'s prediction; (2) the
+   concordance digest equal to the host oracle's tally on CPU tensors,
+   and the tally's calls on the card equal to numpy's argmax on ties;
+   (3) a journaled cohort of the first 24, then of all 48: 24 resumed,
+   only the rest run; (4) ``run_cohort_bench()``'s gates.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -4125,6 +4144,454 @@ def streaming_sessions(tmp: str, card: str) -> None:
     print(f"  phase 15 took {time.perf_counter() - t0:.1f}s [{card}]")
 
 
+# -- phase 16: cohorts -------------------------------------------------------
+#: phase 16's cohort: bench.py's target_capture panel (350 contigs x 1,200
+#: bp = 420,000 positions, contig_len_jitter=0 so every member has one
+#: fingerprint), members of 10,000 x 100 bp reads at seeds 30,000-30,047
+COHORT_SEEDS = tuple(range(30_000, 30_048))
+COHORT_READS = 10_000
+COHORT_PANEL = 350 * 1200
+#: the serve flags of every phase 16 run: --pileup auto, since a pinned
+#: pileup is the user's placement decision and keeps a job off the packed
+#: path (the scheduler's eligibility, as the reference's)
+COHORT_FLAGS = ["-c", "0.25", "--pileup", "auto", "--decoder", "native",
+                "--quiet"]
+COHORT_SIM_DRIVER = r"""
+import json, os, sys
+from sam2consensus_torch.utils.simulate import SimSpec, simulate, write_sam
+for seed in json.loads(sys.argv[2]):
+    write_sam(simulate(SimSpec(n_contigs=350, contig_len=1200,
+                               n_reads=int(sys.argv[3]), read_len=100,
+                               contig_len_jitter=0.0, seed=seed,
+                               contig_prefix="gene")),
+              os.path.join(sys.argv[1], f"cohort_{seed}.sam"))
+"""
+
+
+def cohort_inputs(tmp: str) -> list:
+    """Phase 16's members, simulated on 8 processes; returns their paths
+    in seed order."""
+    mdir = os.path.join(tmp, "p16_members")
+    os.makedirs(mdir)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", COHORT_SIM_DRIVER, mdir,
+         json.dumps(COHORT_SEEDS[k::8]), str(COHORT_READS)], env=env,
+        stderr=subprocess.PIPE, text=True) for k in range(8)]
+    try:
+        for proc in procs:
+            _out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                fail(f"phase 16: a member simulation exited "
+                     f"{proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    paths = [os.path.join(mdir, f"cohort_{s}.sam") for s in COHORT_SEEDS]
+    print(f"  16 inputs: {len(paths)} members x {COHORT_READS} reads over "
+          f"a {COHORT_PANEL}-position panel made on 8 processes in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return paths
+
+
+def write_manifest(tmp: str, name: str, paths: list) -> str:
+    man = os.path.join(tmp, name)
+    with open(man, "w") as fh:
+        fh.write("# phase 16 cohort\n" + "".join(p + "\n" for p in paths))
+    return man
+
+
+@contextlib.contextmanager
+def cohort_probe(counted):
+    """Per cohort (``CohortRunner.run``) the runner, its prewarm (seconds,
+    shapes, K1 launches) and its tally's fetches; per wave
+    (``CohortRunner._run_wave``) the allocator's peak over the wave (reset
+    just before it) beside the memory plane's prediction for its combined
+    axis, the runner's ``compile/persist_miss`` and ``batch/panel_plans``
+    and merge gauges after it; per tap (``CohortRunner._tap``) its
+    seconds, the host synchronisations it made (``counted``: an open
+    :func:`counted_syncs`) and what it was handed.  Yields the records."""
+    from sam2consensus_torch.io import fasta
+    from sam2consensus_torch.kernels.build import all_kernels
+    from sam2consensus_torch.observability import memplane
+    from sam2consensus_torch.serve.cohort import (CohortRunner,
+                                                  ConcordanceAccumulator)
+
+    kernels = all_kernels()
+    rec = {"cohorts": [], "waves": [], "taps": [], "prewarm": [],
+           "table_fetches": 0, "write_sec": 0.0}
+    orig = {n: getattr(CohortRunner, n)
+            for n in ("run", "_run_wave", "_tap", "_prewarm")}
+    orig_table = ConcordanceAccumulator.table
+    orig_write = fasta.write_outputs
+
+    def syncs():
+        return sum(counted["now"]().values())
+
+    def run(self):
+        rec["cohorts"].append(self)
+        return orig["run"](self)
+
+    def prewarm(self, wave_jobs):
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        n = orig["_prewarm"](self, wave_jobs)
+        torch.cuda.synchronize()
+        rec["prewarm"].append({
+            "sec": time.perf_counter() - t0, "shapes": n,
+            "wave_jobs": wave_jobs, "launched": {
+                k.name: k.launches - before[k.name] for k in kernels}})
+        return n
+
+    def run_wave(self, k, w, *args, **kwargs):
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return orig["_run_wave"](self, k, w, *args, **kwargs)
+        finally:
+            reg = self.runner.registry
+            g = reg.snapshot()["gauges"]
+            rec["waves"].append({
+                "k": k, "w": w, "mem0": mem0,
+                "peak": torch.cuda.max_memory_allocated(),
+                "predicted": memplane.predict_job_peak_bytes(
+                    w * self.panel_len, self.base_config),
+                "persist_miss": reg.value("compile/persist_miss"),
+                "panel_plans": reg.value("batch/panel_plans"),
+                "real_rows": g.get("batch/real_rows", {}).get("value"),
+                "padded_rows": g.get("batch/padded_rows", {}).get("value"),
+                "last_wave": dict(self.last_wave)})
+
+    def tap(self, job_id, counts):
+        a, t0 = syncs(), time.perf_counter()
+        try:
+            return orig["_tap"](self, job_id, counts)
+        finally:
+            rec["taps"].append({
+                "wave": len(rec["waves"]), "sec": time.perf_counter() - t0,
+                "syncs": syncs() - a,
+                "part": f"{type(counts).__name__} on "
+                        f"{getattr(counts, 'device', 'host')}"})
+
+    def table(self):
+        rec["table_fetches"] += 1
+        return orig_table(self)
+
+    def write_outputs(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig_write(*args, **kwargs)
+        finally:
+            rec["write_sec"] += time.perf_counter() - t0
+
+    CohortRunner.run = run
+    CohortRunner._prewarm = prewarm
+    CohortRunner._run_wave = run_wave
+    CohortRunner._tap = tap
+    ConcordanceAccumulator.table = table
+    fasta.write_outputs = write_outputs
+    try:
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(CohortRunner, n, fn)
+        ConcordanceAccumulator.table = orig_table
+        fasta.write_outputs = orig_write
+
+
+def cohort_run(tmp: str, card: str, man: str, label: str, *extra,
+               out_name: str = "") -> tuple:
+    """One ``serve --cohort-manifest`` at :data:`COHORT_FLAGS` under
+    :func:`counted_syncs`, :func:`batch_probe` and :func:`cohort_probe`,
+    into ``p16_<out_name or label>``, with every per-wave check of phase
+    16 fatal (a wave of one runs serially, as the reference's: it has no
+    packed batch and its member is back-filled from the host oracle);
+    returns its output directory, its summary and its wall."""
+    out = os.path.join(tmp, f"p16_{out_name or label}")
+    summ = os.path.join(tmp, f"p16_{label}.summary.json")
+    gc.collect()
+    with counted_syncs() as counted, batch_probe(counted) as batches, \
+            cohort_probe(counted) as rec:
+        t0 = time.perf_counter()
+        rc = cli_quiet(["serve", "--cohort-manifest", man, "-o", out,
+                        "--cohort-summary", summ, *COHORT_FLAGS, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 16: the cohort ({label}) exited {rc}")
+    with open(summ) as fh:
+        summary = json.load(fh)
+    conc = summary["concordance"] or {}
+    ran = sum(d["inputs"]["wave_jobs"] for d in summary["decisions"])
+    print(f"  16 cohort, {label} [{card}]: {summary['samples_ok']} ok + "
+          f"{summary['resumed']} resumed / {summary['samples_total']} in "
+          f"{summary['waves']} wave(s) "
+          f"{[d['inputs']['wave_jobs'] for d in summary['decisions']]}, "
+          f"{wall:.3f}s wall ({ran / wall:.2f} jobs/s; the summary's "
+          f"{summary['jobs_per_sec']} jobs/s over {summary['elapsed_sec']}s)"
+          f", panel_plans={summary['panel_plans']} panel_reuses="
+          f"{summary['panel_reuses']} jit_cache_hits/misses (the "
+          f"extension's persist_hit/miss)={summary['jit_cache_hits']}/"
+          f"{summary['jit_cache_misses']} batch_demotions="
+          f"{summary['batch_demotions']} admission_trips="
+          f"{summary['admission_trips']}, concordance members="
+          f"{conc.get('members')} mean={conc.get('mean_concordance')} "
+          f"digest={conc.get('digest')}, tally fetches "
+          f"{rec['table_fetches']}; the waves' walls "
+          f"{sum(w['last_wave'].get('wall_sec', 0) for w in rec['waves']):.3f}"
+          f"s, the FASTA writes {rec['write_sec']:.3f}s (after each wave;"
+          f" at each commit, inside the wave, under --journal)")
+    for pw in rec["prewarm"]:
+        print(f"    prewarm [{card}]: {pw['shapes']} shape(s) over "
+              f"{pw['wave_jobs']} x {COHORT_PANEL} positions in "
+              f"{pw['sec']:.3f}s, launches {pw['launched']}")
+    if summary["failed"] or summary["batch_demotions"] \
+            or summary["admission_trips"]:
+        fail(f"phase 16 ({label}): failed={summary['failed']} "
+             f"batch_demotions={summary['batch_demotions']} "
+             f"admission_trips={summary['admission_trips']}")
+    if summary["panel_plans"] != 1:
+        fail(f"phase 16 ({label}): panel_plans={summary['panel_plans']}")
+    if ran and rec["table_fetches"] != 1:
+        fail(f"phase 16 ({label}): the tally was fetched "
+             f"{rec['table_fetches']} times, not once")
+    packed = [wv for wv in rec["waves"] if wv["w"] >= 2]
+    if len(batches) != len(packed) or \
+            len(rec["waves"]) != summary["waves"]:
+        fail(f"phase 16 ({label}): {len(batches)} packed batches for "
+             f"{len(rec['waves'])} waves")
+    if rec["waves"] and any(w["persist_miss"] != rec["waves"][0][
+            "persist_miss"] for w in rec["waves"]):
+        fail(f"phase 16 ({label}): compile/persist_miss moved after wave 1:"
+             f" {[w['persist_miss'] for w in rec['waves']]}")
+    batch_of = dict(zip((wv["k"] for wv in packed), batches))
+    for wv in rec["waves"]:
+        k, lw = wv["k"], wv["last_wave"]
+        if k not in batch_of:
+            print(f"    wave {k} [{card}]: one member, served serially and "
+                  f"back-filled from the host oracle ({lw})")
+            continue
+        b = batch_of[k]
+        info = b["info"]
+        taps = [t for t in rec["taps"] if t["wave"] == k]
+        tail_launches = b["launched"].get("insertion_vote", 0) + \
+            b["launched"].get("insertion_table", 0)
+        tail = f"shared on {b['placement']}" if b["placement"] \
+            else "extraction"
+        mib = {n: wv[n] / 2**20 for n in ("peak", "mem0", "predicted")}
+        print(f"    wave {k} [{card}]: {lw.get('ok')}/{wv['w']} ok in "
+              f"{lw.get('wall_sec')}s ({lw.get('jobs_per_sec')} jobs/s), "
+              f"occupancy {lw.get('occupancy_pct')}%, rows real "
+              f"{wv['real_rows']} padded {wv['padded_rows']}, merged_slabs "
+              f"{info.get('merged_slabs')}, K1 route "
+              f"{info.get('strategy')} launches {b['launched']}, tail "
+              f"{tail} {b['tail_sec']:.4f}s, renders {b['render_sec']:.4f}s;"
+              f" batch wall {b['wall']:.4f}s: member decode to the first "
+              f"dispatch {b.get('first_wave', b['t0']) - b['t0']:.4f}s, "
+              f"shared wall {info.get('shared_wall_sec')}s of which "
+              f"dispatch {info.get('dispatch_sec')}s; dispatch waves "
+              f"{b['waves']} with "
+              f"{b['wave_syncs']} host syncs, count fetches "
+              f"{b['fetches']}; taps {len(taps)} in "
+              f"{sum(t['sec'] for t in taps):.4f}s with "
+              f"{sum(t['syncs'] for t in taps)} host syncs "
+              f"{sorted({t['part'] for t in taps})}; allocator peak "
+              f"{mib['peak']:.1f} MiB ({mib['peak'] - mib['mem0']:.1f} MiB "
+              f"over the {mib['mem0']:.1f} MiB held before it) vs "
+              f"memplane's prediction {mib['predicted']:.1f} MiB")
+        if not b["launched"].get("pileup_rows"):
+            fail(f"phase 16 ({label}): wave {k} launched no K1")
+        if info.get("strategy") != "pallas":
+            fail(f"phase 16 ({label}): wave {k}'s shared accumulator is "
+                 f"{info.get('strategy')}, not K1's")
+        if b["placement"] != "device" or b["extraction_tails"] \
+                or tail_launches != 1:
+            fail(f"phase 16 ({label}): wave {k}'s tail ran on "
+                 f"{b['placement']} with {b['extraction_tails']} "
+                 f"extraction tails and {tail_launches} K2/K3 launches, "
+                 f"not once on the card")
+        if b["wave_syncs"]:
+            fail(f"phase 16 ({label}): wave {k}'s dispatch made "
+                 f"{b['wave_syncs']} host synchronisations")
+        if b["fetches"]:
+            fail(f"phase 16 ({label}): wave {k} fetched the shared counts "
+                 f"{b['fetches']} time(s)")
+        want_part = f"Tensor on cuda:{torch.cuda.current_device()}"
+        if len(taps) != wv["w"] or any(t["part"] != want_part
+                                       or t["syncs"] for t in taps):
+            fail(f"phase 16 ({label}): wave {k}'s taps "
+                 f"{[(t['part'], t['syncs']) for t in taps]} are not one "
+                 f"sync-free slice of the device counts per member")
+    return out, summary, wall
+
+
+def served_wall(tmp: str, card: str, paths: list, label: str,
+                batch: str) -> tuple:
+    """The members through ``serve -i ... --batch BATCH``; returns the
+    output directory and the wall."""
+    out = os.path.join(tmp, f"p16_{label}")
+    argv = ["serve"]
+    for p in paths:
+        argv += ["-i", p]
+    t0 = time.perf_counter()
+    rc = cli_quiet(argv + ["-o", out, *COHORT_FLAGS, "--batch", batch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 16: serve --batch {batch} over the members failed")
+    print(f"  16 serve --batch {batch} [{card}]: {len(paths)} members in "
+          f"{wall:.3f}s ({len(paths) / wall:.2f} jobs/s)")
+    return out, wall
+
+
+def oracle_digest(paths: list) -> dict:
+    """The concordance summary of ``paths`` tallied on CPU tensors from
+    the host oracle's counts (``oracle_member_counts`` with a CPU
+    ``TorchBackend``)."""
+    from sam2consensus_torch.backends.torch_backend import TorchBackend
+    from sam2consensus_torch.config import RunConfig
+    from sam2consensus_torch.serve.cohort import (ConcordanceAccumulator,
+                                                  oracle_member_counts)
+
+    backend = TorchBackend("cpu")
+    cfg = RunConfig(thresholds=[0.25], pileup="auto")
+    acc = ConcordanceAccumulator(COHORT_PANEL, device="cpu")
+    for p in paths:
+        acc.add_member(torch.from_numpy(
+            oracle_member_counts(p, cfg, backend=backend)))
+    return acc.summary()
+
+
+def tally_ties(card: str) -> None:
+    """Phase 16.2: the tally's calls on the card against numpy's argmax
+    (the first maximal lane) on four panel-sized members with many ties
+    and zero-depth rows."""
+    from sam2consensus_torch.serve.cohort import ConcordanceAccumulator
+
+    rng = np.random.default_rng(16)
+    acc = ConcordanceAccumulator(COHORT_PANEL, device="cuda")
+    want = np.zeros((COHORT_PANEL, 7), np.int64)
+    ties = 0
+    for _ in range(4):
+        m = rng.integers(0, 3, (COHORT_PANEL, 6)).astype(np.int32)
+        m[rng.random(COHORT_PANEL) < 0.2] = 0
+        ties += int(((m == m.max(axis=1, keepdims=True)).sum(axis=1) > 1)
+                    .sum())
+        acc.add_member(torch.from_numpy(m).cuda())
+        calls = np.where(m.sum(axis=1) > 0, np.argmax(m, axis=1), 6)
+        want[np.arange(COHORT_PANEL), calls] += 1
+    if not np.array_equal(acc.table(), want):
+        fail("phase 16.2: the tally's calls on the card differ from "
+             "numpy's first maximal lane")
+    print(f"  16.2 [{card}]: the tally on the card == numpy's argmax over "
+          f"4 x {COHORT_PANEL} rows ({ties} tied, zero-depth rows "
+          f"included)")
+
+
+def cohort_bench(card: str) -> None:
+    """Phase 16.4: ``run_cohort_bench(device="cuda")`` at its defaults."""
+    from sam2consensus_torch.serve import benchmark
+
+    t0 = time.perf_counter()
+    s = benchmark.run_cohort_bench(device="cuda")["summary"]
+    print(f"  16.4 run_cohort_bench() [{card}]: {s['samples_ok']}/"
+          f"{s['n_samples']} ok x {s['n_reads']} reads over "
+          f"{s['contig_len']} bp in {s['waves']} wave(s), "
+          f"{s['cohort_sec']}s, {s['jobs_per_sec']} jobs/s vs stranger "
+          f"{s['stranger_jobs_per_sec']} jobs/s (n={s['stranger_n']}), "
+          f"occupancy {s['occupancy_pct']}%, identical={s['identical']} "
+          f"concordance_pinned={s['concordance_pinned']} "
+          f"replans_after_wave1={s['replans_after_wave1']} "
+          f"new_compiles_after_wave1={s['new_compiles_after_wave1']} "
+          f"cohort_ge_stranger={s['cohort_ge_stranger']} "
+          f"residual_in_band={s['residual_in_band']} ok={s['ok']} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    if not (s["identical"] and s["concordance_pinned"]
+            and s["replans_after_wave1"] == 0
+            and s["new_compiles_after_wave1"] == 0):
+        fail(f"phase 16.4: run_cohort_bench() is not identical, pinned and "
+             f"free of re-plans and builds after wave 1: {s}")
+
+
+def cohorts(tmp: str, card: str) -> None:
+    """Phase 16."""
+    import random
+
+    t0 = time.perf_counter()
+    paths = cohort_inputs(tmp)
+    man = write_manifest(tmp, "p16_manifest.txt", paths)
+    print("  16.1: the cohort rate-sized and at --cohort-wave 16, against "
+          "serve --batch off and --batch 16")
+    out_r, sum_r, wall_r = cohort_run(tmp, card, man, "rate")
+    out_16, sum_16, wall_16 = cohort_run(tmp, card, man, "wave16",
+                                         "--cohort-wave", "16")
+    out_s, wall_s = served_wall(tmp, card, paths, "serial", "off")
+    out_b, wall_b = served_wall(tmp, card, paths, "batch16", "16")
+    serial = served_files(out_s)
+    stems = [os.path.basename(p)[:-4] for p in paths]
+    if any(not any(f.endswith(f"__{st}.fasta") for f in serial)
+           for st in stems):
+        fail("phase 16: the serial run wrote no output for a member")
+    for label, out in (("rate-sized cohort", out_r),
+                       ("--cohort-wave 16", out_16),
+                       ("serve --batch 16", out_b)):
+        if served_files(out) != serial:
+            fail(f"phase 16: the {label} outputs differ from the serial "
+                 f"served run's")
+    picks = random.Random(16).sample(range(len(paths)), 8)
+    for i in picks:
+        stem = os.path.basename(paths[i])[:-4]
+        out_c = os.path.join(tmp, f"p16_cpu_{stem}")
+        run_cli(["-i", paths[i], "-o", out_c, *COHORT_FLAGS], "cpu")
+        got = {f: v for f, v in serial.items()
+               if f.endswith(f"__{stem}.fasta")}
+        if not got or got != served_files(out_c):
+            fail(f"phase 16: {stem}'s served output differs from the "
+                 f"port's CPU one-shot run")
+    print(f"  16.1 [{card}]: all {len(serial)} files of the rate-sized "
+          f"cohort, --cohort-wave 16 and --batch 16 == the serial served "
+          f"run; members {sorted(picks)} == the port's CPU one-shot runs; "
+          f"jobs/s: cohort rate-sized {len(paths) / wall_r:.2f}, "
+          f"--cohort-wave 16 {len(paths) / wall_16:.2f}, --batch 16 "
+          f"{len(paths) / wall_b:.2f}, --batch off "
+          f"{len(paths) / wall_s:.2f}")
+    print("  16.2: the concordance digest against the host oracle")
+    t1 = time.perf_counter()
+    oracle = oracle_digest(paths)
+    print(f"  16.2 [{card}]: the oracle's tally of {oracle['members']} "
+          f"members on CPU tensors: digest {oracle['digest']} mean "
+          f"{oracle['mean_concordance']} ({time.perf_counter() - t1:.1f}s)")
+    for label, summ in (("rate-sized", sum_r), ("--cohort-wave 16", sum_16)):
+        if summ["concordance"] != oracle:
+            fail(f"phase 16.2: the {label} cohort's concordance "
+                 f"{summ['concordance']} differs from the oracle's {oracle}")
+    tally_ties(card)
+    print("  16.3: a journaled resume")
+    jdir = os.path.join(tmp, "p16_journal")
+    man24 = write_manifest(tmp, "p16_first24.txt", paths[:24])
+    _o, sum_j1, _w = cohort_run(tmp, card, man24, "journal_a",
+                                "--journal", jdir, out_name="journal_out")
+    out_j, sum_j, _w = cohort_run(tmp, card, man, "journal_b",
+                                  "--journal", jdir, out_name="journal_out")
+    ran = sum(d["inputs"]["wave_jobs"] for d in sum_j["decisions"])
+    if sum_j1["samples_ok"] != 24 or sum_j["resumed"] != 24 or \
+            sum_j["samples_ok"] != len(paths) - 24 or \
+            ran != len(paths) - 24:
+        fail(f"phase 16.3: the resume ran {ran} member(s), resumed "
+             f"{sum_j['resumed']}, ok {sum_j['samples_ok']}")
+    if served_files(out_j) != serial:
+        fail("phase 16.3: the journaled cohort's outputs differ from the "
+             "serial served run's")
+    print(f"  16.3 [{card}]: resumed {sum_j['resumed']}, ran the other "
+          f"{ran} in {sum_j['waves']} wave(s); all outputs == serial")
+    cohort_bench(card)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f}s [{card}]")
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -4477,6 +4944,10 @@ def main() -> int:
         print(f"phase 15: streaming sessions [{card}]")
         streaming_sessions(tmp, card)
         lap("15 sessions")
+
+        print(f"phase 16: cohorts [{card}]")
+        cohorts(tmp, card)
+        lap("16 cohorts")
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs)

@@ -339,7 +339,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     flag set, run through a persistent warm backend (``serve/``).  Every
     flag of ``sam2consensus_tpu/cli.build_serve_parser`` parses, with
     its dest, default and choices; the ones the port does not run yet
-    (cohorts, shards, the MXU pileup) are refused by name in
+    (shards, the MXU pileup) are refused by name in
     :func:`serve_main` (:data:`UNPORTED_SERVE_FLAGS`)."""
     p = argparse.ArgumentParser(
         prog="sam2consensus-torch serve",
@@ -444,7 +444,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "more eligible jobs before flushing (default "
                         "50; live-arrival queues only — a pre-planned "
                         "queue arrives at once)")
-    # --- cohort serving (refused: UNPORTED_SERVE_FLAGS) ---
+    # --- cohort serving (serve/cohort.py) ---
     p.add_argument("--cohort-manifest", dest="cohort_manifest",
                    default=None,
                    help="cohort mode: stream EVERY sample named by "
@@ -694,12 +694,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 #: serve flags of the reference's parser that the port does not run yet,
-#: each with a test for "set away from its default": cohorts, multi-GPU
-#: shards and the MXU pileup
+#: each with a test for "set away from its default": multi-GPU shards and
+#: the MXU pileup
 UNPORTED_SERVE_FLAGS = (
-    ("--cohort-manifest", "cohort_manifest", lambda v: v is not None),
-    ("--cohort-wave", "cohort_wave", lambda v: v != 0),
-    ("--cohort-summary", "cohort_summary", lambda v: v is not None),
     ("--shards", "shards", lambda v: v > 1),
     ("--shard-mode", "shard_mode", lambda v: v != "auto"),
     ("--pileup", "pileup", lambda v: v == "mxu"),
@@ -798,17 +795,90 @@ def _serve_sessions(args: argparse.Namespace, echo, device=None) -> int:
     return 0
 
 
+def _serve_cohort(args: argparse.Namespace, echo, device=None) -> int:
+    """``serve --cohort-manifest M``: stream one manifest's samples
+    through packed shared-panel waves (``serve.cohort.CohortRunner``) on
+    ``device``; ``--batch off`` means ``auto`` here.  Exit 0 iff every
+    sample succeeded (resumed samples count as succeeded — the journal
+    already proved their outputs)."""
+    import copy
+    import sys as _sys
+
+    from .serve import ServeRunner
+    from .serve.cohort import CohortRunner, load_manifest
+
+    try:
+        paths = load_manifest(args.cohort_manifest)
+    except (OSError, ValueError) as exc:
+        raise SystemExit(f"error: {exc}") from None
+    base_args = copy.copy(args)
+    base_args.filename = ""             # per-sample prefix, not per-job
+    base_args.prefix = ""
+    base_cfg = config_from_args(base_args)
+
+    runner = ServeRunner(prewarm=args.prewarm,
+                         decode_ahead=args.decode_ahead, echo=echo,
+                         journal_dir=args.journal,
+                         job_timeout=args.job_timeout,
+                         stall_timeout=args.stall_timeout,
+                         max_queue=args.max_queue,
+                         tenant_quota=args.tenant_quota,
+                         health_out=args.health_out,
+                         fault_inject=args.fault_inject,
+                         telemetry_out=args.telemetry_out,
+                         telemetry_port=args.telemetry_port,
+                         telemetry_interval=args.telemetry_interval,
+                         slo=args.slo,
+                         profile_capture_dir=args.profile_capture_dir,
+                         batch=args.batch if args.batch != "off"
+                         else "auto",
+                         batch_window=args.batch_window,
+                         mem_budget=args.mem_budget,
+                         verify_outputs=args.verify_outputs,
+                         device=device)
+    echo(f"\nCohort of {len(paths)} sample(s) from "
+         f"{args.cohort_manifest} [{runner.backend.device}]"
+         + (f" (kernel build: {runner.cache_dir})" if runner.cache_dir
+            else "")
+         + (f" (journal: {runner.journal.root})" if runner.journal
+            else "") + "\n")
+    try:
+        cohort = CohortRunner(runner, paths, base_cfg,
+                              wave=args.cohort_wave,
+                              tenant=args.tenant,
+                              summary_out=args.cohort_summary,
+                              echo=echo)
+        summary = cohort.run()
+    finally:
+        runner.close()
+    for res in cohort.results:
+        if not res.ok:
+            print(f"job {res.job_id} FAILED: {res.error}",
+                  file=_sys.stderr)
+    conc = summary.get("concordance") or {}
+    echo(f"Cohort done: {summary['samples_ok']} ok + "
+         f"{summary['resumed']} resumed / {summary['samples_total']} "
+         f"sample(s) in {summary['waves']} wave(s), "
+         f"{summary['jobs_per_sec']} jobs/s"
+         + (f", mean concordance {conc['mean_concordance']}"
+            if conc else "") + ".\n")
+    if args.cohort_summary:
+        echo(f"Cohort summary at {args.cohort_summary}")
+    return 1 if summary["failed"] else 0
+
+
 def serve_main(argv: List[str], device=None) -> int:
     """``serve -i a.sam -i b.bam [...]``: run every input through one
     warm server (``serve.ServeRunner``) on ``device`` (as in
     ``device.resolve_device``: None = CUDA, raising without it); exit 0
     iff every job succeeded.  ``--worker-id`` joins a fleet on the
     shared ``--journal``; ``--ingest-port`` serves streaming sessions
-    instead of a queue (:func:`_serve_sessions`).  The reference's
+    instead of a queue (:func:`_serve_sessions`), ``--cohort-manifest``
+    a cohort (:func:`_serve_cohort`).  The reference's
     ``serve_main``, with its up-front checks (``--slo``, ``--batch``,
     ``--count-cache``, ``--mem-budget``, ``--incremental`` without the
-    cache or under ``--journal``, the fleet's and the sessions'
-    cross-checks, ``--fault-inject``, an input or a session port); a
+    cache or under ``--journal``, the fleet's, the sessions' and the
+    cohort's cross-checks, ``--fault-inject``, an input or a session port); a
     flag of :data:`UNPORTED_SERVE_FLAGS` set away from its default, or
     ``S2C_MESH_HOSTS`` > 0 (``serve.runner.refuse_unported_serve``),
     fails the start by name."""
@@ -885,6 +955,40 @@ def serve_main(argv: List[str], device=None) -> int:
     # --- streaming-session cross-checks: a typo'd session flag must
     # fail the server start, not surface as a deep mid-wave error
     session_mode = args.ingest_port is not None
+    # --- cohort cross-checks (serve/cohort.py): same fail-the-start
+    # discipline — a cohort flag combination that cannot work must
+    # reject before the server warms, not mid-manifest
+    cohort_mode = args.cohort_manifest is not None
+    if cohort_mode and session_mode:
+        raise SystemExit(
+            "error: --cohort-manifest does not compose with "
+            "--ingest-port (a cohort is a pre-planned manifest; "
+            "sessions are a live wave stream)")
+    if cohort_mode and args.inputs:
+        raise SystemExit(
+            "error: --cohort-manifest does not compose with "
+            "-i/--input (the manifest IS the input list — one "
+            "submission for the whole cohort)")
+    if cohort_mode and args.worker_id:
+        raise SystemExit(
+            "error: --cohort-manifest does not compose with "
+            "--worker-id (cohort waves ride packed batches, which "
+            "fleet workers exclude; shard cohorts by manifest "
+            "instead)")
+    if cohort_mode and args.incremental:
+        raise SystemExit(
+            "error: --cohort-manifest does not compose with "
+            "--incremental (incremental jobs are ineligible for "
+            "packing, so every wave would serialize)")
+    if cohort_mode and args.batch.strip().lower() in ("0", "1"):
+        raise SystemExit(
+            "error: --cohort-manifest needs packed waves: use "
+            "--batch auto or --batch N with N >= 2 (or omit --batch "
+            "— cohort mode defaults it to auto)")
+    if args.cohort_wave < 0 or args.cohort_wave == 1:
+        raise SystemExit(
+            "error: --cohort-wave must be 0 (rate-sized) or >= 2 "
+            "(a wave of one cannot pack)")
     if session_mode and not args.journal:
         raise SystemExit(
             "error: --ingest-port requires --journal (sessions are "
@@ -894,7 +998,7 @@ def serve_main(argv: List[str], device=None) -> int:
         raise SystemExit(
             "error: --ingest-port does not compose with -i/--input "
             "(waves arrive over the ingest API, not a fixed queue)")
-    if not session_mode and not args.inputs:
+    if not session_mode and not cohort_mode and not args.inputs:
         raise SystemExit(
             "error: at least one -i/--input is required (or "
             "--ingest-port to serve streaming sessions, or "
@@ -935,6 +1039,8 @@ def serve_main(argv: List[str], device=None) -> int:
 
     if session_mode:
         return _serve_sessions(args, echo, device=device)
+    if cohort_mode:
+        return _serve_cohort(args, echo, device=device)
 
     specs = []
     for k, path in enumerate(args.inputs):

@@ -20,7 +20,7 @@ the counts accumulate on the host, in the C++ decode pass itself
 and cross to the card once, narrowed to the smallest dtype that holds
 them.  :func:`host_pileup_bound` is the ``--pileup auto`` gate between
 the two.  :func:`canonical_slab_shapes` and :func:`prewarm_pileup` are the
-serve runner's prewarm.
+serve runner's prewarm (:func:`canonical_panel_shapes` a cohort's).
 
 Fault-injection sites (``resilience.faultinject``) sit where the
 reference places them: ``mem_alloc`` at the count tensor's allocation,
@@ -206,6 +206,27 @@ def canonical_slab_shapes(total_len: int, read_len: int = 150,
         for r in sorted(levels):
             shapes.append((int(r), int(w)))
     return sorted(set(shapes))
+
+
+def canonical_panel_shapes(panel_len: int, wave_jobs: int,
+                           read_len: int = 150,
+                           chunk_reads: int = 262144,
+                           n_reads: Optional[int] = None,
+                           segment_width: int = 0) -> list:
+    """The (rows, width) shapes a shared-reference COHORT wave dispatches:
+    :func:`canonical_slab_shapes` over the combined panel axis
+    (``panel_len * wave_jobs`` positions; per-member read counts sum
+    across the wave).  The cohort driver (``serve/cohort.py``) prewarms
+    this set once before wave 1 through :func:`prewarm_pileup`: the
+    kernel extension's load and K1 at each shape, so wave 1 pays neither
+    (the offset-table half of the dedup lives in
+    ``serve/packing.PanelGeometry``)."""
+    return canonical_slab_shapes(
+        int(panel_len) * max(1, int(wave_jobs)),
+        read_len=read_len, chunk_reads=chunk_reads,
+        n_reads=None if n_reads is None
+        else int(n_reads) * max(1, int(wave_jobs)),
+        segment_width=segment_width)
 
 
 def prewarm_pileup(total_len: int, shapes, device, counts=None) -> int:

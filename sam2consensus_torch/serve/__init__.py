@@ -24,10 +24,28 @@ seeds each incremental job from its reference's warm counts.  Fleet mode
 (:mod:`.fleet`: ``--worker-id``, ``--lease-ttl``) drains one journaled
 queue from N worker processes under claim leases; streaming sessions
 (:mod:`.session`, :mod:`.stream_server`: ``--ingest-port``) absorb waves
-of reads over HTTP, one backend run a wave.  Cohorts are refused by name
-until their slice lands.
+of reads over HTTP, one backend run a wave.  Cohorts (:mod:`.cohort`:
+``--cohort-manifest``, ``--cohort-wave``, ``--cohort-summary``) stream one
+manifest of shared-panel samples through packed waves, with a
+per-position call-concordance tally fed from the shared device counts.
 """
 
+from .admission import AdmissionController
+from .countcache import CountCache, parse_budget, reference_key
+from .fleet import FleetCoordinator
+from .health import snapshot as health_snapshot
+from .journal import JobJournal, job_key
+from .packing import (PackPlan, extract_counts, extract_member,
+                      merge_batches, plan_pack)
 from .runner import JobResult, JobSpec, ServeRunner, submit_jobs
+from .scheduler import BatchScheduler, parse_batch_mode
+from .session import SessionError, SessionManager, consensus_digest
+from .stream_server import IngestServer
 
-__all__ = ["JobSpec", "JobResult", "ServeRunner", "submit_jobs"]
+__all__ = ["JobSpec", "JobResult", "ServeRunner", "submit_jobs",
+           "JobJournal", "job_key", "AdmissionController",
+           "health_snapshot", "BatchScheduler", "parse_batch_mode",
+           "PackPlan", "plan_pack", "merge_batches", "extract_counts",
+           "extract_member", "CountCache", "parse_budget",
+           "reference_key", "FleetCoordinator", "SessionManager",
+           "SessionError", "IngestServer", "consensus_digest"]

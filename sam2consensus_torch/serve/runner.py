@@ -505,6 +505,11 @@ class ServeRunner:
 
         self.scheduler = BatchScheduler(self, batch=batch,
                                         window_ms=batch_window)
+        #: the cohort driver's hooks (serve/cohort.py): the concordance
+        #: tap each packed batch feeds its members' counts to, and the
+        #: driver itself, whose progress the health snapshot reads
+        self.count_tap = None
+        self.cohort = None
         # -- incremental consensus (serve/countcache.py) ---------------
         # a typo'd budget fails the server start, same discipline as
         # --batch / --slo

@@ -173,6 +173,12 @@ class BatchScheduler:
         #: ``batch/panel_reuses`` counters count the builds and hits.
         self._panel_geoms: Dict[Tuple[str, int],
                                 packing.PanelGeometry] = {}
+        #: cohort prefetch hand-off (serve/cohort.py): filename ->
+        #: probe fields (total_len/handle/bytes/fingerprint) computed
+        #: on the prefetch thread while the PREVIOUS wave dispatches —
+        #: ``_probe_total_len`` consumes an entry instead of re-opening
+        #: and re-sniffing the container on the critical path.
+        self.probe_cache: Dict[str, dict] = {}
         #: the decode-ahead gate :meth:`run_batch` sets at its first
         #: shared dispatch
         self._gate = None
@@ -190,6 +196,11 @@ class BatchScheduler:
         member's header parses exactly once — the decode phase resumes
         from it instead of re-opening and re-sniffing the container."""
         if "batch_total_len" in entry:
+            return entry["batch_total_len"]
+        pre = self.probe_cache.pop(entry["spec"].filename, None) \
+            if self.probe_cache else None
+        if pre is not None:
+            entry.update(pre)
             return entry["batch_total_len"]
         total = None
         try:
@@ -473,6 +484,23 @@ class BatchScheduler:
             # the failed members' finalize cleared in_flight; the live
             # remainder is still executing
             runner.health.job_started(f"{bid}[{len(live)} live]")
+        tap = getattr(runner, "count_tap", None)
+        if tap is not None:
+            # cohort concordance feed (serve/cohort.py): each live
+            # member's private partition — on the CPU sliced from the
+            # combined fetch, on the card its slice of the shared device
+            # counts (the extraction tail's), read on this thread's
+            # stream behind the batch's K1 launches with no host
+            # synchronisation.  Absorbed on failure: the tap is an
+            # observer, never a reason a job fails.
+            for m in live:
+                try:
+                    part = packing.extract_member(counts, m.pm) \
+                        if counts is not None else \
+                        acc.counts[m.pm.offset:m.pm.offset + m.pm.total_len]
+                    tap(m.entry["job_id"], part)
+                except Exception:
+                    runner.registry.add("batch/tap_failed", 1)
         total_events = sum(mm.n_events for mm in plan_pk.members) or 1
         dispatch_sec = sum(t1 - t0 for t0, t1 in dlog)
         shared_wall = time.perf_counter() - t_batch0

@@ -1132,6 +1132,16 @@ def test_verbatim_serve_copies(name):
                          "BatchScheduler._tail_member",
                          "BatchScheduler._demote_all"]),
     ("ops.pileup", ["canonical_slab_shapes", "padded_total_len"]),
+    ("serve.cohort", ["_wave_sec", "load_manifest", "wave_cap",
+                      "size_wave", "CohortRunner.__init__",
+                      "CohortRunner._spec",
+                      "CohortRunner._prefilter_resumed",
+                      "CohortRunner._drain_probe_cache",
+                      "CohortRunner._prewarm",
+                      "CohortRunner._consult_jps",
+                      "CohortRunner._heuristic_jps",
+                      "CohortRunner._run_wave",
+                      "CohortRunner.health_summary"]),
     ("resilience.ladder", ["job_rungs", "job_host_rung_config",
                            "record_job_demotion"]),
     ("resilience.faultinject", ["_hang_seconds", "FaultInjector.check"]),
@@ -1263,9 +1273,9 @@ def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
     aside: ``backend``).  The deliberate difference: the flags of the
-    parts the port does not run yet (cohorts, shards, the MXU pileup)
-    are refused by name at server start (``cli.UNPORTED_SERVE_FLAGS``),
-    never ignored; fleet mode and the session flags run."""
+    parts the port does not run yet (shards, the MXU pileup) are refused
+    by name at server start (``cli.UNPORTED_SERVE_FLAGS``), never
+    ignored; fleet mode, the session flags and the cohort flags run."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
 
@@ -1285,7 +1295,10 @@ def test_cli_serve_flags():
                           "--incremental", "--worker-id", "--lease-ttl",
                           "--ingest-port", "--stability-waves",
                           "--revote-debounce", "--ingest-max-body",
-                          "--ingest-timeout", "--ingest-max-pending"}
+                          "--ingest-timeout", "--ingest-max-pending",
+                          "--cohort-manifest", "--cohort-wave",
+                          "--cohort-summary"}
+    assert refused == {"--shards", "--shard-mode", "--pileup"}
 
 
 def _cache_state(mod, n_rows, tag):

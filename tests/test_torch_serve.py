@@ -334,9 +334,6 @@ def test_env_metrics_out_suffixed_per_job(tmp_path, monkeypatch):
 
 # -- refusals and the device policy ------------------------------------------
 UNPORTED = [
-    (["--cohort-manifest", "m.txt"], "--cohort-manifest m.txt"),
-    (["--cohort-wave", "4"], "--cohort-wave 4"),
-    (["--cohort-summary", "s.json"], "--cohort-summary s.json"),
     (["--shards", "2"], "--shards 2"),
     (["--shard-mode", "dp"], "--shard-mode dp"),
     (["--pileup", "mxu"], "--pileup mxu"),
