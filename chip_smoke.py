@@ -262,6 +262,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    and the tally's calls on the card equal to numpy's argmax on ties;
    (3) a journaled cohort of the first 24, then of all 48: 24 resumed,
    only the rest run; (4) ``run_cohort_bench()``'s gates.
+17. sharding on a single-controller mesh (``parallel/``), shards that
+   share the first card (``mesh_devices=[cuda:0] * n`` through
+   ``cli.main``; no multi-card speed), the launch counts set to 0 just
+   before and read just after: (1) ``ecoli_scale`` at 4 shards (a 2 x 2
+   mesh) under ``--shard-mode dp`` (``auto``: K1), ``dp --pileup
+   scatter``, ``sp`` (scatter), ``sp --pileup pallas``, ``dpsp --pileup
+   pallas`` and ``auto``, and ``dp`` at 2 shards: each byte-identical to
+   phase 7's single-device run, K1 launched at least once a shard a
+   bucket on its routes and never on the scatter's, K2 once by the
+   sharded tail; each run's wall beside phase 7's, its pileup and tail
+   seconds, each collective's seconds (CUDA events), its allocator peak
+   against ``record_capacity(shards=n)``; the measured per-slab dispatch
+   seconds of each layout beside the shard-mode model's prediction at the
+   first slab; (2) ``longread_sv`` under ``sp --pileup pallas
+   --segment-width -1`` at 9 shards: 16,384-wide rows split at a
+   13,334 halo, K1 on the pieces, K3 by the sharded tail, byte-identical;
+   (3) ``chr1_scale`` (one contig of GRCh38 chr1's 248,956,422 positions,
+   400,000 x 150 bp coordinate-sorted reads from a seed) single-device
+   and at ``--shards 4 --shard-mode auto`` (dp's local is over its 2 GiB
+   gate, so sp or dpsp), byte-identical, both walls and allocator peaks;
+   (4) each layout's ``counts_host()`` over ``ecoli_scale``'s slabs equal
+   to the single-device accumulator's; (5) phase 8's check over one slab:
+   the dp K1 route, the sp window and routed routes and the dpsp route
+   make no host synchronisation; (6) ``--on-device-error fallback
+   --fault-inject pileup_dispatch:fatal:1:inf`` under dp at 4 shards
+   lands on the host after two demotions, byte-identical; (7) a 4-shard
+   dp run checkpointed every 30,000 reads and crashed mid-input resumes
+   at 2 shards (sp), byte-identical; (8) without ``mesh_devices``,
+   ``--shards`` over the host's cards exits with the ``MeshCapacityError``
+   text and ``--shards 0`` on a one-card host runs the single-device
+   path; (9) ``serve --shards 4`` over ``ecoli_scale`` as SAM and BAM:
+   each job's files equal its one-shot run's; (10) on a host with two or
+   more cards, dp and sp on real cards, else one line saying none was
+   made.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -274,8 +308,9 @@ one PyTorch library call where one computes the same function (K1: one
 ``torch.bincount`` of the flat cell index, also timed with the
 expansion; K3: ``index_put_``), and its
 bound (bytes over the HBM rate or operations over the CUDA-core rate, the
-larger).  The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": ...}``.
+larger).  The line before the last is ``{"kernels": [...]}`` (with each
+kernel's main-path ``launches`` and phase 17's ``sharded_launches``); the
+last is ``{"ok": true, "device": ...}``.
 """
 
 import contextlib
@@ -4592,6 +4627,432 @@ def cohorts(tmp: str, card: str) -> None:
     print(f"  phase 16 took {time.perf_counter() - t0:.1f}s [{card}]")
 
 
+# -- phase 17: sharding on a single-controller mesh --------------------------
+#: GRCh38 chr1's length: the size position sharding exists for
+CHR1_LEN = 248_956_422
+#: phase 17.3's reads (150 bp, coordinate-sorted)
+CHR1_READS = 400_000
+
+
+def run_mesh(argv, mesh) -> float:
+    """``cli.main(argv)`` on the card with ``mesh_devices=mesh``; its
+    wall (a non-zero exit is fatal)."""
+    from sam2consensus_torch import cli
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv, mesh_devices=mesh)
+    if rc != 0:
+        fail(f"cli.main {argv} returned {rc}")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_files(a: str, b: str) -> bool:
+    """The two output directories hold the same files, byte for byte."""
+    import filecmp
+
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and filecmp.cmpfiles(
+        a, b, names, shallow=False)[0] == names
+
+
+def sharded_run(tmp: str, card: str, cap: Capture, name: str, label: str,
+                mesh, extra: list, want_out: str, phase7_wall=None):
+    """One sharded CUDA run of ``name`` through ``cli.main``: byte identity
+    with ``want_out``, and the wall, the pileup and tail phases, each
+    collective's seconds (CUDA events), the allocator peak against the
+    capacity decision's prediction and the launches, printed.  Returns
+    ``(stats.extra, launched)``."""
+    from sam2consensus_torch.kernels.build import all_kernels
+    from sam2consensus_torch.observability import memplane
+    from sam2consensus_torch.parallel import collectives
+
+    kernels = all_kernels()
+    out = os.path.join(tmp, f"p17_{name}_{len(cap.stats)}")
+    before = {k.name: k.launches for k in kernels}
+    torch.cuda.reset_peak_memory_stats()
+    with collectives.timing() as tm:
+        wall = run_mesh(["-i", PHASE7[name]["path"], "-o", out,
+                         *PHASE7[name]["flags"], "--decoder", "native",
+                         *extra], mesh)
+        coll = tm.seconds()
+        calls = tm.counts()
+    peak = torch.cuda.max_memory_allocated()
+    predicted = memplane.capacity_actuals()["predicted_bytes"]
+    st = cap.stats[-1]
+    ex = st.extra
+    launched = {k.name: k.launches - before[k.name] for k in kernels}
+    same = same_files(out, want_out)
+    beside = "" if phase7_wall is None else \
+        f" (phase 7 single-device wall {phase7_wall:.3f}s)"
+    print(f"  {name} {label} [{card}]: mode={ex.get('shard_mode')} "
+          f"shards={ex['shards']} halo={ex.get('halo')} "
+          f"slabs={ex['pileup']} wall={wall:.3f}s{beside} "
+          f"decode={ex['decode_sec']:.3f}s "
+          f"accumulate={ex['accumulate_sec']:.3f}s (pileup enqueue "
+          f"{ex['pileup_sec']:.3f}s) tail={ex['tail_sec']:.3f}s "
+          f"assemble={ex['assemble_sec']:.3f}s byte-identical={same}")
+    print(f"    collectives (CUDA events): "
+          + (", ".join(f"{k}={v * 1e3:.3f} ms x{calls[k]}"
+                       for k, v in sorted(coll.items())) or "none")
+          + f"; allocator peak {peak / 2**20:.1f} MiB vs "
+          f"record_capacity(shards={ex['shards']}) "
+          f"{(predicted or 0) / 2**20:.1f} MiB; launches {launched}")
+    if not same:
+        fail(f"phase 17: {name} {label} differs from the single-device run")
+    return ex, launched
+
+
+def k1_expect(ex: dict, launched: dict, what: str) -> None:
+    """K1 launched at least once a shard a bucket on K1's route, never on
+    the scatter's."""
+    keys = ex["pileup"]
+    k1_buckets = sum(v for k, v in keys.items() if "pallas" in k)
+    want = ex["shards"] * k1_buckets
+    if k1_buckets and launched["pileup_rows"] < want:
+        fail(f"phase 17: {what}: {launched['pileup_rows']} K1 launches "
+             f"for {k1_buckets} K1 buckets on {ex['shards']} shards")
+    if not k1_buckets and launched["pileup_rows"]:
+        fail(f"phase 17: {what}: K1 launched on the scatter route")
+
+
+def chr1_scale(path: str, n_reads: int = CHR1_READS, read_len: int = 150,
+               seed: int = 17) -> None:
+    """SAM of ``n_reads`` ``read_len``-base reads, coordinate-sorted, over
+    one contig of GRCh38 chr1's length (bases drawn from a seed)."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.integers(0, CHR1_LEN - read_len, n_reads)) + 1
+    seqs = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, (n_reads, read_len))]
+    cigar = b"%dM" % read_len
+    with open(path, "wb") as fh:
+        fh.write(b"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:%d\n"
+                 % CHR1_LEN)
+        fh.write(b"".join(
+            b"r%d\t0\tchr1\t%d\t60\t%s\t*\t0\t0\t%s\t*\n"
+            % (i, s, cigar, seqs[i].tobytes())
+            for i, s in enumerate(starts.tolist())))
+
+
+def ecoli_batches(path: str):
+    """``ecoli_scale``'s slabs as the native decoder ships them."""
+    from sam2consensus_torch.encoder.events import (GenomeLayout,
+                                                    resolve_segment_width)
+    from sam2consensus_torch.encoder.native_encoder import NativeReadEncoder
+    from sam2consensus_torch.io.sam import ReadStream, opener, read_header
+
+    with opener(path, binary=True) as handle:
+        contigs, _n, first = read_header(handle)
+        stream = ReadStream(handle, first)
+        layout = GenomeLayout(contigs)
+        enc = NativeReadEncoder(layout, on_lines=stream.add_lines,
+                                on_bytes=stream.add_bytes,
+                                segment_width=resolve_segment_width(0))
+        return layout.total_len, list(enc.encode_blocks_from(stream))
+
+
+def sharded_counts_and_syncs(card: str, path: str, mesh) -> None:
+    """17.4: each layout's ``counts_host()`` over ``ecoli_scale``'s slabs
+    equals the single-device accumulator's; 17.5 (phase 8's check): the dp
+    K1 route, the sp window and routed routes and the dpsp route over one
+    slab make no host synchronisation; and the shard-mode model's
+    per-slab prediction of each layout from the first slab."""
+    from sam2consensus_torch.backends.torch_backend import (LINK_BPS_FLOOR,
+                                                            SP_HALO)
+    from sam2consensus_torch.encoder.events import SegmentBatch
+    from sam2consensus_torch.ops.pileup import PileupAccumulator
+    from sam2consensus_torch.parallel import auto as shard_auto
+    from sam2consensus_torch.parallel.dp import ShardedConsensus
+    from sam2consensus_torch.parallel.dpsp import ProductShardedConsensus
+    from sam2consensus_torch.parallel.mesh import make_mesh
+    from sam2consensus_torch.parallel.sp import PositionShardedConsensus
+
+    total_len, batches = ecoli_batches(path)
+    widths = sorted({w for b in batches for w in b.buckets})
+    halo = min(SP_HALO, max(widths + [64]))
+    m = make_mesh(len(mesh), mesh)
+    single = PileupAccumulator(total_len, mesh[0], "pallas")
+
+    def layouts():
+        return {
+            "dp auto (K1)": ShardedConsensus(m, total_len, "auto"),
+            "dp scatter": ShardedConsensus(m, total_len, "scatter"),
+            "sp scatter": PositionShardedConsensus(m, total_len, halo),
+            "sp pallas": PositionShardedConsensus(m, total_len, halo,
+                                                  "pallas"),
+            "dpsp scatter": ProductShardedConsensus(m, total_len, halo),
+            "dpsp pallas": ProductShardedConsensus(m, total_len, halo,
+                                                   "pallas")}
+
+    accs = layouts()
+    for b in batches:
+        single.add(b)
+        for acc in accs.values():
+            acc.add(b)
+    want = single.counts_host()
+    for what, acc in accs.items():
+        err = int(np.abs(acc.counts_host().astype(np.int64) - want).max())
+        print(f"  17.4 {what} counts_host() vs the single-device "
+              f"accumulator over {len(batches)} slabs: max_abs_err={err} "
+              f"strategies={acc.strategy_used}")
+        if err:
+            fail(f"phase 17.4: {what}'s counts differ")
+    rows, rb, _mw, peak, sfrac = shard_auto.slab_stats(
+        batches[0].buckets, total_len)
+    mode, costs = shard_auto.shard_mode_costs(
+        total_len, m.size, dict(m.shape), rows, rb, peak, sfrac, halo,
+        LINK_BPS_FLOOR)
+    print(f"  shard-mode model at the first slab ({rows} rows, peak_frac "
+          f"{peak:.3f}, sorted_frac {sfrac:.3f}, link {LINK_BPS_FLOOR:.0f} "
+          f"B/s): picks {mode}, per-slab overhead "
+          + ", ".join(f"{k}={v * 1e3:.3f} ms" for k, v in costs.items()))
+
+    # one sorted, narrow batch takes sp's window strategy: every row of
+    # the widest bucket that starts in the genome's first eighth (at most
+    # 512 kbp), sorted
+    starts = np.concatenate([b.buckets[w][0] for b in batches
+                             for w in b.buckets if w == widths[-1]])
+    codes = np.concatenate([b.buckets[w][1] for b in batches
+                            for w in b.buckets if w == widths[-1]])
+    keep = np.nonzero((starts > 0)
+                      & (starts < min(512_000, total_len // 8)))[0]
+    keep = keep[np.argsort(starts[keep], kind="stable")]
+    window = SegmentBatch(buckets={widths[-1]: (starts[keep], codes[keep])})
+    big = max(batches, key=lambda b: sum(len(s) for s, _c in
+                                         b.buckets.values()))
+    accs = layouts()
+    for what, acc, batch, key in (
+            ("dp K1 route", accs["dp auto (K1)"], big, "pallas_w"),
+            ("sp window route", accs["sp scatter"], window, "window_w"),
+            ("sp routed route (K1)", accs["sp pallas"], big,
+             "routed_pallas_w"),
+            ("sp routed route (scatter)", accs["sp scatter"], big,
+             "routed_w"),
+            ("dpsp route (K1)", accs["dpsp pallas"], big, "dpsp_pallas_w")):
+        acc.blocks                      # the resident blocks, allocated
+        torch.cuda.synchronize()
+        before = dict(acc.strategy_used)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc.add(batch)
+        except RuntimeError as exc:
+            fail(f"phase 17.5: the sharded {what} synchronised with the "
+                 f"host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        new = [k for k, v in acc.strategy_used.items()
+               if v != before.get(k, 0)]
+        print(f"  17.5 (phase 8) sharded {what} over one slab "
+              f"({new}) under set_sync_debug_mode('error'): no host "
+              f"synchronisation")
+        if not new or not all(k.startswith(key) for k in new):
+            fail(f"phase 17.5: the {what} took {new}, not {key}*")
+
+
+def sharding(tmp: str, card: str, cap: Capture) -> dict:
+    """Phase 17 over virtual shards of the first card; returns each
+    kernel's launches in it."""
+    from sam2consensus_torch.kernels.build import all_kernels, reset_launches
+
+    kernels = all_kernels()
+    reset_launches(kernels)
+    cuda0 = torch.device("cuda", 0)
+    mesh4, mesh2 = [cuda0] * 4, [cuda0] * 2
+    eco = PHASE7["ecoli_scale"]
+    print(f"  shards share one card ({card}): the walls below are no "
+          f"multi-card speed")
+
+    # 17.1: ecoli_scale at 4 shards (a 2 x 2 mesh) and dp at 2
+    runs = (("dp (auto: K1)", mesh4, ["--shard-mode", "dp"], "dp"),
+            ("dp --pileup scatter", mesh4, ["--shard-mode", "dp",
+                                            "--pileup", "scatter"], "dp"),
+            ("sp (auto: scatter)", mesh4, ["--shard-mode", "sp"], "sp"),
+            ("sp --pileup pallas", mesh4, ["--shard-mode", "sp",
+                                           "--pileup", "pallas"], "sp"),
+            ("dpsp --pileup pallas", mesh4, ["--shard-mode", "dpsp",
+                                             "--pileup", "pallas"], "dpsp"),
+            ("auto", mesh4, ["--shard-mode", "auto"], None),
+            ("dp at 2 shards", mesh2, ["--shard-mode", "dp"], "dp"))
+    per_slab = {}
+    for label, mesh, extra, mode in runs:
+        ex, launched = sharded_run(
+            tmp, card, cap, "ecoli_scale", f"17.1 {label}", mesh,
+            ["--shards", str(len(mesh)), *extra], eco["out"], eco["wall"])
+        if mode is not None and ex["shard_mode"] != mode:
+            fail(f"phase 17.1: {label} ran {ex['shard_mode']}")
+        k1_expect(ex, launched, f"17.1 {label}")
+        if launched["insertion_vote"] != 1:
+            fail(f"phase 17.1: {label}: the sharded tail launched K2 "
+                 f"{launched['insertion_vote']} times")
+        slabs = sum(ex["pileup"].values())
+        per_slab.setdefault(ex["shard_mode"], []).append(
+            ex["pileup_dispatch_sec"] / max(1, slabs))
+        if label == "auto":
+            print(f"    shard_auto={ex.get('shard_auto')}")
+    print(f"  measured per-slab dispatch seconds by layout [{card}]: "
+          + ", ".join(f"{k}={min(v) * 1e3:.3f} ms" for k, v in
+                      sorted(per_slab.items())))
+
+    # 17.4 and 17.5 over ecoli_scale's slabs
+    sharded_counts_and_syncs(card, eco["path"], mesh4)
+
+    # 17.2: longread_sv under sp --pileup pallas at 9 shards: 13,334-wide
+    # blocks halve the 16,384-wide rows of --segment-width -1 (a halo of
+    # 13,334, even: K1's route)
+    lr = PHASE7["longread_sv"]
+    ex, launched = sharded_run(
+        tmp, card, cap, "longread_sv", "17.2 sp --pileup pallas "
+        "--segment-width -1 at 9 shards", [cuda0] * 9,
+        ["--shards", "9", "--shard-mode", "sp", "--pileup", "pallas",
+         "--segment-width", "-1"], lr["out"], lr["wall"])
+    if not ex.get("halo") or ex["halo"] >= 16384 \
+            or not any(k.startswith(f"routed_pallas_w{ex['halo']}")
+                       for k in ex["pileup"]):
+        fail(f"phase 17.2: no row was split at the halo: {ex['pileup']} "
+             f"halo={ex.get('halo')}")
+    k1_expect(ex, launched, "17.2")
+    if not launched["insertion_table"]:
+        fail("phase 17.2: the sharded tail launched no K3")
+
+    # 17.6: a persistent dispatch fault under dp at 4 shards
+    ex, launched = sharded_run(
+        tmp, card, cap, "ecoli_scale", "17.6 dp, --on-device-error fallback "
+        "--fault-inject pileup_dispatch:fatal:1:inf", mesh4,
+        ["--shards", "4", "--shard-mode", "dp", "--on-device-error",
+         "fallback", "--retry-backoff", "0.001", "--fault-inject",
+         "pileup_dispatch:fatal:1:inf"], eco["out"])
+    rungs = (ex.get("pileup_ladder"), ex.get("resilience/demotions"))
+    print(f"    ladder: {rungs}")
+    if rungs != ("host", 2):
+        fail(f"phase 17.6: the ladder took {rungs}, not the reference's "
+             f"device_auto -> device_scatter -> host")
+
+    # 17.7: checkpointed at 4 shards, crashed, resumed at 2
+    from sam2consensus_torch.io import sam
+
+    ck = os.path.join(tmp, "p17_ck")
+    orig_blocks = sam.ReadStream.blocks
+
+    def crashing(self, max_bytes=1 << 22):
+        for k, block in enumerate(orig_blocks(self, max_bytes)):
+            if k == 5:
+                raise RuntimeError("the input died mid-stream (on purpose)")
+            yield block
+
+    sam.ReadStream.blocks = crashing
+    try:
+        try:
+            run_mesh(["-i", eco["path"], "-o", ck + "_out", *eco["flags"],
+                      "--shards", "4", "--shard-mode", "dp",
+                      "--checkpoint-dir", ck, "--checkpoint-every",
+                      "30000"], mesh4)
+            fail("phase 17.7: the crashing run completed")
+        except RuntimeError as exc:
+            if "on purpose" not in str(exc):
+                raise
+    finally:
+        sam.ReadStream.blocks = orig_blocks
+    ex, _launched = sharded_run(
+        tmp, card, cap, "ecoli_scale", "17.7 resumed at 2 shards (sp) from "
+        "a 4-shard dp checkpoint", mesh2,
+        ["--shards", "2", "--shard-mode", "sp", "--checkpoint-dir", ck,
+         "--checkpoint-every", "30000"], eco["out"])
+    if not ex.get("resumed_from_line"):
+        fail("phase 17.7: the run did not resume")
+
+    # 17.8: no mesh_devices: the host's own cards
+    from sam2consensus_torch import cli
+
+    n_cards = torch.cuda.device_count()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-i", eco["path"], "-o", os.path.join(tmp, "p17_cap"),
+                      "--shards", str(n_cards + 1), "--quiet"])
+        fail("phase 17.8: --shards over the host's cards ran")
+    except SystemExit as exc:
+        msg = str(exc.code)
+        print(f"  17.8 --shards {n_cards + 1} without mesh_devices: {msg}")
+        if f"exceeds the {n_cards} available device(s)" not in msg:
+            fail(f"phase 17.8: not the MeshCapacityError text: {msg}")
+    if n_cards == 1:
+        out = os.path.join(tmp, "p17_shards0")
+        wall = run_cli(["-i", eco["path"], "-o", out, *eco["flags"],
+                        "--decoder", "native", "--pileup", "pallas",
+                        "--shards", "0"], None)
+        ex = cap.stats[-1].extra
+        print(f"  17.8 --shards 0 on the one-card host: shards="
+              f"{ex['shards']} shard_mode={ex.get('shard_mode')} "
+              f"wall={wall:.3f}s byte-identical="
+              f"{same_files(out, eco['out'])}")
+        if ex["shards"] != 1 or "shard_mode" in ex \
+                or not same_files(out, eco["out"]):
+            fail("phase 17.8: --shards 0 did not run the single-device path")
+
+    # 17.9: serve --shards 4 over two inputs
+    names = ("ecoli_scale", "ecoli_scale.bam")
+    out = os.path.join(tmp, "p17_served")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(serve_argv(out, names, ["--shards", "4",
+                                              "--prewarm", "off"]),
+                      mesh_devices=mesh4)
+    same = served_files(out) == phase7_files(names)
+    print(f"  17.9 serve --shards 4 over {list(names)} [{card}]: rc={rc} "
+          f"wall={time.perf_counter() - t0:.3f}s each job == its one-shot "
+          f"run: {same}")
+    if rc != 0 or not same:
+        fail("phase 17.9: the sharded serve queue differs from the "
+             "one-shot runs")
+
+    # 17.3: chr1_scale, one contig of GRCh38 chr1's length
+    path = os.path.join(tmp, "chr1_scale.sam")
+    t0 = time.perf_counter()
+    chr1_scale(path)
+    print(f"  17.3 chr1_scale: {CHR1_LEN} positions, {CHR1_READS} x 150 bp "
+          f"coordinate-sorted reads ({os.path.getsize(path) / 1e6:.1f} MB, "
+          f"made in {time.perf_counter() - t0:.1f}s; no cut)")
+    PHASE7["chr1_scale"] = {"path": path, "flags": ["-c", "0.25"]}
+    one = os.path.join(tmp, "p17_chr1_one")
+    torch.cuda.reset_peak_memory_stats()
+    wall1 = run_cli(["-i", path, "-o", one, "-c", "0.25", "--decoder",
+                     "native"], None)
+    peak1 = torch.cuda.max_memory_allocated()
+    ex = cap.stats[-1].extra
+    print(f"  17.3 chr1_scale single device [{card}]: wall={wall1:.3f}s "
+          f"decode={ex['decode_sec']:.3f}s "
+          f"accumulate={ex['accumulate_sec']:.3f}s tail={ex['tail_sec']:.3f}s "
+          f"assemble={ex['assemble_sec']:.3f}s allocator peak "
+          f"{peak1 / 2**20:.1f} MiB pileup_path={ex.get('pileup_path')}")
+    ex, launched = sharded_run(
+        tmp, card, cap, "chr1_scale", "17.3 --shards 4 --shard-mode auto",
+        mesh4, ["--shards", "4", "--shard-mode", "auto"], one, wall1)
+    print(f"    shard_auto={ex.get('shard_auto')}")
+    if ex["shard_mode"] not in ("sp", "dpsp"):
+        fail(f"phase 17.3: auto chose {ex['shard_mode']} at chr1 scale")
+
+    # 17.10: real cards
+    if n_cards >= 2:
+        real = [torch.device("cuda", i) for i in range(min(4, n_cards))]
+        for mode in ("dp", "sp"):
+            sharded_run(tmp, card, cap, "ecoli_scale",
+                        f"17.10 {mode} on {len(real)} cards", real,
+                        ["--shards", str(len(real)), "--shard-mode", mode],
+                        eco["out"], eco["wall"])
+    else:
+        print(f"  17.10 no multi-card run was made: this host has "
+              f"{n_cards} CUDA device; every shard above shared it")
+
+    launched = {k.name: k.launches for k in kernels}
+    print(f"  phase 17 launches (counts set to 0 before it): {launched}")
+    missing = [n for n, c in launched.items() if c == 0]
+    if missing:
+        fail(f"phase 17: kernels never launched on the sharded paths: "
+             f"{missing}")
+    return launched
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -4665,11 +5126,13 @@ def compare(kid: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
-def measure(cap: Capture, launches: dict, errs: dict) -> list:
+def measure(cap: Capture, launches: dict, errs: dict,
+            sharded: dict) -> list:
     """Hold each kernel against its plain version once more at the largest
     main-path shapes it was given (fresh outputs, exact), then time there:
     the kernel alone, its route (what the main path pays), the plain
-    version and, where one exists, one library call."""
+    version and, where one exists, one library call.  ``sharded`` is each
+    kernel's launches in phase 17."""
     from sam2consensus_torch.ops import insertion_kernel as ik
     from sam2consensus_torch.ops import pileup_kernel as pk
     from sam2consensus_torch.ops.insertions import (build_insertion_table,
@@ -4786,6 +5249,7 @@ def measure(cap: Capture, launches: dict, errs: dict) -> list:
         out.append({"name": kern.name, "route": "cuda", "source":
                     "sam2consensus_torch/" + src, "replaces": replaces,
                     "launches": launches[kern.name],
+                    "sharded_launches": sharded[kern.name],
                     "max_abs_err": max(errs[kid], err), "ms": ms,
                     "device_ms": dev_ms, "device_ms_source": dev_src,
                     "route_ms": route, "plain_ms": plain,
@@ -4949,8 +5413,13 @@ def main() -> int:
         cohorts(tmp, card)
         lap("16 cohorts")
 
+        print(f"phase 17: sharding on a single-controller mesh of CUDA "
+              f"devices [{card}]")
+        sharded = sharding(tmp, card, cap)
+        lap("17 sharding")
+
     print(f"kernel timing at main-path shapes [{card}]")
-    report = measure(cap, launches, errs)
+    report = measure(cap, launches, errs, sharded)
     lap("kernel timing")
     print(f"phase walls (s) [{card}]: {walls}")
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]")

@@ -90,6 +90,7 @@ and manifest.
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -118,6 +119,7 @@ from ..ops.insertions import insertion_tail_host
 from ..ops.pileup import (HostPileupAccumulator, PileupAccumulator,
                           host_pileup_bound)
 from ..ops.vote import device_fill_code, vote_positions_native
+from ..parallel.base import ShardedCountsBase, to_host
 from ..resilience import faultinject
 from ..resilience import ladder as rladder
 from ..resilience.policy import DATA, PASSTHROUGH, RetryPolicy, classify
@@ -438,7 +440,8 @@ EPILOGUE_HOST_NS = 1.0
 EPILOGUE_DEV_NS = 0.4
 
 
-def _record_epilogue(cfg, total_len: int, out_enc, device: bool) -> None:
+def _record_epilogue(cfg, total_len: int, out_enc, device: bool,
+                     sharded: bool = False) -> None:
     """The ``epilogue`` ledger decision and counter (the reference's):
     where the fill substitution and dash count ran, priced a character,
     joined against the render's wall."""
@@ -449,7 +452,7 @@ def _record_epilogue(cfg, total_len: int, out_enc, device: bool) -> None:
     obs.record_decision(
         "epilogue", chosen,
         inputs={"mode": "auto", "fill": cfg.fill, "out_enc": str(out_enc),
-                "donate": False, "sharded": False,
+                "donate": False, "sharded": bool(sharded),
                 "total_len": int(total_len),
                 "n_thresholds": len(cfg.thresholds)},
         predicted={"sec": alternatives[chosen]},
@@ -541,23 +544,33 @@ def _input_bytes(records, cap: int):
     return None
 
 
-#: ``RunConfig`` fields the port does not run yet, with the values it
-#: runs: ``shards`` past one device and ``shard_mode`` (multi-GPU,
-#: ROADMAP §A).  ``shards=1`` is one device, as in the reference (the
-#: job-level host rung, ``ladder.job_host_rung_config``, sets it).
-UNPORTED_FIELDS = (("shards", (0, 1)), ("shard_mode", ("auto",)))
+#: copy of the reference's ``SP_HALO``: the sp / dpsp halo's upper bound
+#: (the encoder's widening ceiling); the halo itself is the run's widest
+#: row bucket (:meth:`TorchBackend._build_sharded_acc`)
+SP_HALO = 1 << 16
 
 
-def reject_unported(cfg) -> None:
-    """Refuse a ``RunConfig`` that sets a field the port does not run
-    (:data:`UNPORTED_FIELDS`) to a value it does not run, naming the
-    field: no field is silently ignored."""
-    for name, runs in UNPORTED_FIELDS:
-        value = getattr(cfg, name, runs[0])
-        if value not in runs:
-            raise ValueError(
-                f"RunConfig.{name}={value!r}: not supported by the torch "
-                f"backend yet (leave it at {runs[0]!r})")
+def mesh_device_list(device: torch.device, mesh_devices=None) -> list:
+    """The devices a sharded run's mesh draws on: ``mesh_devices`` as
+    given (a list may name one device more than once: shards that share
+    it), or by default every CUDA device of the host when ``device`` is
+    CUDA, and ``[device]`` on the CPU.  A list that names no CUDA device
+    for a CUDA backend is refused: nothing runs on the CPU unless the
+    caller names it."""
+    if mesh_devices is None:
+        if device.type == "cuda":
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [device]
+    devices = [resolve_device(d) for d in mesh_devices]
+    if not devices:
+        raise ValueError("mesh_devices: name at least one device")
+    if device.type == "cuda" and all(d.type != "cuda" for d in devices):
+        raise ValueError(
+            f"mesh_devices {[str(d) for d in devices]} names no CUDA "
+            f"device for a backend on {device}: pass CUDA devices, or "
+            f"device='cpu' to run the mesh on the CPU")
+    return devices
 
 
 def _timed(batches, stats: BackendStats):
@@ -731,10 +744,16 @@ class CountCapture:
 
 
 class TorchBackend:
+    """The port's backend on ``device`` (``device.resolve_device``).
+    ``mesh_devices`` is the device list a sharded run (``cfg.shards`` > 1,
+    or 0 over more than one device) draws its mesh from
+    (:func:`mesh_device_list`)."""
+
     name = "torch"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, mesh_devices=None):
         self.device = resolve_device(device)
+        self.mesh_devices = mesh_device_list(self.device, mesh_devices)
 
     def run(self, contigs: List[Contig], records: Iterable[SamRecord],
             cfg: RunConfig, count_capture=None) -> BackendResult:
@@ -749,8 +768,7 @@ class TorchBackend:
         before it propagates; a CAPACITY-class failure writes
         ``mem_dump.json`` beside ``cfg.metrics_out``.  ``finish_run``
         writes the trace, the metrics JSONL and the manifest, whose meta
-        names the backend and the device.  A ``RunConfig`` field the port
-        does not run yet is refused (:func:`reject_unported`).
+        names the backend and the device.
 
         Serve mode (``serve/runner.py``) pre-creates a job's instruments
         (``observability.prepare_run``) so its decode-ahead thread can
@@ -764,7 +782,6 @@ class TorchBackend:
                                          abort_bookkeeping)
         from ..observability import memplane
 
-        reject_unported(cfg)
         prepared = getattr(self, "serve_prepared_obs", None)
         if prepared is not None:
             self.serve_prepared_obs = None
@@ -809,14 +826,22 @@ class TorchBackend:
         if layout.total_len == 0:
             return BackendResult(fastas={}, stats=stats)
 
-        acc = self._make_accumulator(layout, records, cfg, stats)
+        shards = stats.extra["shards"] = self._resolve_shards(cfg)
+        if shards > 1:
+            # built from the first decoded batch (_start_sharded)
+            acc = None
+            stats.extra["pileup_path"] = "device"
+            wire = self._resolve_wire(cfg, stats)
+        else:
+            acc = self._make_accumulator(layout, records, cfg, stats)
         # the run's predicted peak bytes (the ``capacity`` decision; the
         # tail records it again with the insertion table's bytes)
         memplane.record_capacity(
             layout.total_len, n_thresholds=len(cfg.thresholds),
             chunk_reads=cfg.chunk_reads,
             segment_width=max(0, cfg.segment_width),
-            host_counts=isinstance(acc, HostPileupAccumulator))
+            host_counts=isinstance(acc, HostPileupAccumulator),
+            shards=shards)
         # the serve count cache's seed (``serve/runner.py``
         # ``_plant_seed``): a warm per-reference ``CheckpointState``
         count_seed = count_capture.seed if count_capture is not None \
@@ -840,6 +865,9 @@ class TorchBackend:
         if ck is not None:
             encoder.insertions.array_chunks.extend(
                 ck.insertions.array_chunks)
+        if acc is None:
+            batches, acc = self._start_sharded(cfg, layout, shards, batches,
+                                               ck, stats, wire)
         stats.aligned_bases = base_aligned
         stats.extra["counts_fused"] = bool(getattr(encoder, "counts_fused",
                                                    False))
@@ -1189,7 +1217,9 @@ class TorchBackend:
         (``count_seed``) holds only fully absorbed inputs, so only two
         cases exist for it: a duplicate input, or a new one on the warm
         counts, which are uploaded into ``acc``
-        (``stats.extra["count_seed_sec"]``)."""
+        (``stats.extra["count_seed_sec"]``).  ``acc`` is None for a sharded
+        run, whose accumulator restores the counts once it is built
+        (:meth:`_start_sharded`)."""
         from ..utils import checkpoint as ckpt
 
         incremental = cfg.incremental
@@ -1209,7 +1239,8 @@ class TorchBackend:
             else:
                 stats.extra["incremental_base"] = prior_sources
             t0 = time.perf_counter()
-            acc.set_counts(count_seed.counts)
+            if acc is not None:         # a sharded one restores when built
+                acc.set_counts(count_seed.counts)
             stats.extra["count_seed_sec"] = time.perf_counter() - t0
             return (count_seed, "incremental_duplicate" in stats.extra,
                     prior_sources)
@@ -1241,7 +1272,8 @@ class TorchBackend:
                 ck.byte_offset, ck.lines_consumed)
         else:
             stats.extra["incremental_base"] = prior_sources
-        acc.set_counts(ck.counts)
+        if acc is not None:             # a sharded one restores when built
+            acc.set_counts(ck.counts)
         return ck, skip_input, prior_sources
 
     @staticmethod
@@ -1427,6 +1459,204 @@ class TorchBackend:
             layout.total_len, self.device,
             "scatter" if strategy == "scatter" else "pallas", wire)
 
+    # -- sharding (parallel/) ------------------------------------------------
+    def _resolve_shards(self, cfg: RunConfig) -> int:
+        """The run's shard count (the reference's resolution): an explicit
+        ``--shards`` over the mesh's device list is a
+        ``parallel.mesh.MeshCapacityError``, before anything is read;
+        ``0`` means every device of the list, except under ``--pileup
+        host`` (one device).  A sharded run refuses the host pileup and
+        ``--pileup mxu``."""
+        from ..parallel.mesh import validate_shards
+
+        n_dev = len(self.mesh_devices)
+        validate_shards(cfg.shards, n_available=n_dev)
+        shards = cfg.shards if cfg.shards > 0 else n_dev
+        if cfg.pileup == "host" and cfg.shards == 0:
+            shards = 1
+        if shards > 1:
+            if cfg.pileup == "host":
+                raise RuntimeError(
+                    "--pileup host is a single-device strategy (the count "
+                    "tensor accumulates on the host); drop --shards or "
+                    "pick a device pileup strategy")
+            if cfg.pileup not in ("auto", "pallas", "scatter"):
+                raise ValueError(f"--pileup {cfg.pileup}: not supported by "
+                                 f"the torch backend yet")
+        return shards
+
+    def _start_sharded(self, cfg: RunConfig, layout, shards: int, batches,
+                       ck, stats: BackendStats, wire: str):
+        """Decode the first batch and build the sharded accumulator from it
+        (:meth:`_build_sharded_acc`), restoring a checkpoint's or the count
+        cache's counts; returns ``(batches, acc)`` with the first batch
+        put back in front."""
+        src = iter(batches)
+        first = next(_timed(src, stats), None)
+        acc = self._build_sharded_acc(cfg, layout, shards, first,
+                                      ck.max_row_width if ck else 0, stats,
+                                      wire)
+        if ck is not None:
+            acc.restore(ck.counts)
+        if first is not None:
+            src = itertools.chain([first], src)
+        return src, acc
+
+    def _build_sharded_acc(self, cfg: RunConfig, layout, shards: int,
+                           first_batch, ck_max_width: int,
+                           stats: BackendStats, wire: str = "packed5"):
+        """The sharded accumulator over the first ``shards`` devices of
+        ``mesh_devices`` (the reference's ``_build_sharded_acc``): the
+        sp / dpsp halo is the widest row bucket seen (the first batch's,
+        or the checkpoint's), at most :data:`SP_HALO`; ``--shard-mode
+        auto`` prices the three layouts from the first slab's shape
+        (``parallel.auto``; the link through :func:`_decide_link`, which
+        probes only when the link can change the pick) and records the
+        ``shard_mode`` decision.  dp takes ``cfg.pileup`` (K1 under
+        ``auto`` and ``pallas``); sp and dpsp take K1 under ``pallas``
+        only, the torch scatter otherwise, as in the reference.
+        ``stats.extra`` gets ``shard_mode``, ``shard_auto`` and ``halo``."""
+        from ..parallel import auto as shard_auto
+        from ..parallel.base import block_for
+        from ..parallel.mesh import make_mesh
+        from ..parallel.partition import mesh_process_count
+
+        mode = cfg.shard_mode
+        total_len = layout.total_len
+        block = block_for(total_len, shards)
+        widths = list(first_batch.buckets) if first_batch is not None \
+            else []
+        halo = min(SP_HALO, max([*widths, ck_max_width, 64]))
+        mesh = make_mesh(shards, self.mesh_devices)
+        if mode == "auto":
+            if first_batch is not None:
+                rows, rb, _mw, imb, sfrac = shard_auto.slab_stats(
+                    first_batch.buckets, total_len, wire=wire)
+            else:
+                rows, rb, imb, sfrac = 0, 0, 1.0, 0.0
+            n_hosts = mesh_process_count(mesh)
+
+            def costs(bps):
+                return shard_auto.shard_mode_costs(
+                    total_len, shards, dict(mesh.shape), rows, rb, imb,
+                    sfrac, halo, bps, n_hosts=n_hosts)
+
+            mode, link = _decide_link(lambda _rt, bps: costs(bps)[0],
+                                      self.device)
+            link_bps = link.get("link_bps", LINK_BPS_FLOOR)
+            mode_costs = costs(link_bps)[1]
+            stats.extra["shard_auto"] = {
+                "rows": int(rows), "peak_frac": round(float(imb), 2),
+                "sorted_frac": round(float(sfrac), 2), "halo": int(halo),
+                "hosts": int(n_hosts)}
+            # the model prices per-slab overhead, not a slab's whole time:
+            # the measured join is informational (band 0)
+            obs.record_decision(
+                "shard_mode", mode,
+                inputs={"total_len": int(total_len), "shards": int(shards),
+                        "rows": int(rows), "row_bytes": int(rb),
+                        "peak_frac": round(float(imb), 3),
+                        "sorted_frac": round(float(sfrac), 3),
+                        "halo": int(halo), "link_bps": int(link_bps),
+                        "link_source": link["link_source"]},
+                predicted={"sec": mode_costs.get(mode)},
+                alternatives=mode_costs,
+                measured={"sec": {"num": ["phase/pileup_dispatch_sec"],
+                                  "den": ["pileup/slabs"]}},
+                band=0)
+        routed = "pallas" if cfg.pileup == "pallas" else "scatter"
+        if mode == "sp":
+            from ..parallel.sp import PositionShardedConsensus
+
+            acc = PositionShardedConsensus(mesh, total_len,
+                                           halo=min(block, halo),
+                                           pileup=routed, wire=wire)
+        elif mode == "dpsp":
+            from ..parallel.dpsp import ProductShardedConsensus
+
+            macro = block * shards // mesh.shape["sp"]
+            acc = ProductShardedConsensus(mesh, total_len,
+                                          halo=max(1, min(macro, halo)),
+                                          pileup=routed, wire=wire)
+        else:
+            from ..parallel.dp import ShardedConsensus
+
+            acc = ShardedConsensus(mesh, total_len, pileup=cfg.pileup,
+                                   wire=wire)
+        stats.extra["shard_mode"] = mode
+        if hasattr(acc, "halo"):
+            stats.extra["halo"] = int(acc.halo)
+        obs.metrics().gauge("dispatch/pileup").set_info(
+            {"path": "sharded", "mode": mode, "shards": int(shards),
+             "pileup": routed if mode in ("sp", "dpsp") else cfg.pileup,
+             "halo": int(getattr(acc, "halo", 0)),
+             "total_len": int(total_len), "wire": wire})
+        return acc
+
+    def _sharded_tail(self, acc, cfg: RunConfig, layout, ins,
+                      stats: BackendStats):
+        """The tail of a sharded accumulator (the reference's sharded
+        branch): the position vote and the coverage statistics on the
+        resident blocks (``acc.vote``, ``acc.tail_stats``), and the
+        insertion table and vote on the mesh's first device: K2 up to
+        ``FUSED_VOTE_MAX_CP`` padded columns, else K3 and the torch vote,
+        or under ``--insertion-kernel scatter`` (``auto`` on the CPU) the
+        torch scatter and vote.  The fill is substituted in the vote and
+        the dash totals reduced over the blocks (the device epilogue) when
+        the fill is one latin-1 byte, else on the host, as the reference's
+        sharded tail does for every fill."""
+        from ..ops.insertion_kernel import (FUSED_VOTE_MAX_CP,
+                                            build_insertion_table_kernel,
+                                            vote_insertions_fused)
+        from ..ops.insertions import build_insertion_table, vote_insertions
+
+        dev = acc.mesh.devices[0]
+        offsets = layout.offsets
+        # the device epilogue, as on one device: the fill substituted in
+        # the vote and the dash totals reduced over the blocks (a fill
+        # outside one latin-1 byte keeps the host's substitution)
+        fill_code = device_fill_code(cfg.fill)
+        _record_epilogue(cfg, layout.total_len, None, fill_code is not None,
+                         sharded=True)
+
+        def vote():
+            if fill_code is None:
+                return acc.vote(cfg.thresholds, cfg.min_depth), None
+            return acc.vote(cfg.thresholds, cfg.min_depth, fill_code,
+                            offsets)
+
+        if ins is None:
+            contig_sums, _ = acc.tail_stats(offsets,
+                                            np.zeros(0, dtype=np.int64))
+            syms, dash_counts = vote()
+            return (syms, None, to_host(contig_sums).astype(np.int64), None,
+                    dash_counts)
+        k = len(ins["key_flat"])
+        kp = fused.next_pow2(k + 1)
+        cp = fused.next_pow2(ins["max_cols"])
+        sk = np.full(kp, -1, dtype=np.int64)
+        sk[:k] = ins["key_flat"]
+        ncp = np.zeros(kp, dtype=np.int32)
+        ncp[:k] = ins["n_cols"]
+        contig_sums, site_cov = acc.tail_stats(offsets, sk)
+        syms, dash_counts = vote()
+        kernels = _insertion_kernels(cfg.ins_kernel, dev)
+        stats.extra["insertion_kernel"] = "pallas" if kernels else "scatter"
+        ev = [torch.from_numpy(ins[name]).to(dev)
+              for name in ("ev_key", "ev_col", "ev_code")]
+        n_cols = torch.from_numpy(ncp).to(dev)
+        if kernels and cp <= FUSED_VOTE_MAX_CP:
+            ins_syms = vote_insertions_fused(*ev, site_cov, n_cols, cp,
+                                             cfg.thresholds)
+        else:
+            table = build_insertion_table_kernel(*ev, kp, cp) if kernels \
+                else build_insertion_table(kp, cp, *ev)
+            ins_syms = vote_insertions(table, site_cov, n_cols,
+                                       cfg.thresholds)
+        return (syms, to_host(ins_syms)[:, :k, :],
+                to_host(contig_sums).astype(np.int64),
+                to_host(site_cov)[:k].astype(np.int64), dash_counts)
+
     def _resolve_wire(self, cfg: RunConfig, stats: BackendStats) -> str:
         """The run's row codec (the reference's ``--wire`` decision):
         ``resolve_codec`` on the link's rate, which :func:`_decide_link`
@@ -1589,9 +1819,20 @@ class TorchBackend:
                 chunk_reads=cfg.chunk_reads,
                 segment_width=max(0, cfg.segment_width),
                 host_counts=isinstance(acc, HostPileupAccumulator),
-                insertion_table_bytes=table_bytes)
+                insertion_table_bytes=table_bytes,
+                shards=stats.extra.get("shards", 1))
         tail_dev = self.device
-        if isinstance(acc, HostPileupAccumulator):
+        if isinstance(acc, ShardedCountsBase):
+            tail_dev = acc.mesh.devices[0]
+            stats.extra["tail_placement"] = {"chosen": "device",
+                                             "pileup": "sharded"}
+            if tail_dev.type == "cpu":
+                obs.record_decision(
+                    "tail_placement", "cpu",
+                    inputs={"link_free": True, "sharded": True,
+                            "total_len": int(layout.total_len)},
+                    measured={"sec": {"counters": ["phase/vote_sec"]}})
+        elif isinstance(acc, HostPileupAccumulator):
             if acc.tail_device == "cpu":
                 # the ladder's tail rung: the host tail
                 placement = {"chosen": "cpu", "demoted": True}
@@ -1624,7 +1865,10 @@ class TorchBackend:
                     measured={"sec": {"counters": ["phase/vote_sec"]}})
         stats.extra["tail_device"] = tail_dev.type
         stats.extra["tail_native"] = False
-        if tail_dev.type == "cpu" and isinstance(acc, HostPileupAccumulator) \
+        if isinstance(acc, ShardedCountsBase):
+            out = self._sharded_tail(acc, cfg, layout, ins, stats)
+        elif tail_dev.type == "cpu" \
+                and isinstance(acc, HostPileupAccumulator) \
                 and _native_tail_possible(cfg, ins is not None):
             stats.extra["tail_native"] = True
             out = self._native_tail(acc, cfg, layout, ins)
@@ -1637,11 +1881,11 @@ class TorchBackend:
         if stats.aligned_bases > INT32_MAX:
             # the packed per-contig sums are int32 and wrap once total
             # aligned bases pass 2^31: recompute them exactly in int64
-            if isinstance(acc, HostPileupAccumulator):
+            if isinstance(acc, PileupAccumulator):
+                cov64 = fused.coverage(acc.counts)
+            else:
                 cov64 = torch.from_numpy(
                     acc.counts_host().sum(axis=-1, dtype=np.int64))
-            else:
-                cov64 = fused.coverage(acc.counts)
             contig_sums = fused.contig_sums_i64(
                 cov64, torch.from_numpy(layout.offsets).to(cov64.device)
             ).cpu().numpy()

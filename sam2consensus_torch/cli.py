@@ -215,6 +215,19 @@ def build_parser() -> argparse.ArgumentParser:
                    default=262144,
                    help="reads per host->device batch of the python "
                         "decoder")
+    p.add_argument("--shard-mode", dest="shard_mode",
+                   choices=["auto", "dp", "sp", "dpsp"], default="auto",
+                   help="sharded accumulator layout: full-length local "
+                        "counts + reduce-scatter (dp), position-sharded "
+                        "blocks with halo exchange for huge genomes (sp), "
+                        "or the dp x sp product on a 2-D mesh (dpsp; "
+                        "needs both mesh axes > 1); auto prices all "
+                        "three from the first decoded slab's shape and "
+                        "the mesh (sam2consensus_torch/parallel/auto.py)")
+    p.add_argument("--shards", type=int, default=0,
+                   help="shards of the count tensor over the mesh's "
+                        "devices (every CUDA device of the host, or the "
+                        "caller's mesh_devices); 0 = all of them")
     # --- resilience (resilience/) ---
     p.add_argument("--retries", type=int, default=3,
                    help="transient device-failure re-attempts per dispatch "
@@ -313,6 +326,8 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         ins_kernel=args.ins_kernel,
         decode_threads=args.decode_threads,
         chunk_reads=args.chunk_reads,
+        shards=args.shards,
+        shard_mode=args.shard_mode,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         paranoid=args.paranoid,
@@ -338,9 +353,9 @@ def build_serve_parser() -> argparse.ArgumentParser:
     """The ``serve`` subcommand's surface: many ``-i`` inputs sharing one
     flag set, run through a persistent warm backend (``serve/``).  Every
     flag of ``sam2consensus_tpu/cli.build_serve_parser`` parses, with
-    its dest, default and choices; the ones the port does not run yet
-    (shards, the MXU pileup) are refused by name in
-    :func:`serve_main` (:data:`UNPORTED_SERVE_FLAGS`)."""
+    its dest, default and choices; the one the port does not run yet
+    (the MXU pileup) is refused by name in :func:`serve_main`
+    (:data:`UNPORTED_SERVE_FLAGS`)."""
     p = argparse.ArgumentParser(
         prog="sam2consensus-torch serve",
         description="persistent multi-job serving: one warm torch "
@@ -694,16 +709,36 @@ def build_serve_parser() -> argparse.ArgumentParser:
 
 
 #: serve flags of the reference's parser that the port does not run yet,
-#: each with a test for "set away from its default": multi-GPU shards and
-#: the MXU pileup
+#: each with a test for "set away from its default": the MXU pileup
 UNPORTED_SERVE_FLAGS = (
-    ("--shards", "shards", lambda v: v > 1),
-    ("--shard-mode", "shard_mode", lambda v: v != "auto"),
     ("--pileup", "pileup", lambda v: v == "mxu"),
 )
 
 
-def _serve_sessions(args: argparse.Namespace, echo, device=None) -> int:
+def validate_mesh_shards(shards: int, pileup: str, device=None,
+                         mesh_devices=None) -> None:
+    """The reference's up-front ``--shards`` checks, before any input is
+    read or a server warms: ``--pileup host`` does not compose, and more
+    shards than the mesh's devices (``backends.torch_backend.
+    mesh_device_list``) is the ``MeshCapacityError`` text.  Exits."""
+    if pileup == "host" and shards > 1:
+        raise SystemExit("--pileup host accumulates on the single host; "
+                         "it does not compose with --shards")
+    if shards > 1:
+        from .backends.torch_backend import mesh_device_list
+        from .device import resolve_device
+        from .parallel.mesh import MeshCapacityError, validate_shards
+
+        devices = mesh_device_list(resolve_device(device), mesh_devices)
+        try:
+            validate_shards(shards, n_available=len(devices),
+                            pileup=pileup)
+        except MeshCapacityError as exc:
+            raise SystemExit(f"error: {exc}") from None
+
+
+def _serve_sessions(args: argparse.Namespace, echo, device=None,
+                    mesh_devices=None) -> int:
     """``serve --journal DIR --ingest-port P``: host streaming consensus
     sessions behind the live ingest endpoint (``serve.stream_server``)
     on ``device`` until told to stop (SIGTERM / SIGINT) — there is no
@@ -742,7 +777,7 @@ def _serve_sessions(args: argparse.Namespace, echo, device=None) -> int:
                          worker_id=args.worker_id,
                          lease_ttl=args.lease_ttl,
                          verify_outputs=args.verify_outputs,
-                         device=device)
+                         device=device, mesh_devices=mesh_devices)
     server = None
     try:
         manager = SessionManager(
@@ -795,7 +830,8 @@ def _serve_sessions(args: argparse.Namespace, echo, device=None) -> int:
     return 0
 
 
-def _serve_cohort(args: argparse.Namespace, echo, device=None) -> int:
+def _serve_cohort(args: argparse.Namespace, echo, device=None,
+                  mesh_devices=None) -> int:
     """``serve --cohort-manifest M``: stream one manifest's samples
     through packed shared-panel waves (``serve.cohort.CohortRunner``) on
     ``device``; ``--batch off`` means ``auto`` here.  Exit 0 iff every
@@ -835,7 +871,7 @@ def _serve_cohort(args: argparse.Namespace, echo, device=None) -> int:
                          batch_window=args.batch_window,
                          mem_budget=args.mem_budget,
                          verify_outputs=args.verify_outputs,
-                         device=device)
+                         device=device, mesh_devices=mesh_devices)
     echo(f"\nCohort of {len(paths)} sample(s) from "
          f"{args.cohort_manifest} [{runner.backend.device}]"
          + (f" (kernel build: {runner.cache_dir})" if runner.cache_dir
@@ -867,21 +903,24 @@ def _serve_cohort(args: argparse.Namespace, echo, device=None) -> int:
     return 1 if summary["failed"] else 0
 
 
-def serve_main(argv: List[str], device=None) -> int:
+def serve_main(argv: List[str], device=None, mesh_devices=None) -> int:
     """``serve -i a.sam -i b.bam [...]``: run every input through one
     warm server (``serve.ServeRunner``) on ``device`` (as in
-    ``device.resolve_device``: None = CUDA, raising without it); exit 0
-    iff every job succeeded.  ``--worker-id`` joins a fleet on the
-    shared ``--journal``; ``--ingest-port`` serves streaming sessions
-    instead of a queue (:func:`_serve_sessions`), ``--cohort-manifest``
-    a cohort (:func:`_serve_cohort`).  The reference's
-    ``serve_main``, with its up-front checks (``--slo``, ``--batch``,
-    ``--count-cache``, ``--mem-budget``, ``--incremental`` without the
-    cache or under ``--journal``, the fleet's, the sessions' and the
-    cohort's cross-checks, ``--fault-inject``, an input or a session port); a
-    flag of :data:`UNPORTED_SERVE_FLAGS` set away from its default, or
-    ``S2C_MESH_HOSTS`` > 0 (``serve.runner.refuse_unported_serve``),
-    fails the start by name."""
+    ``device.resolve_device``: None = CUDA, raising without it), with
+    ``mesh_devices`` the device list of sharded jobs
+    (``backends.torch_backend.mesh_device_list``); exit 0 iff every job
+    succeeded.  ``--shards`` is checked against that list before the
+    server warms (:func:`validate_mesh_shards`).  ``--worker-id`` joins
+    a fleet on the shared ``--journal``; ``--ingest-port`` serves
+    streaming sessions instead of a queue (:func:`_serve_sessions`),
+    ``--cohort-manifest`` a cohort (:func:`_serve_cohort`).  The
+    reference's ``serve_main``, with its up-front checks (``--slo``,
+    ``--batch``, ``--count-cache``, ``--mem-budget``, ``--incremental``
+    without the cache or under ``--journal``, the fleet's, the sessions'
+    and the cohort's cross-checks, ``--fault-inject``, an input or a
+    session port); a flag of :data:`UNPORTED_SERVE_FLAGS` set away from
+    its default, or ``S2C_MESH_HOSTS`` > 0
+    (``serve.runner.refuse_unported_serve``), fails the start by name."""
     import copy
 
     from . import observability
@@ -900,6 +939,9 @@ def serve_main(argv: List[str], device=None) -> int:
         refuse_unported_serve()
     except ValueError as exc:
         raise SystemExit(f"error: {exc}") from None
+    # the one-shot run's --shards checks, before the server warms (a
+    # late failure on the first admitted job is a worse error surface)
+    validate_mesh_shards(args.shards, args.pileup, device, mesh_devices)
     # a typo'd SLO objective must fail the server start, not silently
     # never fire (same up-front discipline as --fault-inject)
     from .observability.telemetry import parse_slo
@@ -1038,9 +1080,11 @@ def serve_main(argv: List[str], device=None) -> int:
             raise SystemExit(f"error: {exc}") from None
 
     if session_mode:
-        return _serve_sessions(args, echo, device=device)
+        return _serve_sessions(args, echo, device=device,
+                               mesh_devices=mesh_devices)
     if cohort_mode:
-        return _serve_cohort(args, echo, device=device)
+        return _serve_cohort(args, echo, device=device,
+                             mesh_devices=mesh_devices)
 
     specs = []
     for k, path in enumerate(args.inputs):
@@ -1088,7 +1132,7 @@ def serve_main(argv: List[str], device=None) -> int:
                          worker_id=args.worker_id,
                          lease_ttl=args.lease_ttl,
                          verify_outputs=args.verify_outputs,
-                         device=device)
+                         device=device, mesh_devices=mesh_devices)
     try:
         echo(f"\nServing {len(specs)} job(s) on one warm backend "
              f"[{runner.backend.device}]"
@@ -1173,10 +1217,14 @@ def profiled(profile_dir: str, device, run):
     return result
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> int:
+def main(argv: Optional[List[str]] = None, device=None,
+         mesh_devices=None) -> int:
     """Run the CLI (``argv[0] == "serve"``: :func:`serve_main`);
     ``device`` as in ``device.resolve_device`` (None = CUDA, raising
-    without it)."""
+    without it); ``mesh_devices`` the device list a ``--shards`` run's
+    mesh draws on (``backends.torch_backend.mesh_device_list``: by
+    default every CUDA device of the host; a list may repeat a device).
+    There is no flag or environment setting for it."""
     from .backends.torch_backend import TorchBackend
     from .config import resolve_decode_threads
     from .formats import open_alignment_input
@@ -1186,14 +1234,16 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "serve":
-        return serve_main(argv[1:], device=device)
+        return serve_main(argv[1:], device=device,
+                          mesh_devices=mesh_devices)
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    validate_mesh_shards(cfg.shards, cfg.pileup, device, mesh_devices)
     if cfg.incremental and not cfg.checkpoint_dir:
         raise SystemExit("--incremental requires --checkpoint-dir")
     echo = (lambda *a, **k: None) if args.quiet else print
     observability.configure_logging(cfg.log_level, cfg.log_format)
-    backend = TorchBackend(device)
+    backend = TorchBackend(device, mesh_devices)
     t0 = time.perf_counter()
 
     echo("\nProcessing file " + args.filename + ":\n")

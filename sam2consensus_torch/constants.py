@@ -83,6 +83,10 @@ CODE_TO_BASE = np.frombuffer(ALPHABET.encode("ascii"), dtype=np.uint8).copy()
 #: Padding code in segment rows: a row position that adds no pileup event.
 PAD_CODE = 255
 
+#: copy: the largest position window the sp window strategy materialises
+#: a shard (``parallel.sp``), shared with the cost model (``parallel.auto``)
+SP_WINDOW_CAP = 1 << 21
+
 #: The 32 distinct bytes the vote can emit (FILL sentinel 0 first).
 SYM32_ASCII = np.frombuffer(
     b"\x00-ACGTNMRWSYKVHD" + b"Bacgtnmrwsykvhdb", dtype=np.uint8).copy()

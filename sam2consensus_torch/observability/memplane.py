@@ -1,8 +1,8 @@
 """Memory plane: host and device byte accounting, watermarks, forensics.
 
 The one-shot and serve parts of
-``sam2consensus_tpu/observability/memplane.py`` (the mesh planner
-``plan_mesh_shards`` waits for the sharding slice); the copied functions
+``sam2consensus_tpu/observability/memplane.py`` (the process-spanning
+mesh planner ``plan_mesh_shards`` is not ported yet); the copied functions
 are pinned by ``tests/test_torch_copies.py``.
 
 **Byte accounting.**  Every long-lived allocation family registers
@@ -363,7 +363,8 @@ def predict_run_peak_bytes(total_len: int, n_thresholds: int = 1,
                            read_len: int = 150, segment_width: int = 0,
                            n_reads: Optional[int] = None,
                            host_counts: bool = False,
-                           insertion_table_bytes: int = 0
+                           insertion_table_bytes: int = 0,
+                           shards: int = 1
                            ) -> Tuple[int, Dict[str, int]]:
     """Predicted peak bytes of one run from the port's own buffers.
 
@@ -376,7 +377,10 @@ def predict_run_peak_bytes(total_len: int, n_thresholds: int = 1,
     head (one byte a position and threshold); and the insertion table
     with its padded event lanes, once the tail knows them.  A slab holds
     ``min(n_reads, chunk_reads)`` rows rounded up to a power of two, at
-    the bucket width of ``read_len`` (capped by ``segment_width``).
+    the bucket width of ``read_len`` (capped by ``segment_width``).  A
+    sharded run (``shards`` > 1) prices the counts ``shards`` times, as
+    the reference does: the resident blocks and, under dp, each shard's
+    full-length local tensor of a slab.
     """
     from ..constants import NUM_SYMBOLS
     from ..encoder.events import MIN_BUCKET_W
@@ -389,7 +393,7 @@ def predict_run_peak_bytes(total_len: int, n_thresholds: int = 1,
     rows = round_rows_pow2(min(n_reads or chunk_reads, chunk_reads))
     components = {
         "counts_bytes": (total_len if host_counts else padded)
-        * NUM_SYMBOLS * 4,
+        * NUM_SYMBOLS * 4 * max(1, int(shards)),
         "staging_bytes": 0 if host_counts else 2 * rows * (4 + width),
         "plan_bytes": 0 if host_counts else rows * (4 + 8 + width // 2),
         "tail_bytes": max(1, int(n_thresholds)) * padded,
@@ -410,7 +414,8 @@ def predict_job_peak_bytes(total_len: int, cfg) -> int:
         n_thresholds=len(getattr(cfg, "thresholds", None) or [0.25]),
         chunk_reads=getattr(cfg, "chunk_reads", 262144),
         segment_width=max(0, getattr(cfg, "segment_width", 0)),
-        host_counts=getattr(cfg, "pileup", "auto") == "host")
+        host_counts=getattr(cfg, "pileup", "auto") == "host",
+        shards=getattr(cfg, "shards", 1) or 1)
     return total
 
 
@@ -419,7 +424,7 @@ def record_capacity(total_len: int, n_thresholds: int,
                     n_reads: Optional[int] = None,
                     host_counts: bool = False,
                     insertion_table_bytes: int = 0,
-                    budget_bytes: int = 0) -> dict:
+                    budget_bytes: int = 0, shards: int = 1) -> dict:
     """Register the run's ``capacity`` ledger decision (predicted peak
     bytes joined against the measured ``mem/peak_tracked_bytes`` ratchet
     at finalize) and return the prediction record (also the forensic
@@ -431,7 +436,7 @@ def record_capacity(total_len: int, n_thresholds: int,
         total_len, n_thresholds=n_thresholds, chunk_reads=chunk_reads,
         segment_width=segment_width, n_reads=n_reads,
         host_counts=host_counts,
-        insertion_table_bytes=insertion_table_bytes)
+        insertion_table_bytes=insertion_table_bytes, shards=shards)
     chosen = "unbudgeted"
     if budget_bytes:
         chosen = "over_budget" if total > budget_bytes \
@@ -440,7 +445,7 @@ def record_capacity(total_len: int, n_thresholds: int,
         "total_len": int(total_len),
         "n_thresholds": int(n_thresholds),
         "chunk_reads": int(chunk_reads),
-        "shards": 1,
+        "shards": int(max(1, shards)),
         "segment_width": int(segment_width),
         "host_counts": bool(host_counts),
         **({"budget_bytes": int(budget_bytes)} if budget_bytes else {}),

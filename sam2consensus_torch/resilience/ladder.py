@@ -13,9 +13,10 @@ trace events (``resilience/demotion``, ``resilience/emergency_checkpoint``,
 
 Accumulation rungs (top = fastest, bottom = most survivable)::
 
-    device kernel (K1, --pileup pallas)
+    device kernel (K1, --pileup pallas; a sharded accumulator's K1)
       └─> device scatter  (the same accumulator: strategy "scatter",
-            │              wire "packed5"; the port's --pileup scatter)
+            │              wire "packed5"; the port's --pileup scatter;
+            │              a sharded one keeps its layout, pileup "scatter")
             └─> host pileup  (HostPileupAccumulator.set_counts of
                               counts_host(); no device at all)
 
@@ -152,12 +153,19 @@ def record_job_demotion(registry, reason: str) -> None:
 
 
 def pileup_level(acc) -> str:
-    """Name the accumulation rung ``acc`` currently sits on."""
+    """Name the accumulation rung ``acc`` currently sits on (a sharded
+    accumulator's, ``parallel/*``, by its ``pileup``)."""
     from ..ops.pileup import HostPileupAccumulator
 
     if isinstance(acc, HostPileupAccumulator):
         return "host"
-    return f"device_{acc.strategy}"
+    return f"device_{getattr(acc, _strategy_attr(acc))}"
+
+
+def _strategy_attr(acc) -> str:
+    """The attribute naming a device accumulator's count strategy: a
+    sharded one's ``pileup``, else ``strategy``."""
+    return "strategy" if hasattr(acc, "strategy") else "pileup"
 
 
 def demote_pileup(acc, total_len: int) -> Tuple[Optional[object], str]:
@@ -168,13 +176,15 @@ def demote_pileup(acc, total_len: int) -> Tuple[Optional[object], str]:
     if isinstance(acc, HostPileupAccumulator):
         return None, ""
     # rung 1: pin the kernel off.  The wire codec pins off with it: a
-    # failure at the wire_encode / decode boundary must cost ONE rung
-    if acc.strategy != "scatter" or acc.wire != "packed5":
-        acc.strategy = "scatter"
+    # failure at the wire_encode / decode boundary must cost ONE rung.  A
+    # sharded accumulator keeps its layout and drops K1 (its ``pileup``)
+    attr = _strategy_attr(acc)
+    if getattr(acc, attr) != "scatter" or acc.wire != "packed5":
+        setattr(acc, attr, "scatter")
         acc.wire = "packed5"
         return acc, "device_scatter"
-    # rung 2: off the device; the counts are sum-decomposable state,
-    # exact at any unit boundary
+    # rung 2: off the device (a sharded accumulator's blocks gathered);
+    # the counts are sum-decomposable state, exact at any unit boundary
     host = HostPileupAccumulator(total_len)
     host.set_counts(np.asarray(acc.counts_host(), dtype=np.int32))
     # the pre-demotion transfers happened: they stay in the run's bill

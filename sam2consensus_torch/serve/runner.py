@@ -400,6 +400,9 @@ class ServeRunner:
     (``kernels.build.BUILD_DIR``, reported as ``cache_dir``).
     ``device``: None = CUDA (``device.resolve_device``: a
     ``RuntimeError`` without it); the CPU only when named.
+    ``mesh_devices``: the device list a sharded job's mesh draws on
+    (``backends.torch_backend.mesh_device_list``); a job's ``--shards``
+    over it is refused at admission (``MeshCapacityError``).
 
     Survivability knobs (all default-off; see the module docstring):
     ``journal_dir``, ``job_timeout``/``stall_timeout`` (env
@@ -443,7 +446,7 @@ class ServeRunner:
                  worker_id: str = "",
                  lease_ttl: Optional[float] = None,
                  verify_outputs: str = "fast",
-                 device=None):
+                 device=None, mesh_devices=None):
         from ..backends.torch_backend import TorchBackend
         from ..kernels.build import BUILD_DIR
         from . import countcache as _ccache
@@ -470,7 +473,7 @@ class ServeRunner:
         self.prewarm_mode = prewarm
         self.decode_ahead = decode_ahead
         self.echo = echo or (lambda *a, **k: None)
-        self.backend = TorchBackend(device)
+        self.backend = TorchBackend(device, mesh_devices)
         #: server-lifetime instruments (observability/telemetry.py
         #: AggregateRegistry): prewarm loads and launches land here
         #: (``compile/*``), the aggregate serve/* counters across the
@@ -785,11 +788,14 @@ class ServeRunner:
 
     # -- job validation --------------------------------------------------
     def _validate(self, spec: JobSpec) -> None:
-        from ..backends.torch_backend import reject_unported
+        # typed up-front checks (parallel.mesh.MeshCapacityError): a
+        # --shards over the mesh's device list, or with the host pileup,
+        # rejects at admission, not after the queue is journaled
+        from ..parallel.mesh import validate_shards
 
-        # --shards > 1 and --shard-mode: refused by name, as the
-        # one-shot backend does (multi-GPU is a later slice)
-        reject_unported(spec.config)
+        validate_shards(spec.config.shards,
+                        n_available=len(self.backend.mesh_devices),
+                        pileup=spec.config.pileup)
         if spec.config.pileup == "mxu":
             raise ValueError("--pileup mxu: not supported by the torch "
                              "backend yet")

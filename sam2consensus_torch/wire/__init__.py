@@ -60,19 +60,25 @@ class WireAccount:
 
 
 def encode_wire_slab(wire: str, starts: np.ndarray, codes: np.ndarray,
-                     account: WireAccount):
+                     account: WireAccount, chunks: int = 1):
     """The delta8 encode gate (the reference's ``encode_wire_slab``): the
     canonical (sorted) rows encoded, or ``None`` to ship the rows raw
-    (codec off, or an encoded slab that would not shrink: counted in
-    ``account.fallback_slabs``).  The ``wire_encode`` fault site fires
-    here, on whichever thread is encoding (the staging thread, or the
-    consumer for an unstaged batch)."""
+    (codec off, a slab that does not split into ``chunks``, or an encoded
+    slab that would not shrink: counted in ``account.fallback_slabs``).
+    ``chunks`` > 1 encodes ``chunks`` equal runs of rows, each its own
+    delta chain, in place: a sharded accumulator's rows are already
+    canonical and each run belongs to one shard, which decodes its own
+    chunk.  The ``wire_encode`` fault site fires here, on whichever
+    thread is encoding (the staging thread, or the consumer for an
+    unstaged batch)."""
     if wire != "delta8":
         return None
     from ..resilience.faultinject import fault_check
 
     fault_check("wire_encode")
-    slab = encode_slab(*canonicalize_rows(starts, codes))
+    if chunks == 1:
+        starts, codes = canonicalize_rows(starts, codes)
+    slab = encode_slab(starts, codes, chunks=chunks)
     if slab is None or not worthwhile(slab):
         from .. import observability as obs
 

@@ -115,6 +115,16 @@ def packed5_slab_bytes(n_rows: int, width: int) -> int:
     return n_rows * (4 + (width + 1) // 2)
 
 
+def row_bytes_estimate(width: int, codec: str) -> float:
+    """Copy: modelled wire bytes a row before a slab is encoded (the
+    shard-mode model's post-codec row bytes, ``parallel.auto``):
+    ``delta8`` prices the clean-slab shape, 1 delta + 1 trail + 2-bit
+    lanes; anything else the packed5 lanes."""
+    if codec == "delta8":
+        return 2 + -(-width // 4)
+    return 4 + (width + 1) // 2
+
+
 def encode_slab(starts: np.ndarray, codes: np.ndarray,
                 chunks: int = 1) -> Optional[WireSlab]:
     """Encode one slab; ``None`` when the shape cannot chunk evenly.

@@ -1272,10 +1272,11 @@ def test_predict_job_peak_bytes_wraps_the_port_model():
 def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
-    aside: ``backend``).  The deliberate difference: the flags of the
-    parts the port does not run yet (shards, the MXU pileup) are refused
-    by name at server start (``cli.UNPORTED_SERVE_FLAGS``), never
-    ignored; fleet mode, the session flags and the cohort flags run."""
+    aside: ``backend``).  The deliberate difference: the flag value of the
+    part the port does not run yet (the MXU pileup) is refused by name at
+    server start (``cli.UNPORTED_SERVE_FLAGS``), never ignored; fleet
+    mode, the session flags, the cohort flags and the sharding flags
+    run."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
 
@@ -1297,8 +1298,8 @@ def test_cli_serve_flags():
                           "--revote-debounce", "--ingest-max-body",
                           "--ingest-timeout", "--ingest-max-pending",
                           "--cohort-manifest", "--cohort-wave",
-                          "--cohort-summary"}
-    assert refused == {"--shards", "--shard-mode", "--pileup"}
+                          "--cohort-summary", "--shards", "--shard-mode"}
+    assert refused == {"--pileup"}
 
 
 def _cache_state(mod, n_rows, tag):
@@ -1356,3 +1357,48 @@ def test_count_cache_bookkeeping_equals_reference():
             contigs_r = [r_sam.Contig("c1", 100), r_sam.Contig("c2", 250)]
             assert t_cc.reference_key(contigs_t, cfg_t, tenant) == \
                 r_cc.reference_key(contigs_r, cfg_r, tenant)
+
+
+# -- sharding (parallel/) -----------------------------------------------------
+def test_parallel_auto_copy():
+    """The shard-mode model is copied whole (the port picks the layout the
+    reference picks on the same input)."""
+    t_mod, r_mod = _pair("parallel.auto")
+    assert _body(t_mod, "sam2consensus_torch") == \
+        _body(r_mod, "sam2consensus_tpu")
+
+
+@pytest.mark.parametrize("name,attrs", [
+    ("parallel.mesh", ["factor_mesh"]),
+    ("parallel.base", ["block_for", "split_wide_rows", "real_row_mask",
+                       "route_to_slots", "record_slab"]),
+])
+def test_parallel_function_copies(name, attrs):
+    t_mod, r_mod = _pair(name)
+    for attr in attrs:
+        assert _src(getattr(t_mod, attr), "sam2consensus_torch") == \
+            _src(getattr(r_mod, attr), "sam2consensus_tpu"), attr
+
+
+def test_parallel_constants_and_names():
+    """``SP_WINDOW_CAP``, ``SP_HALO``, the kernel route's tile, the wire's
+    row-bytes model and the partition table's names and regexes."""
+    from sam2consensus_torch.backends import torch_backend as t_be
+    from sam2consensus_torch.parallel import base as t_pbase
+    from sam2consensus_torch.parallel import partition as t_part
+    from sam2consensus_torch.wire import codec as t_codec
+    from sam2consensus_tpu.backends import jax_backend as r_be
+    from sam2consensus_tpu.ops import pallas_pileup as r_pp
+    from sam2consensus_tpu.parallel import partition as r_part
+    from sam2consensus_tpu.wire import codec as r_codec
+
+    assert t_const.SP_WINDOW_CAP == r_const.SP_WINDOW_CAP
+    assert t_be.SP_HALO == r_be.SP_HALO
+    assert t_pbase.PALLAS_TILE_POSITIONS == r_pp.TILE_POSITIONS
+    for pos in (("dp", "sp"), ("sp", "dp")):
+        assert [p for p, _ in t_part.partition_rules(pos)] == \
+            [p for p, _ in r_part.partition_rules(pos)]
+    for w in (1, 7, 64, 100, 4096):
+        for codec in ("packed5", "delta8"):
+            assert t_codec.row_bytes_estimate(w, codec) == \
+                r_codec.row_bytes_estimate(w, codec)

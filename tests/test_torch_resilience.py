@@ -651,12 +651,29 @@ def test_linkprobe_injected_fault_falls_back():
         linkprobe._reset_for_tests()
 
 
-# ---------------------------------------- unported RunConfig fields --
+# --------------------------------------- the sharding RunConfig fields --
 @pytest.mark.parametrize("field,value", [
     ("shards", 2), ("shard_mode", "dp")])
 def test_unported_field_is_refused(field, value):
-    handle = io.StringIO(TEXT)
-    contigs, _n, first = t_read_header(handle)
-    cfg = TConfig(**{field: value})
-    with pytest.raises(ValueError, match=f"RunConfig.{field}="):
-        TorchBackend("cpu").run(contigs, TReadStream(handle, first), cfg)
+    """The fields this test once refused now run: ``shards=2`` over a
+    one-device mesh (the CPU backend's default device list) is the
+    reference's ``MeshCapacityError``, raised before the input is read;
+    ``shard_mode="dp"`` at one shard is a single-device run,
+    byte-identical to the reference's."""
+    from sam2consensus_torch.parallel.mesh import MeshCapacityError
+    from sam2consensus_tpu.parallel import mesh as r_mesh
+
+    if field == "shards":
+        handle = io.StringIO(TEXT)
+        contigs, _n, first = t_read_header(handle)
+        with pytest.raises(MeshCapacityError) as got:
+            TorchBackend("cpu").run(contigs, TReadStream(handle, first),
+                                    TConfig(shards=value))
+        with pytest.raises(r_mesh.MeshCapacityError) as want:
+            r_mesh.validate_shards(value, n_available=1)
+        assert str(got.value) == str(want.value)
+        return
+    got, stats = run_port(**{field: value}, shards=1)
+    want, _ = run_jax(**{field: value})
+    assert got == want
+    assert stats.extra["shards"] == 1

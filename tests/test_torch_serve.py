@@ -295,11 +295,16 @@ def test_failed_job_does_not_kill_the_server(tmp_path):
     (dict(checkpoint_dir="ck"), "checkpoint"),
     (dict(incremental=True), "incremental serve jobs need the "
                              "per-reference count cache"),
-    (dict(shards=2), "RunConfig.shards=2: not supported by the torch"),
-    (dict(shard_mode="dp"), "RunConfig.shard_mode='dp': not supported"),
+    (dict(shards=2), r"--shards 2 exceeds the 1 available device\(s\)"),
+    (dict(shard_mode="dp"), None),
     (dict(pileup="mxu"), "--pileup mxu: not supported by the torch"),
 ])
 def test_serve_rejects_jobs_up_front(tmp_path, cfg, match):
+    """A job the server cannot run is refused at admission, before
+    anything is journaled or decoded.  ``shards=2`` over the server's
+    one-device mesh is the reference's ``MeshCapacityError``;
+    ``shard_mode="dp"`` at one shard is admitted and runs as a
+    single-device job (``match`` None)."""
     from sam2consensus_torch.serve import JobSpec
 
     path = sim(tmp_path, "r.sam", 80)
@@ -307,6 +312,11 @@ def test_serve_rejects_jobs_up_front(tmp_path, cfg, match):
         cfg = dict(checkpoint_dir=str(tmp_path / "ck"))
     r = runner()
     try:
+        if match is None:
+            (res,) = r.submit_jobs([JobSpec(path, TConfig(**cfg))])
+            assert res.ok and r.registry.value("serve/jobs") == 1
+            assert rendered(res) == jax_cold(path, TConfig(**cfg), **cfg)
+            return
         with pytest.raises(ValueError, match=match):
             r.submit_jobs([JobSpec(path, TConfig(**cfg))])
         assert r.registry.value("serve/jobs") == 0
@@ -343,11 +353,29 @@ UNPORTED = [
 @pytest.mark.parametrize("argv,named", UNPORTED,
                          ids=[u[0][0] + "=" + u[0][-1] for u in UNPORTED])
 def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
+    """``--pileup mxu`` is refused by name at server start.  The sharding
+    flags run now: ``--shards 2`` over the one-device CPU mesh fails the
+    start with the reference's ``MeshCapacityError`` text, and
+    ``--shard-mode dp`` serves a job byte-identical to ``--backend
+    jax``'s one-shot run."""
     from sam2consensus_torch import cli
+    from sam2consensus_tpu.parallel import mesh as r_mesh
 
+    if argv[0] == "--shard-mode":
+        path = sim(tmp_path, "x.sam", 81)
+        assert cli.main(["serve", "-i", path, "-o", str(tmp_path / "o"),
+                         "--quiet", *argv], device="cpu") == 0
+        assert read_dir(str(tmp_path / "o")) == jax_cli_dir(
+            [path], str(tmp_path / "ref"), extra=argv)
+        return
     with pytest.raises(SystemExit) as exc:
         cli.main(["serve", "-i", str(tmp_path / "x.sam"), "-o",
                   str(tmp_path / "o"), "--quiet", *argv], device="cpu")
+    if argv[0] == "--shards":
+        with pytest.raises(r_mesh.MeshCapacityError) as want:
+            r_mesh.validate_shards(2, n_available=1)
+        assert str(exc.value.code) == f"error: {want.value}"
+        return
     assert str(exc.value.code) == (f"error: {named}: not supported by "
                                    f"the torch backend yet")
 
