@@ -295,7 +295,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    path; (9) ``serve --shards 4`` over ``ecoli_scale`` as SAM and BAM:
    each job's files equal its one-shot run's; (10) on a host with two or
    more cards, dp and sp on real cards, else one line saying none was
-   made.
+   made;
+18. the process-spanning mesh: two worker processes (this script re-run
+   as ``chip_smoke.py --mesh-worker RANK STORE SPEC OUT``, each in a
+   process group of its own under one shared deadline, killed whole when
+   it passes) join a gloo group through a file store, each with two
+   shards of cuda:0, so ``--shards 4`` is global and every collective
+   between the ranks stages its CUDA operand through pinned host memory.
+   (1) ``ecoli_scale`` under dp (``auto``: K1), ``sp --pileup pallas``
+   and ``dpsp --pileup pallas`` and ``longread_sv`` under ``sp --pileup
+   pallas --segment-width -1``, each through ``cli.main`` on both ranks:
+   every rank's files byte-identical to phase 7's single-device run, K1
+   launched at least twice a K1 bucket on every rank, K2 (K3 for
+   ``longread_sv``) once a rank, the ``mesh`` record and ``mesh/hosts``
+   2, ``mesh/shard_bytes/<rank>`` and ``mesh/gather_bytes`` billed; each
+   rank's wall, collective seconds, counts and staged calls, allocator
+   and tracked peaks printed beside ``plan_mesh_shards``' per-host bytes
+   at 2 hosts and beside phase 17's one-process run of the same layout;
+   (2) the dp K1, sp routed K1 and dpsp K1 routes over one slab make one
+   host synchronisation for each staged collective and no other;
+   (3) ``ServeRunner`` under ``S2C_MESH_HOSTS=2`` with a ``--mem-budget``
+   between ``plan_mesh_shards``' 1-host and 2-host figures for
+   ``ecoli_scale``: admitted with ``mesh_shards`` 2 in the journal's
+   ``submitted`` record, ``mesh/planned_hosts`` 2 and the health
+   snapshot's mesh section, byte-identical to phase 7; without the
+   variable the same job is shed as ``capacity``; (4)
+   ``models/consensus.py`` over ``ecoli_scale``'s first slab on the card
+   equals its CPU run.
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -309,8 +335,9 @@ one PyTorch library call where one computes the same function (K1: one
 expansion; K3: ``index_put_``), and its
 bound (bytes over the HBM rate or operations over the CUDA-core rate, the
 larger).  The line before the last is ``{"kernels": [...]}`` (with each
-kernel's main-path ``launches`` and phase 17's ``sharded_launches``); the
-last is ``{"ok": true, "device": ...}``.
+kernel's main-path ``launches``, phase 17's ``sharded_launches`` and phase
+18's ``spanning_launches``, both ranks' runs); the last is ``{"ok": true,
+"device": ...}``.
 """
 
 import contextlib
@@ -4657,6 +4684,12 @@ def same_files(a: str, b: str) -> bool:
         a, b, names, shallow=False)[0] == names
 
 
+#: phase 17's runs by label: the allocator peak, each collective's seconds
+#: and calls, the wall (phase 18 prints its process-spanning runs beside
+#: them)
+PHASE17 = {}
+
+
 def sharded_run(tmp: str, card: str, cap: Capture, name: str, label: str,
                 mesh, extra: list, want_out: str, phase7_wall=None):
     """One sharded CUDA run of ``name`` through ``cli.main``: byte identity
@@ -4701,6 +4734,8 @@ def sharded_run(tmp: str, card: str, cap: Capture, name: str, label: str,
           f"{(predicted or 0) / 2**20:.1f} MiB; launches {launched}")
     if not same:
         fail(f"phase 17: {name} {label} differs from the single-device run")
+    PHASE17[label] = {"peak": peak, "coll": coll, "calls": calls,
+                      "wall": wall}
     return ex, launched
 
 
@@ -5053,6 +5088,400 @@ def sharding(tmp: str, card: str, cap: Capture) -> dict:
     return launched
 
 
+# -- phase 18: the process-spanning mesh -------------------------------------
+#: phase 18's runs: (key, input, phase 17's label of the same layout at 4
+#: shards, extra flags); every rank holds 2 of the 4 shards of cuda:0
+PHASE18_RUNS = (
+    ("dp", "ecoli_scale", "17.1 dp (auto: K1)", ["--shard-mode", "dp"]),
+    ("sp", "ecoli_scale", "17.1 sp --pileup pallas",
+     ["--shard-mode", "sp", "--pileup", "pallas"]),
+    ("dpsp", "ecoli_scale", "17.1 dpsp --pileup pallas",
+     ["--shard-mode", "dpsp", "--pileup", "pallas"]),
+    ("longread_sp", "longread_sv", None,
+     ["--shard-mode", "sp", "--pileup", "pallas", "--segment-width", "-1"]))
+#: the process group phase 18 spawns, and each worker's local shards
+MESH_WORLD = 2
+MESH_LOCAL = 2
+#: a phase 18 worker's deadline (seconds), shared by the pair
+MESH_DEADLINE = 420.0
+
+
+def layout_len(name: str) -> int:
+    """The genome length of phase 7's input ``name``, from its header."""
+    from sam2consensus_torch.io.sam import opener, read_header
+
+    with opener(PHASE7[name]["path"], binary=True) as handle:
+        contigs, _n, _first = read_header(handle)
+    return sum(c.length for c in contigs)
+
+
+def mesh_sync_routes(local, path: str) -> dict:
+    """On a process-spanning mesh: the dp K1, sp routed K1 and dpsp K1
+    routes over ``ecoli_scale``'s largest slab, each rank's host
+    synchronisations against its staged collectives (one each)."""
+    from sam2consensus_torch.backends.torch_backend import SP_HALO
+    from sam2consensus_torch.parallel import collectives
+    from sam2consensus_torch.parallel.dp import ShardedConsensus
+    from sam2consensus_torch.parallel.dpsp import ProductShardedConsensus
+    from sam2consensus_torch.parallel.mesh import make_mesh
+    from sam2consensus_torch.parallel.sp import PositionShardedConsensus
+
+    total_len, batches = ecoli_batches(path)
+    halo = min(SP_HALO, max([w for b in batches for w in b.buckets] + [64]))
+    big = max(batches, key=lambda b: sum(len(s) for s, _c in
+                                         b.buckets.values()))
+    m = make_mesh(MESH_WORLD * MESH_LOCAL, local)
+    out = {}
+    for what, acc in (
+            ("dp K1", ShardedConsensus(m, total_len, "auto")),
+            ("sp routed K1", PositionShardedConsensus(m, total_len, halo,
+                                                      "pallas")),
+            ("dpsp K1", ProductShardedConsensus(m, total_len, halo,
+                                                "pallas"))):
+        acc.blocks                      # the resident blocks, allocated
+        torch.cuda.synchronize()
+        with collectives.timing() as tm:
+            with counted_syncs() as seen:
+                acc.add(big)
+            torch.cuda.synchronize()
+            staged = dict(tm.staged)
+        out[what] = {"syncs": seen["warned"] + seen["synchronize"],
+                     "staged": staged,
+                     "strategies": dict(acc.strategy_used)}
+    return out
+
+
+def mesh_worker(argv) -> int:
+    """One rank of phase 18 (``chip_smoke.py --mesh-worker RANK STORE SPEC
+    OUT``): joins the gloo group, loads the kernels the parent built, runs
+    each leg of SPEC through ``cli.main`` over its own two shards of
+    cuda:0, then the route synchronisation check; writes its report to
+    OUT as JSON."""
+    import torch.distributed as dist
+
+    from sam2consensus_torch import cli, native
+    from sam2consensus_torch.backends.torch_backend import TorchBackend
+    from sam2consensus_torch.kernels.build import (all_kernels, extension,
+                                                   reset_launches)
+    from sam2consensus_torch.observability import memplane
+    from sam2consensus_torch.observability.export import read_metrics_jsonl
+    from sam2consensus_torch.parallel import collectives
+
+    rank, store, spec_path, out_path = int(argv[0]), argv[1], argv[2], \
+        argv[3]
+    if not torch.cuda.is_available():
+        print("phase 18 worker: no CUDA device", file=sys.stderr)
+        return 1
+    with open(spec_path, encoding="utf-8") as fh:
+        spec = json.load(fh)
+    extension()
+    native.load()
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=MESH_WORLD, rank=rank)
+    local = [torch.device("cuda", 0)] * MESH_LOCAL
+    kernels = all_kernels()
+    stats = []
+    orig_run = TorchBackend.run
+
+    def run(self, *args, **kwargs):
+        result = orig_run(self, *args, **kwargs)
+        stats.append(result.stats)
+        return result
+
+    TorchBackend.run = run
+    report = {"rank": rank, "runs": {}}
+    for key, path, flags in spec["runs"]:
+        out = os.path.join(spec["tmp"], f"p18_{key}_rank{rank}")
+        metrics = out + ".metrics.jsonl"
+        reset_launches(kernels)
+        memplane._reset_for_tests()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        with collectives.timing() as tm:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["-i", path, "-o", out, *flags,
+                               "--metrics-out", metrics],
+                              mesh_devices=local)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            coll, calls, staged = tm.seconds(), tm.counts(), dict(tm.staged)
+        if rc != 0:
+            print(f"phase 18 worker {rank}: {key} returned {rc}",
+                  file=sys.stderr)
+            return 1
+        values = {r["name"]: r["value"] for r in read_metrics_jsonl(metrics)
+                  if r.get("kind") in ("counter", "gauge")}
+        ex = stats[-1].extra
+        report["runs"][key] = {
+            "out": out, "wall": wall, "coll": coll, "calls": calls,
+            "staged": staged,
+            "launched": {k.name: k.launches for k in kernels},
+            "peak": torch.cuda.max_memory_allocated(),
+            "tracked_peak": int(memplane.summary()["tracked"]["peak_bytes"]),
+            "shard_mode": ex.get("shard_mode"), "shards": ex.get("shards"),
+            "pileup": ex.get("pileup"), "mesh": ex.get("mesh"),
+            "halo": ex.get("halo"),
+            "decode_sec": ex["decode_sec"],
+            "accumulate_sec": ex["accumulate_sec"],
+            "tail_sec": ex["tail_sec"], "assemble_sec": ex["assemble_sec"],
+            "hosts": values.get("mesh/hosts"),
+            "shard_bytes": values.get(f"mesh/shard_bytes/{rank}", 0),
+            "gather_bytes": values.get("mesh/gather_bytes", 0)}
+    dist.barrier()
+    report["routes"] = mesh_sync_routes(local, spec["ecoli_path"])
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w", encoding="utf-8") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def spawn_mesh_workers(tmp: str, spec: dict) -> list:
+    """Both ranks of phase 18 under one shared deadline; each worker in a
+    process group of its own, killed whole at the deadline.  A worker
+    that fails or hangs is fatal."""
+    spec_path = os.path.join(tmp, "p18_spec.json")
+    with open(spec_path, "w", encoding="utf-8") as fh:
+        json.dump(spec, fh)
+    store = os.path.join(tmp, "p18_store")
+    procs, outs, logs = [], [], []
+    for rank in range(MESH_WORLD):
+        outs.append(os.path.join(tmp, f"p18_rank{rank}.json"))
+        logs.append(open(os.path.join(tmp, f"p18_rank{rank}.log"), "w+b"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(rank), store, spec_path, outs[-1]],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+            start_new_session=True))
+    end = time.monotonic() + MESH_DEADLINE
+    while time.monotonic() < end and any(p.poll() is None for p in procs):
+        time.sleep(0.2)
+    hung = [i for i, p in enumerate(procs) if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            try:
+                os.killpg(p.pid, 9)
+            except (ProcessLookupError, PermissionError):
+                pass
+            p.wait()
+    text = []
+    for i, fh in enumerate(logs):
+        fh.seek(0)
+        text.append(fh.read().decode(errors="replace"))
+        fh.close()
+    if hung or any(p.returncode != 0 for p in procs):
+        for i, t in enumerate(text):
+            print(f"  --- phase 18 rank {i} (rc={procs[i].returncode}) "
+                  f"---\n{t[-4000:]}")
+        fail(f"phase 18: worker(s) {hung} passed the {MESH_DEADLINE}s "
+             f"deadline" if hung else f"phase 18: a worker failed: rcs="
+             f"{[p.returncode for p in procs]}")
+    reports = []
+    for out in outs:
+        with open(out, encoding="utf-8") as fh:
+            reports.append(json.load(fh))
+    return reports
+
+
+def mesh_serve(tmp: str, card: str) -> None:
+    """18.3: ``S2C_MESH_HOSTS=2`` and a ``--mem-budget`` between
+    ``plan_mesh_shards``' 1-host and 2-host figures for ``ecoli_scale``:
+    admitted with ``mesh_shards`` 2 (journal, registry, health) and
+    byte-identical to phase 7; without the variable shed as capacity."""
+    from sam2consensus_torch.observability import memplane
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+    from sam2consensus_torch.serve.health import snapshot
+
+    total_len = layout_len("ecoli_scale")
+    cfg = job_config("ecoli_scale", os.path.join(tmp, "p18_served"))
+    plan = memplane.plan_mesh_shards(total_len, cfg, max_hosts=2,
+                                     record=False)
+    alt = plan["alternatives"]
+    budget = int((alt["1"] + alt["2"]) // 2)
+    jdir = os.path.join(tmp, "p18_journal")
+    os.environ["S2C_MESH_HOSTS"] = "2"
+    try:
+        runner = ServeRunner(prewarm="off", mem_budget=str(budget),
+                             journal_dir=jdir)
+        try:
+            (res,) = runner.submit_jobs([JobSpec(PHASE7["ecoli_scale"]
+                                                 ["path"], cfg)])
+            planned = runner.registry.value("mesh/planned_hosts")
+            admitted = runner.registry.value("serve/admission_mesh")
+            health = snapshot(runner).get("mesh", {})
+        finally:
+            runner.close()
+    finally:
+        del os.environ["S2C_MESH_HOSTS"]
+    subs = []
+    for root, _dirs, files in os.walk(jdir):
+        for name in files:
+            try:
+                with open(os.path.join(root, name), encoding="utf-8") as fh:
+                    rec = json.load(fh)
+            except (ValueError, UnicodeDecodeError, IsADirectoryError):
+                continue
+            if isinstance(rec, dict) and rec.get("ev") == "submitted":
+                subs.append(rec)
+    same = served_files(os.path.join(tmp, "p18_served")) == \
+        phase7_files(["ecoli_scale"])
+    print(f"  18.3 serve S2C_MESH_HOSTS=2 --mem-budget {budget} B [{card}]: "
+          f"plan_mesh_shards 1 host {alt['1']:.0f} B, 2 hosts "
+          f"{alt['2']:.0f} B; ok={res.ok} admission={res.admission} "
+          f"journal mesh_shards={[r.get('mesh_shards') for r in subs]} "
+          f"mesh/planned_hosts={planned} serve/admission_mesh={admitted} "
+          f"health mesh={health} byte-identical={same}")
+    if not res.ok or [r.get("mesh_shards") for r in subs] != [2] \
+            or planned != 2 or admitted != 1 or not same \
+            or health.get("planned_hosts") != 2:
+        fail("phase 18.3: the over-budget job was not admitted with a "
+             "2-host mesh_shards verdict, or its output differs")
+    runner = ServeRunner(prewarm="off", mem_budget=str(budget))
+    try:
+        (res,) = runner.submit_jobs([JobSpec(
+            PHASE7["ecoli_scale"]["path"],
+            job_config("ecoli_scale", os.path.join(tmp, "p18_shed")))])
+    finally:
+        runner.close()
+    print(f"  18.3 the same job without S2C_MESH_HOSTS: ok={res.ok} "
+          f"admission={res.admission}")
+    if res.ok or res.admission != "capacity":
+        fail("phase 18.3: without S2C_MESH_HOSTS the job was not shed as "
+             "capacity")
+
+
+def consensus_model(card: str) -> None:
+    """18.4: ``models/consensus.py`` over ``ecoli_scale``'s first slab on
+    the card equals its CPU run, exactly."""
+    from sam2consensus_torch.models.consensus import make_consensus_model
+
+    total_len, batches = ecoli_batches(PHASE7["ecoli_scale"]["path"])
+    w = max(batches[0].buckets)
+    starts, codes = (torch.from_numpy(np.ascontiguousarray(a))
+                     for a in batches[0].buckets[w])
+    model = make_consensus_model(total_len)
+    t0 = time.perf_counter()
+    syms, cov = model(starts.cuda(), codes.cuda(), [0.25, 0.75])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    want_syms, want_cov = model(starts, codes, [0.25, 0.75])
+    err = max(max_err(syms.cpu(), want_syms), max_err(cov.cpu(), want_cov))
+    print(f"  18.4 models/consensus.py on {tuple(codes.shape)} rows over "
+          f"{total_len} positions [{card}]: {sec * 1e3:.1f} ms (first call) "
+          f"max_abs_err vs its CPU run={err}")
+    if err:
+        fail("phase 18.4: the consensus model on the card differs from its "
+             "CPU run")
+
+
+def process_spanning(tmp: str, card: str) -> dict:
+    """Phase 18: the process-spanning mesh over a gloo group of two
+    processes sharing cuda:0; returns each kernel's launches in its
+    ``cli.main`` runs, summed over the ranks."""
+    from sam2consensus_torch.kernels.build import all_kernels
+    from sam2consensus_torch.observability import memplane
+
+    print(f"  {MESH_WORLD} processes x {MESH_LOCAL} shards of one card "
+          f"({card}) over gloo, CUDA operands staged through pinned host "
+          f"memory: the walls below are no multi-card speed")
+    runs = []
+    for key, name, _label, extra in PHASE18_RUNS:
+        runs.append([key, PHASE7[name]["path"],
+                     [*PHASE7[name]["flags"], "--decoder", "native",
+                      "--shards", str(MESH_WORLD * MESH_LOCAL), *extra]])
+    t0 = time.perf_counter()
+    reports = spawn_mesh_workers(tmp, {"tmp": tmp, "runs": runs,
+                                       "ecoli_path":
+                                           PHASE7["ecoli_scale"]["path"]})
+    print(f"  18.1 both workers ended in {time.perf_counter() - t0:.1f}s")
+    totals = {k.name: 0 for k in all_kernels()}
+    for key, name, label, _extra in PHASE18_RUNS:
+        cfg = job_config(name, os.path.join(tmp, "p18_plan"))
+        per_host = memplane.plan_mesh_shards(
+            layout_len(name), cfg, max_hosts=2,
+            record=False)["alternatives"]["2"]
+        p17 = PHASE17.get(label)
+        for rep in reports:
+            r, rank = rep["runs"][key], rep["rank"]
+            same = same_files(r["out"], PHASE7[name]["out"])
+            print(f"  18.1 {name} {key} rank {rank} [{card}]: mode="
+                  f"{r['shard_mode']} shards={r['shards']} mesh={r['mesh']} "
+                  f"halo={r['halo']} slabs={r['pileup']} wall="
+                  f"{r['wall']:.3f}s (phase 7 single-device "
+                  f"{PHASE7[name]['wall']:.3f}s"
+                  + (f", phase 17 one process {p17['wall']:.3f}s"
+                     if p17 else "") + f") decode={r['decode_sec']:.3f}s "
+                  f"accumulate={r['accumulate_sec']:.3f}s "
+                  f"tail={r['tail_sec']:.3f}s "
+                  f"assemble={r['assemble_sec']:.3f}s byte-identical={same}")
+            print(f"    collectives (CUDA events, staged over gloo): "
+                  + (", ".join(f"{k}={v * 1e3:.3f} ms x{r['calls'][k]}"
+                               for k, v in sorted(r["coll"].items()))
+                     or "none")
+                  + f"; staged {r['staged']}"
+                  + (f"; phase 17 in one process: "
+                     + ", ".join(f"{k}={v * 1e3:.3f} ms x{p17['calls'][k]}"
+                                 for k, v in sorted(p17["coll"].items()))
+                     if p17 else ""))
+            print(f"    allocator peak {r['peak'] / 2**20:.1f} MiB (tracked "
+                  f"{r['tracked_peak'] / 2**20:.1f} MiB) vs plan_mesh_shards "
+                  f"per_host_bytes at 2 hosts {per_host / 2**20:.1f} MiB"
+                  + (f" vs phase 17's one-process 4-shard peak "
+                     f"{p17['peak'] / 2**20:.1f} MiB" if p17 else "")
+                  + f"; mesh/hosts={r['hosts']} mesh/shard_bytes/{rank}="
+                  f"{r['shard_bytes']:.0f} mesh/gather_bytes="
+                  f"{r['gather_bytes']:.0f}; launches {r['launched']}")
+            if not same:
+                fail(f"phase 18: rank {rank}'s {name} {key} differs from "
+                     f"the single-device run")
+            if r["mesh"] != {"hosts": MESH_WORLD, "rank": rank,
+                             "local_shards": [MESH_LOCAL * rank + i for i in
+                                              range(MESH_LOCAL)]} \
+                    or r["hosts"] != MESH_WORLD or not r["shard_bytes"] \
+                    or not r["gather_bytes"]:
+                fail(f"phase 18: rank {rank}'s {key} mesh is {r['mesh']}, "
+                     f"hosts {r['hosts']}, shard bytes {r['shard_bytes']}")
+            k1_buckets = sum(v for k, v in r["pileup"].items()
+                             if "pallas" in k)
+            launched = r["launched"]
+            if k1_buckets < 1 or launched["pileup_rows"] < \
+                    MESH_LOCAL * k1_buckets:
+                fail(f"phase 18: rank {rank}'s {key}: "
+                     f"{launched['pileup_rows']} K1 launches for "
+                     f"{k1_buckets} K1 buckets on {MESH_LOCAL} shards")
+            tail = "insertion_table" if name == "longread_sv" \
+                else "insertion_vote"
+            if launched[tail] != 1:
+                fail(f"phase 18: rank {rank}'s {key}: the sharded tail "
+                     f"launched {tail} {launched[tail]} times")
+            for k, v in launched.items():
+                totals[k] += v
+        if reports[0]["runs"][key]["shard_mode"] != \
+                reports[1]["runs"][key]["shard_mode"]:
+            fail(f"phase 18: the ranks ran {key} in different layouts")
+    for rep in reports:
+        for what, r in rep["routes"].items():
+            staged = sum(r["staged"].values())
+            print(f"  18.2 rank {rep['rank']} {what} route over one slab "
+                  f"({list(r['strategies'])}): {r['syncs']} host "
+                  f"synchronisation(s), {staged} staged collective(s) "
+                  f"{r['staged']}")
+            if r["syncs"] != staged:
+                fail(f"phase 18.2: rank {rep['rank']}'s {what} route made "
+                     f"{r['syncs']} host synchronisations for {staged} "
+                     f"staged collectives")
+    mesh_serve(tmp, card)
+    consensus_model(card)
+    print(f"  phase 18 launches (both ranks' cli.main runs): {totals}")
+    missing = [n for n, c in totals.items() if c == 0]
+    if missing:
+        fail(f"phase 18: kernels never launched on the process-spanning "
+             f"paths: {missing}")
+    return totals
+
+
 # -- phase 9: the C++ decoder against the Python encoder --------------------
 def drain(encoder, batches, total_len: int):
     """Pileup counts ``[L, 6]`` and events of ``batches``, with the seconds
@@ -5127,12 +5556,13 @@ def compare(kid: str, got: torch.Tensor, want: torch.Tensor) -> int:
 
 
 def measure(cap: Capture, launches: dict, errs: dict,
-            sharded: dict) -> list:
+            sharded: dict, spanning: dict) -> list:
     """Hold each kernel against its plain version once more at the largest
     main-path shapes it was given (fresh outputs, exact), then time there:
     the kernel alone, its route (what the main path pays), the plain
     version and, where one exists, one library call.  ``sharded`` is each
-    kernel's launches in phase 17."""
+    kernel's launches in phase 17, ``spanning`` in phase 18 (both ranks'
+    runs)."""
     from sam2consensus_torch.ops import insertion_kernel as ik
     from sam2consensus_torch.ops import pileup_kernel as pk
     from sam2consensus_torch.ops.insertions import (build_insertion_table,
@@ -5250,6 +5680,7 @@ def measure(cap: Capture, launches: dict, errs: dict,
                     "sam2consensus_torch/" + src, "replaces": replaces,
                     "launches": launches[kern.name],
                     "sharded_launches": sharded[kern.name],
+                    "spanning_launches": spanning[kern.name],
                     "max_abs_err": max(errs[kid], err), "ms": ms,
                     "device_ms": dev_ms, "device_ms_source": dev_src,
                     "route_ms": route, "plain_ms": plain,
@@ -5418,8 +5849,14 @@ def main() -> int:
         sharded = sharding(tmp, card, cap)
         lap("17 sharding")
 
+        print(f"phase 18: the process-spanning mesh: a gloo group of "
+              f"{MESH_WORLD} processes, {MESH_LOCAL} shards of cuda:0 each "
+              f"[{card}]")
+        spanning = process_spanning(tmp, card)
+        lap("18 process-spanning mesh")
+
     print(f"kernel timing at main-path shapes [{card}]")
-    report = measure(cap, launches, errs, sharded)
+    report = measure(cap, launches, errs, sharded, spanning)
     lap("kernel timing")
     print(f"phase walls (s) [{card}]: {walls}")
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]")
@@ -5431,4 +5868,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
     sys.exit(main())

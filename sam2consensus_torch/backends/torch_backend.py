@@ -573,6 +573,14 @@ def mesh_device_list(device: torch.device, mesh_devices=None) -> list:
     return devices
 
 
+def _spans_processes(stats: BackendStats) -> bool:
+    """The run's mesh spans processes: more than one shard over an
+    initialised process group of more than one rank."""
+    from ..parallel.mesh import process_group
+
+    return stats.extra.get("shards", 1) > 1 and process_group()[0] > 1
+
+
 def _timed(batches, stats: BackendStats):
     """Yield from ``batches`` on the calling thread, each ``next`` under a
     ``decode`` span, adding the time spent in the generator to
@@ -1465,11 +1473,13 @@ class TorchBackend:
         ``--shards`` over the mesh's device list is a
         ``parallel.mesh.MeshCapacityError``, before anything is read;
         ``0`` means every device of the list, except under ``--pileup
-        host`` (one device).  A sharded run refuses the host pileup and
-        ``--pileup mxu``."""
-        from ..parallel.mesh import validate_shards
+        host`` (one device).  Over an initialised process group the list
+        is global: every rank's ``mesh_devices`` end to end
+        (``parallel.mesh.available_devices``).  A sharded run refuses the
+        host pileup and ``--pileup mxu``."""
+        from ..parallel.mesh import available_devices, validate_shards
 
-        n_dev = len(self.mesh_devices)
+        n_dev = available_devices(self.mesh_devices)
         validate_shards(cfg.shards, n_available=n_dev)
         shards = cfg.shards if cfg.shards > 0 else n_dev
         if cfg.pileup == "host" and cfg.shards == 0:
@@ -1514,11 +1524,15 @@ class TorchBackend:
         probes only when the link can change the pick) and records the
         ``shard_mode`` decision.  dp takes ``cfg.pileup`` (K1 under
         ``auto`` and ``pallas``); sp and dpsp take K1 under ``pallas``
-        only, the torch scatter otherwise, as in the reference.
-        ``stats.extra`` gets ``shard_mode``, ``shard_auto`` and ``halo``."""
+        only, the torch scatter otherwise, as in the reference.  On a
+        process-spanning mesh the model sees the number of processes, and
+        the layout and the row codec are rank 0's (``parallel.mesh.agree``:
+        a link probe may differ between processes, and every rank must
+        route the same rows).  ``stats.extra`` gets ``shard_mode``,
+        ``shard_auto`` and ``halo``."""
         from ..parallel import auto as shard_auto
         from ..parallel.base import block_for
-        from ..parallel.mesh import make_mesh
+        from ..parallel.mesh import agree, make_mesh
         from ..parallel.partition import mesh_process_count
 
         mode = cfg.shard_mode
@@ -1528,13 +1542,13 @@ class TorchBackend:
             else []
         halo = min(SP_HALO, max([*widths, ck_max_width, 64]))
         mesh = make_mesh(shards, self.mesh_devices)
+        n_hosts = mesh_process_count(mesh)
         if mode == "auto":
             if first_batch is not None:
                 rows, rb, _mw, imb, sfrac = shard_auto.slab_stats(
                     first_batch.buckets, total_len, wire=wire)
             else:
                 rows, rb, imb, sfrac = 0, 0, 1.0, 0.0
-            n_hosts = mesh_process_count(mesh)
 
             def costs(bps):
                 return shard_auto.shard_mode_costs(
@@ -1564,6 +1578,11 @@ class TorchBackend:
                 measured={"sec": {"num": ["phase/pileup_dispatch_sec"],
                                   "den": ["pileup/slabs"]}},
                 band=0)
+        if mesh.spans:
+            mode, wire = agree((mode, wire))
+            stats.extra["mesh"] = {"hosts": int(n_hosts),
+                                   "rank": int(mesh.rank),
+                                   "local_shards": list(mesh.local)}
         routed = "pallas" if cfg.pileup == "pallas" else "scatter"
         if mode == "sp":
             from ..parallel.sp import PositionShardedConsensus
@@ -1598,7 +1617,10 @@ class TorchBackend:
         """The tail of a sharded accumulator (the reference's sharded
         branch): the position vote and the coverage statistics on the
         resident blocks (``acc.vote``, ``acc.tail_stats``), and the
-        insertion table and vote on the mesh's first device: K2 up to
+        insertion table and vote on this process's first device (every
+        process of a process-spanning mesh runs it over the same events,
+        since each decoded the whole input, and renders the same
+        records): K2 up to
         ``FUSED_VOTE_MAX_CP`` padded columns, else K3 and the torch vote,
         or under ``--insertion-kernel scatter`` (``auto`` on the CPU) the
         torch scatter and vote.  The fill is substituted in the vote and
@@ -1610,7 +1632,7 @@ class TorchBackend:
                                             vote_insertions_fused)
         from ..ops.insertions import build_insertion_table, vote_insertions
 
-        dev = acc.mesh.devices[0]
+        dev = acc.mesh.first_device
         offsets = layout.offsets
         # the device epilogue, as on one device: the fill substituted in
         # the vote and the dash totals reduced over the blocks (a fill
@@ -1737,8 +1759,12 @@ class TorchBackend:
                 # one thread budget: the shard workers, the BGZF inflate
                 # pool and the native vote
                 threads = resolve_decode_threads(cfg)
+                # a process-spanning mesh routes rows by their place in
+                # each batch: every rank must decode the same batches, so
+                # the shard workers' completion order is not taken there
                 parallel = (threads > 1 and not cfg.checkpoint_dir
-                            and not cfg.paranoid)
+                            and not cfg.paranoid
+                            and not _spans_processes(stats))
                 stats.extra["decode_threads"] = threads if parallel else 1
                 stats.extra["decode_rung"] = "fused" if fuse else "slab"
                 _record_decode_decision(cfg, records, threads, parallel,
@@ -1823,7 +1849,7 @@ class TorchBackend:
                 shards=stats.extra.get("shards", 1))
         tail_dev = self.device
         if isinstance(acc, ShardedCountsBase):
-            tail_dev = acc.mesh.devices[0]
+            tail_dev = acc.mesh.first_device
             stats.extra["tail_placement"] = {"chosen": "device",
                                              "pileup": "sharded"}
             if tail_dev.type == "cpu":

@@ -720,18 +720,20 @@ def validate_mesh_shards(shards: int, pileup: str, device=None,
     """The reference's up-front ``--shards`` checks, before any input is
     read or a server warms: ``--pileup host`` does not compose, and more
     shards than the mesh's devices (``backends.torch_backend.
-    mesh_device_list``) is the ``MeshCapacityError`` text.  Exits."""
+    mesh_device_list``, times the world size of an initialised process
+    group) is the ``MeshCapacityError`` text.  Exits."""
     if pileup == "host" and shards > 1:
         raise SystemExit("--pileup host accumulates on the single host; "
                          "it does not compose with --shards")
     if shards > 1:
         from .backends.torch_backend import mesh_device_list
         from .device import resolve_device
-        from .parallel.mesh import MeshCapacityError, validate_shards
+        from .parallel.mesh import (MeshCapacityError, available_devices,
+                                    validate_shards)
 
         devices = mesh_device_list(resolve_device(device), mesh_devices)
         try:
-            validate_shards(shards, n_available=len(devices),
+            validate_shards(shards, n_available=available_devices(devices),
                             pileup=pileup)
         except MeshCapacityError as exc:
             raise SystemExit(f"error: {exc}") from None
@@ -919,13 +921,11 @@ def serve_main(argv: List[str], device=None, mesh_devices=None) -> int:
     without the cache or under ``--journal``, the fleet's, the sessions'
     and the cohort's cross-checks, ``--fault-inject``, an input or a
     session port); a flag of :data:`UNPORTED_SERVE_FLAGS` set away from
-    its default, or ``S2C_MESH_HOSTS`` > 0
-    (``serve.runner.refuse_unported_serve``), fails the start by name."""
+    its default fails the start by name."""
     import copy
 
     from . import observability
     from .serve import JobSpec, ServeRunner
-    from .serve.runner import refuse_unported_serve
 
     args = build_serve_parser().parse_args(argv)
     echo = (lambda *a, **k: None) if args.quiet else print
@@ -935,10 +935,6 @@ def serve_main(argv: List[str], device=None, mesh_devices=None) -> int:
         if is_set(value):
             raise SystemExit(f"error: {flag} {value}: not supported by "
                              f"the torch backend yet")
-    try:
-        refuse_unported_serve()
-    except ValueError as exc:
-        raise SystemExit(f"error: {exc}") from None
     # the one-shot run's --shards checks, before the server warms (a
     # late failure on the first admitted job is a worse error surface)
     validate_mesh_shards(args.shards, args.pileup, device, mesh_devices)

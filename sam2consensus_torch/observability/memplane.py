@@ -1,9 +1,8 @@
 """Memory plane: host and device byte accounting, watermarks, forensics.
 
-The one-shot and serve parts of
-``sam2consensus_tpu/observability/memplane.py`` (the process-spanning
-mesh planner ``plan_mesh_shards`` is not ported yet); the copied functions
-are pinned by ``tests/test_torch_copies.py``.
+Port of ``sam2consensus_tpu/observability/memplane.py``, the mesh
+planner ``plan_mesh_shards`` with it; the copied functions are pinned by
+``tests/test_torch_copies.py``.
 
 **Byte accounting.**  Every long-lived allocation family registers
 through one choke point, :func:`adjust` (:func:`track` / :func:`release`,
@@ -466,6 +465,81 @@ def record_capacity(total_len: int, n_thresholds: int,
             measured={"bytes": {"counters": ["mem/peak_tracked_bytes"]}},
             band=0, provenance=_cap_prov)
     return record
+
+
+def plan_mesh_shards(total_len: int, cfg=None, budget_bytes: int = 0,
+                     max_hosts: int = 0, record: bool = True) -> dict:
+    """Copy: choose the mesh host count for a job from the capacity model.
+
+    The memory plane as planner: the geometry the ``capacity`` gate prices
+    picks the least host count ``K`` whose per-host predicted peak fits
+    ``budget_bytes``.  Per host under a K-host position-sharded mesh the
+    count tensor and the tail's symbol planes divide by K (each host holds
+    its own position blocks: ``parallel.base._track_counts`` bills this
+    process's fraction, so the prediction and the measurement speak the
+    same units); every other component (staging, K1's plan) does not.  Over
+    the reference's components (counts, staging, tail) this is its
+    formula.
+
+    Returns ``{"hosts", "per_host_bytes", "single_host_bytes",
+    "budget_bytes", "fits", "alternatives"}``: ``fits`` is False when even
+    ``max_hosts`` (0 = single host only) cannot bring the per-host peak
+    under budget.  ``record=True`` registers the ``mesh_shards`` ledger
+    decision (predicted per-host bytes joined against the measured
+    ``mem/peak_tracked_bytes`` ratchet; band 0: the model is an upper
+    bound, headroom must not alarm)."""
+    n_thresholds = len(getattr(cfg, "thresholds", None) or [0.25]) \
+        if cfg is not None else 1
+    chunk_reads = getattr(cfg, "chunk_reads", 262144) \
+        if cfg is not None else 262144
+    segment_width = max(0, getattr(cfg, "segment_width", 0)) \
+        if cfg is not None else 0
+    _total, comp = predict_run_peak_bytes(
+        total_len, n_thresholds=n_thresholds, chunk_reads=chunk_reads,
+        shards=1, segment_width=segment_width)
+    fixed = sum(v for k, v in comp.items()
+                if k not in ("counts_bytes", "tail_bytes"))
+
+    def per_host(k: int) -> int:
+        return comp["counts_bytes"] // k + fixed + comp["tail_bytes"] // k
+
+    single = per_host(1)
+    hosts_cap = max(1, int(max_hosts) or 1)
+    alternatives = {str(k): float(per_host(k))
+                    for k in range(1, hosts_cap + 1)}
+    hosts, fits = 1, True
+    if budget_bytes and single > budget_bytes:
+        fits = False
+        for k in range(2, hosts_cap + 1):
+            if per_host(k) <= budget_bytes:
+                hosts, fits = k, True
+                break
+        if not fits:
+            hosts = hosts_cap
+    plan = {
+        "hosts": int(hosts),
+        "per_host_bytes": int(per_host(hosts)),
+        "single_host_bytes": int(single),
+        "budget_bytes": int(budget_bytes),
+        "fits": bool(fits),
+        "alternatives": alternatives,
+    }
+    if record and enabled():
+        from .. import observability as obs
+        from . import ratecard as _rc
+
+        chosen = (f"hosts_{hosts}" if fits else "over_capacity")
+        _ratio, _mesh_prov = _rc.consult("capacity_residual_ratio", 1.0)
+        obs.record_decision(
+            "mesh_shards", chosen,
+            inputs={"total_len": int(total_len),
+                    "budget_bytes": int(budget_bytes),
+                    "max_hosts": int(hosts_cap), **comp},
+            predicted={"per_host_bytes": float(plan["per_host_bytes"])},
+            measured={"per_host_bytes":
+                      {"counters": ["mem/peak_tracked_bytes"]}},
+            alternatives=alternatives, band=0, provenance=_mesh_prov)
+    return plan
 
 
 def capacity_actuals(device=None) -> dict:

@@ -7,7 +7,11 @@ block on its device, the block the layout's ``pos_axes`` assign it
 holds block ``s * dp + d``).  They share the state (``counts_host``,
 ``restore``), the row shipping (:meth:`ShardedCountsBase.put_rows`) and
 the tail's position work (``vote`` and ``tail_stats`` on the resident
-blocks); only the accumulation differs.
+blocks); only the accumulation differs.  On a process-spanning mesh each
+process holds the blocks of its own shards (``None`` for the others'),
+ships and counts only its own shards' rows, and the collectives cross the
+process boundary; ``counts_host`` and the vote return the global value on
+every process, as the reference's do.
 
 The host helpers (:func:`block_for`, :func:`split_wide_rows`,
 :func:`real_row_mask`, :func:`route_to_slots`, :func:`record_slab`) are
@@ -192,10 +196,11 @@ class ShardedCountsBase:
                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Ship one slice's rows in ``n`` equal runs, run ``i`` to shard
         ``i``: ``[(starts int32 [R], codes uint8 [R, W])]`` on the shards'
-        devices.  Under ``delta8`` the slice is encoded in ``n`` chunks
-        and each shard unpacks its own (``wire.device.decode_slab``); a
-        slice whose encoding would not shrink ships raw, counted in the
-        account."""
+        devices (``None`` for a shard another process owns: each process
+        ships only its own shards' runs).  Under ``delta8`` the slice is
+        encoded in ``n`` chunks and each shard unpacks its own
+        (``wire.device.decode_slab``); a slice whose encoding would not
+        shrink ships raw, counted in the account."""
         from ..wire import encode_wire_slab
         from ..wire.device import decode_slab, wire_lane
 
@@ -206,8 +211,9 @@ class ShardedCountsBase:
             starts = np.ascontiguousarray(starts, dtype=np.int32)
             nbytes = starts.nbytes + codes.nbytes
             self.account.add("packed5", nbytes, n_rows, w)
-            return list(zip(self._shard_fns["row_starts"](starts),
-                            self._shard_fns["row_codes"](codes)))
+            return [None if st is None else (st, cd) for st, cd in zip(
+                self._shard_fns["row_starts"](starts),
+                self._shard_fns["row_codes"](codes))]
         lanes = [self._shard_fns["wire_lane"](wire_lane(a))
                  for a in slab.arrays()]
         u16 = tuple(a.dtype == np.uint16 for a in
@@ -215,12 +221,19 @@ class ShardedCountsBase:
         nbytes = sum(a.nbytes for a in slab.arrays())
         self.account.add("delta8", nbytes, n_rows, w)
         return [decode_slab(*(lane[i] for lane in lanes), slab.width,
-                            slab.sentinel, u16) for i in range(self.n)]
+                            slab.sentinel, u16) if i in self.mesh.local
+                else None for i in range(self.n)]
 
-    def zeros(self, length: int) -> List[torch.Tensor]:
-        """One ``[length, 6]`` int32 zero tensor a shard, on its device."""
-        return [torch.zeros((length, NUM_SYMBOLS), dtype=torch.int32,
+    def zeros(self, length: int) -> List[Optional[torch.Tensor]]:
+        """One ``[length, 6]`` int32 zero tensor a shard, on its device
+        (``None`` for a shard another process owns)."""
+        return [None if dev is None else
+                torch.zeros((length, NUM_SYMBOLS), dtype=torch.int32,
                             device=dev) for dev in self.mesh.devices]
+
+    def owned(self, xs: Sequence) -> List[Tuple[int, object]]:
+        """``(i, xs[i])`` for each shard ``i`` this process owns."""
+        return [(i, xs[i]) for i in self.mesh.local]
 
     def sync(self) -> None:
         """Wait for every enqueued count (the traced run's barrier)."""
@@ -231,14 +244,16 @@ class ShardedCountsBase:
     @property
     def blocks(self) -> List[torch.Tensor]:
         """The ``[block, 6]`` int32 count blocks, one a shard, in the
-        mesh's flat order (shard ``i`` holds block :meth:`block_index`)."""
+        mesh's flat order (shard ``i`` holds block :meth:`block_index`;
+        ``None`` where another process owns the shard)."""
         if self._blocks is None:
             self._blocks = self.zeros(self.block)
             self._track_counts()
         return self._blocks
 
     def counts_host(self) -> np.ndarray:
-        """The valid counts on the host, ``[total_len, 6]`` int32."""
+        """The valid counts on the host, ``[total_len, 6]`` int32 (every
+        process's blocks: a collective on a process-spanning mesh)."""
         return self._gather_fns["counts"](self.blocks)[: self.total_len]
 
     def restore(self, counts) -> None:
@@ -249,15 +264,18 @@ class ShardedCountsBase:
         self._track_counts()
 
     def _track_counts(self) -> None:
-        """The count blocks on the memory plane, once an accumulator: every
-        shard's block once (the whole padded tensor), released with the
-        accumulator."""
+        """The count blocks on the memory plane, once an accumulator,
+        released with it: this process's fraction of the padded tensor (its
+        own shards' blocks; the whole tensor on one process), the unit the
+        ``mesh_shards`` planner prices a host in (the reference's
+        ``_track_counts``)."""
         if not getattr(self, "_mem_tracked", False):
             self._mem_tracked = True
             from ..observability import memplane
 
+            frac = len(self.mesh.local) / max(1, self.n)
             memplane.track_obj("counts", self,
-                               int(self.padded_len * NUM_SYMBOLS * 4))
+                               int(self.padded_len * NUM_SYMBOLS * 4 * frac))
 
     # -- the tail's position work ------------------------------------------
     def vote(self, thresholds: Sequence[float], min_depth: int,
@@ -274,21 +292,23 @@ class ShardedCountsBase:
         from ..ops.vote import FILL_SENTINEL, vote_block
 
         code = FILL_SENTINEL if fill_code is None else fill_code
-        syms = [vote_block(blk, thresholds, min_depth, "ascii", code)[0]
-                for blk in self.blocks]
+        syms: List[Optional[torch.Tensor]] = [None] * self.n
+        for i, blk in self.owned(self.blocks):
+            syms[i] = vote_block(blk, thresholds, min_depth, "ascii",
+                                 code)[0]
         host = self._gather_fns["vote_syms"](syms)[:, : self.total_len]
         if offsets is None:
             return host
         offs = self._shard_fns["contig_offsets"](
             np.asarray(offsets, dtype=np.int64))
-        parts = []
-        for i, blk_syms in enumerate(syms):
+        parts: List[Optional[torch.Tensor]] = [None] * self.n
+        for i, blk_syms in self.owned(syms):
             lo = self.block_index(i) * self.block
             dash = (blk_syms == ord("-")).to(torch.int64)
             prefix = torch.cat([dash.new_zeros((dash.shape[0], 1)),
                                 dash.cumsum(1)], dim=1)
-            parts.append(prefix[:, (offs[i] - lo).clamp(0, self.block)])
-        total = all_reduce(self.mesh, parts, ALL)[0]
+            parts[i] = prefix[:, (offs[i] - lo).clamp(0, self.block)]
+        total = all_reduce(self.mesh, parts, ALL)[self.mesh.local[0]]
         return host, to_host(total[:, 1:] - total[:, :-1])
 
     def tail_stats(self, offsets: np.ndarray, site_keys: np.ndarray
@@ -296,8 +316,9 @@ class ShardedCountsBase:
         """Per-contig coverage sums ``[C]`` and per-site coverage ``[K]``
         without moving the coverage off the shards: each shard's prefix
         sums at the contig offsets and its owned sites' coverage, then one
-        ``all_reduce``.  Returns int32 tensors on the mesh's first device
-        (the sums wrap modulo 2^32, as the reference's int32 psum)."""
+        ``all_reduce``.  Returns int32 tensors on this process's first
+        device (the sums wrap modulo 2^32, as the reference's int32
+        psum)."""
         n_off = len(offsets)
         if len(site_keys) == 0:
             site_keys = np.full(1, -1, dtype=np.int32)
@@ -305,8 +326,8 @@ class ShardedCountsBase:
             np.asarray(offsets, dtype=np.int64))
         keys = self._shard_fns["site_keys"](
             np.asarray(site_keys, dtype=np.int64))
-        parts = []
-        for i, blk in enumerate(self.blocks):
+        parts: List[Optional[torch.Tensor]] = [None] * self.n
+        for i, blk in self.owned(self.blocks):
             lo = self.block_index(i) * self.block
             cov = blk.sum(dim=-1, dtype=torch.int64)
             prefix = torch.cat([cov.new_zeros(1), cov.cumsum(0)])
@@ -314,7 +335,7 @@ class ShardedCountsBase:
             owned = (keys[i] >= lo) & (keys[i] < lo + self.block)
             local = torch.where(
                 owned, cov[(keys[i] - lo).clamp(0, self.block - 1)], 0)
-            parts.append(torch.cat([part, local]))
-        total = all_reduce(self.mesh, parts, ALL)[0]
+            parts[i] = torch.cat([part, local])
+        total = all_reduce(self.mesh, parts, ALL)[self.mesh.local[0]]
         contig_sums = (total[1:n_off] - total[: n_off - 1]).to(torch.int32)
         return contig_sums, total[n_off:].to(torch.int32)

@@ -7,7 +7,9 @@ with all-PAD rows at start 0), run ``i`` to shard ``i``
 (``ShardedCountsBase.put_rows``); each shard counts its run into a
 full-length local ``[padded_len, 6]`` tensor (global starts), and one
 ``reduce_scatter`` over the flattened ring both sums the locals and leaves
-each shard its own block, added into its resident counts.  The vote then
+each shard its own block, added into its resident counts.  On a
+process-spanning mesh every process splits the same rows the same way and
+ships and counts only its own shards' runs.  The vote then
 runs on the blocks (``ShardedCountsBase.vote``).
 
 ``pileup`` picks each shard's count: ``pallas`` and ``auto`` run K1
@@ -75,7 +77,7 @@ class ShardedConsensus(ShardedCountsBase):
             key = "pallas" if kernel else "scatter"
             rows = self.put_rows(starts.astype(np.int32), codes)
             local = self.zeros(self.padded_len)
-            for i, (st, cd) in enumerate(rows):
+            for i, (st, cd) in self.owned(rows):
                 count_rows(local[i], st, cd, kernel, self.total_len)
             reduce_scatter(self.mesh, local, ALL, out=self.blocks)
             record_slab(key, t0, n_rows, w)

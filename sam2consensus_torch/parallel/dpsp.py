@@ -109,10 +109,11 @@ class ProductShardedConsensus(ShardedCountsBase):
                                  c_routed.reshape(-1, w))
             self.rows_shipped += self.n * r
             local = self.zeros(block_sp + halo + 1)
-            for i, (st, cd) in enumerate(rows):
+            for i, (st, cd) in self.owned(rows):
                 count_rows(local[i], st, cd, kernel, block_sp + halo)
-            acc = [t[:block_sp] for t in local]
-            shift(self.mesh, [t[block_sp:block_sp + halo] for t in local],
+            acc = [None if t is None else t[:block_sp] for t in local]
+            shift(self.mesh, [None if t is None else
+                              t[block_sp:block_sp + halo] for t in local],
                   ("sp",), out=acc)
             reduce_scatter(self.mesh, acc, ("dp",), out=self.blocks)
             key = f"dpsp_pallas_w{w}" if kernel else f"dpsp_w{w}"

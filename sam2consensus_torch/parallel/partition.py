@@ -1,7 +1,6 @@
 """Rule-driven placement of every named array a sharded accumulator ships.
 
-Port of the single-controller part of
-``sam2consensus_tpu/parallel/partition.py``: one ordered table of
+Port of ``sam2consensus_tpu/parallel/partition.py``: one ordered table of
 ``(regex, spec)`` rules matched against array names (the first match wins;
 a name no rule covers raises), and the shard and gather functions the
 table's specs turn into.  A spec is the port's own small type,
@@ -16,8 +15,10 @@ is copied ``non_blocking`` to its device (on the CPU the pieces are views).
 The callers bill the bytes (``wire.WireAccount``), as the reference's
 callers bill ``account_h2d``.  The gather functions fetch a sharded array
 into one host array, billed ``wire/d2h_bytes`` when it crossed from a
-card.  A mesh spans one process here; the reference's process-spanning
-branch (each host ships only its own devices' rows) is refused by name.
+card.  On a process-spanning mesh (``TorchMesh.spans``) every process holds
+the same host value and ships only its own shards' pieces, billed
+``mesh/shard_bytes/<rank>``, and a gather assembles the host value with one
+all-gather (``collectives.all_gather``), billed ``mesh/gather_bytes``.
 """
 
 from __future__ import annotations
@@ -114,9 +115,22 @@ def match_partition_rules(rules: Sequence[Tuple[str, Spec]],
 
 
 def mesh_process_count(mesh) -> int:
-    """Processes owning the mesh's devices: 1, the mesh is one process's
-    device list (the ``s2c_mesh_hosts`` gauge)."""
-    return 1
+    """Distinct processes owning the mesh's shards (1 on a
+    single-controller mesh; the ``s2c_mesh_hosts`` gauge)."""
+    return len(set(mesh.owners))
+
+
+def _record_mesh_bytes(counter: str, nbytes: int) -> None:
+    """Copy: bill ``nbytes`` to ``counter`` in the current registry
+    (observability must never break shipping)."""
+    if nbytes <= 0:
+        return
+    try:
+        from .. import observability as obs
+
+        obs.metrics().add(counter, int(nbytes))
+    except Exception:
+        pass
 
 
 def piece_order(mesh, axes: Sequence[str]) -> list:
@@ -131,14 +145,14 @@ def piece_order(mesh, axes: Sequence[str]) -> list:
 def shard_to_mesh(arr: np.ndarray, mesh, spec: Spec,
                   force_assemble: bool = False) -> list:
     """Place a host array on the mesh under ``spec``: a list of per-shard
-    tensors in the mesh's flat order.  Sharded arrays split into equal
-    pieces along ``spec.dim``.  The CUDA shards' pieces cross from one
-    page-locked copy of the array, ``non_blocking``.
-    ``force_assemble`` (the reference's per-process assembly) is refused:
-    a mesh here spans one process."""
-    if force_assemble:
-        raise ValueError("a process-spanning mesh (per-host assembly of the "
-                         "shards): not supported by the torch backend yet")
+    tensors in the mesh's flat order (``None`` for a shard another process
+    owns).  Sharded arrays split into equal pieces along ``spec.dim``.  The
+    CUDA shards' pieces cross from one page-locked copy of the array,
+    ``non_blocking``.  When the mesh spans processes, or under
+    ``force_assemble`` (the reference's test surface for that path: the
+    per-shard assembly on a one-process mesh), the process places only its
+    own shards' pieces and bills their bytes to
+    ``mesh/shard_bytes/<rank>``."""
     src = torch.from_numpy(np.ascontiguousarray(arr))
     if mesh.cuda_devices:
         pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
@@ -146,18 +160,23 @@ def shard_to_mesh(arr: np.ndarray, mesh, spec: Spec,
         src = pinned
     out = [None] * mesh.size
     if spec.kind == REPLICATED:
-        for i, dev in enumerate(mesh.devices):
-            out[i] = src.to(dev, non_blocking=True)
-        return out
-    order = piece_order(mesh, spec.axes)
-    n = len(order)
-    if src.shape[spec.dim] % n:
-        raise ValueError(f"dim {spec.dim} of {tuple(src.shape)} does not "
-                         f"split into {n} pieces")
-    piece = src.shape[spec.dim] // n
-    for k, i in enumerate(order):
-        out[i] = src.narrow(spec.dim, k * piece, piece).to(
-            mesh.devices[i], non_blocking=True)
+        pieces = [(i, src) for i in range(mesh.size)]
+    else:
+        order = piece_order(mesh, spec.axes)
+        n = len(order)
+        if src.shape[spec.dim] % n:
+            raise ValueError(f"dim {spec.dim} of {tuple(src.shape)} does "
+                             f"not split into {n} pieces")
+        piece = src.shape[spec.dim] // n
+        pieces = [(i, src.narrow(spec.dim, k * piece, piece))
+                  for k, i in enumerate(order)]
+    if force_assemble or mesh.spans:
+        pieces = [(i, p) for i, p in pieces if mesh.owners[i] == mesh.rank]
+        _record_mesh_bytes(f"mesh/shard_bytes/{mesh.rank}",
+                           sum(p.numel() * p.element_size()
+                               for _i, p in pieces))
+    for i, p in pieces:
+        out[i] = p.to(mesh.devices[i], non_blocking=True)
     return out
 
 
@@ -165,12 +184,25 @@ def gather_from_mesh(xs: Sequence[torch.Tensor], mesh,
                      spec: Spec) -> np.ndarray:
     """One host array from per-shard tensors (the inverse of
     :func:`shard_to_mesh`): sharded pieces concatenated along ``spec.dim``
-    in piece order, a replicated array from its first shard.  The bytes
-    fetched from a card are billed ``wire/d2h_bytes``."""
+    in piece order, a replicated array from this process's first shard.
+    The bytes fetched from a card are billed ``wire/d2h_bytes``; over a
+    process-spanning mesh the pieces assemble through one all-gather and
+    the host value's bytes are billed ``mesh/gather_bytes``."""
     from .. import observability as obs
+    from .collectives import all_gather
 
     if spec.kind == REPLICATED:
-        parts = [xs[0]]
+        parts = [xs[mesh.local[0]]]
+    elif mesh.spans:
+        order = piece_order(mesh, spec.axes)
+        host = all_gather(mesh, xs, order)
+        d2h = sum(xs[i].numel() * xs[i].element_size() for i in mesh.local
+                  if xs[i].device.type == "cuda")
+        if d2h:
+            obs.metrics().add("wire/d2h_bytes", d2h)
+        out = torch.cat(host, dim=spec.dim).numpy()
+        _record_mesh_bytes("mesh/gather_bytes", out.nbytes)
+        return out
     else:
         parts = [xs[i] for i in piece_order(mesh, spec.axes)]
     host = [p.cpu() for p in parts]
@@ -200,8 +232,8 @@ def make_shard_and_gather_fns(mesh, specs: Mapping[str, Spec]
 
 
 def publish_mesh_gauges(mesh) -> None:
-    """The mesh's shape on the metrics plane: ``mesh/hosts`` (1) and
-    ``mesh/shards``."""
+    """The mesh's shape on the metrics plane: ``mesh/hosts``
+    (:func:`mesh_process_count`) and ``mesh/shards``."""
     try:
         from .. import observability as obs
 

@@ -86,10 +86,11 @@ class PositionShardedConsensus(ShardedCountsBase):
         rows = self.put_rows((starts - wlo).astype(np.int32), codes)
         self.rows_shipped += n_rows
         local = self.zeros(wp + 1)
-        for i, (st, cd) in enumerate(rows):
+        for i, (st, cd) in self.owned(rows):
             count_rows(local[i], st, cd, False, wp)
-        win = all_reduce(self.mesh, [t[:wp] for t in local], ALL)
-        for i, blk in enumerate(self.blocks):
+        win = all_reduce(self.mesh, [None if t is None else t[:wp]
+                                     for t in local], ALL)
+        for i, blk in self.owned(self.blocks):
             lo = i * self.block
             a, b = max(lo, wlo), min(lo + self.block, wlo + wp)
             if a < b:
@@ -109,12 +110,12 @@ class PositionShardedConsensus(ShardedCountsBase):
         rows = self.put_rows(s_local.reshape(-1), c_grid.reshape(-1, w))
         self.rows_shipped += n * r
         local = self.zeros(block + halo + 1)
-        for i, (st, cd) in enumerate(rows):
+        for i, (st, cd) in self.owned(rows):
             count_rows(local[i], st, cd, kernel, block + halo)
-        for blk, loc in zip(self.blocks, local):
-            blk.add_(loc[:block])
-        shift(self.mesh, [t[block:block + halo] for t in local], ALL,
-              out=self.blocks)
+        for i, blk in self.owned(self.blocks):
+            blk.add_(local[i][:block])
+        shift(self.mesh, [None if t is None else t[block:block + halo]
+                          for t in local], ALL, out=self.blocks)
         return f"routed_pallas_w{w}" if kernel else f"routed_w{w}"
 
     def add(self, batch: SegmentBatch) -> None:

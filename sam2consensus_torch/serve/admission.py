@@ -1,9 +1,8 @@
 """Admission control: a bounded queue that sheds load instead of dying.
 
 Copy of ``sam2consensus_tpu/serve/admission.py`` (pinned by
-``tests/test_torch_copies.py``).  The port's runner refuses
-``S2C_MESH_HOSTS`` > 0 at server start, so ``mesh_hosts`` stays 0 there
-and an over-budget job is shed, never planned across hosts.
+``tests/test_torch_copies.py``).  The port's runner reads
+``mesh_hosts`` from ``S2C_MESH_HOSTS``, as the reference's does.
 
 ROADMAP item 2(b): at fleet scale the failure mode of an unbounded
 queue is not slowness, it is an OOM'd server taking every queued job

@@ -58,8 +58,7 @@ commits, also when its abandoned attempt finishes later).
 
 Where the port differs: the server runs on ``device`` (None = CUDA,
 raising without it; the CPU only when the caller names it);
-``S2C_MESH_HOSTS`` is refused by name at start
-(:func:`refuse_unported_serve`); ``persistent_cache`` names the kernel
+``persistent_cache`` names the kernel
 build directory (there is no JIT cache); and the host-rung retry reads
 the job's ``on_device_error`` only, not the reference's
 ``S2C_ON_DEVICE_ERROR``.
@@ -115,20 +114,6 @@ def _env_float(name: str) -> Optional[float]:
     except ValueError:
         logger.warning("%s=%r is not a number: ignored", name, raw)
         return None
-
-
-def refuse_unported_serve() -> None:
-    """Refuse, naming it, a serve option the port does not run yet: the
-    mesh capacity planner (``S2C_MESH_HOSTS`` > 0).  A value that means
-    the default (``S2C_MESH_HOSTS=0``) passes.  Raises ``ValueError``."""
-    try:
-        mesh_hosts = int(os.environ.get("S2C_MESH_HOSTS", "0"))
-    except ValueError:
-        raise ValueError(
-            "S2C_MESH_HOSTS must be an integer host count") from None
-    if mesh_hosts > 0:
-        raise ValueError(f"S2C_MESH_HOSTS {mesh_hosts}: not supported by "
-                         f"the torch backend yet")
 
 
 @dataclass
@@ -453,7 +438,6 @@ class ServeRunner:
 
         if prewarm not in ("auto", "off"):
             raise ValueError(f"prewarm={prewarm!r}: use 'auto' or 'off'")
-        refuse_unported_serve()
         # capacity-priced admission (observability/memplane.py): a job
         # whose predicted peak exceeds the budget is shed with reason
         # "capacity" instead of being allowed to OOM the warm server.
@@ -498,9 +482,18 @@ class ServeRunner:
             else _env_float("S2C_JOB_TIMEOUT")
         self.stall_timeout = stall_timeout if stall_timeout is not None \
             else _env_float("S2C_STALL_TIMEOUT")
+        # mesh scale-out capacity (hosts the fleet can dedicate to one
+        # sharded job): the capacity gate plans instead of shedding, an
+        # over-budget job admitted with a "needs K hosts" mesh_shards
+        # verdict (observability/memplane.plan_mesh_shards)
+        try:
+            _mesh_hosts = int(os.environ.get("S2C_MESH_HOSTS", "0"))
+        except ValueError:
+            raise ValueError(
+                "S2C_MESH_HOSTS must be an integer host count") from None
         self.admission = AdmissionController(
             max_queue=max_queue, tenant_quota=tenant_quota,
-            mem_budget=_mem_budget)
+            mem_budget=_mem_budget, mesh_hosts=_mesh_hosts)
         # -- continuous batching (serve/scheduler.py) -----------------
         # a typo'd --batch must fail the server start, same discipline
         # as --slo / --fault-inject
@@ -791,10 +784,11 @@ class ServeRunner:
         # typed up-front checks (parallel.mesh.MeshCapacityError): a
         # --shards over the mesh's device list, or with the host pileup,
         # rejects at admission, not after the queue is journaled
-        from ..parallel.mesh import validate_shards
+        from ..parallel.mesh import available_devices, validate_shards
 
         validate_shards(spec.config.shards,
-                        n_available=len(self.backend.mesh_devices),
+                        n_available=available_devices(
+                            self.backend.mesh_devices),
                         pileup=spec.config.pileup)
         if spec.config.pileup == "mxu":
             raise ValueError("--pileup mxu: not supported by the torch "
@@ -1409,6 +1403,7 @@ class ServeRunner:
             # when a --mem-budget is set — the header probe is the batch
             # scheduler's, whose handle a later pack/decode reuses
             predicted = None
+            shard_plan = None
             if self.admission.mem_budget:
                 total_len = self.scheduler._probe_total_len(entry)
                 if total_len:
@@ -1417,13 +1412,31 @@ class ServeRunner:
                     predicted = memplane.predict_job_peak_bytes(
                         total_len, spec.config)
                     entry["mem_predicted"] = predicted
+                    if (predicted > self.admission.mem_budget
+                            and self.admission.mesh_hosts > 1):
+                        # the memory plane as planner: price the job per
+                        # host across K hosts and admit it with a "needs
+                        # K hosts" verdict when it fits the fleet, instead
+                        # of shedding it (the mesh_shards decision records
+                        # the choice and its alternatives); the job itself
+                        # still runs on this server's mesh
+                        shard_plan = memplane.plan_mesh_shards(
+                            total_len, spec.config,
+                            budget_bytes=self.admission.mem_budget,
+                            max_hosts=self.admission.mesh_hosts)
                 if not self.scheduler.enabled:
                     # without batching nothing downstream reuses the
                     # probe handle: close it now, or a wide submission
                     # holds one open file per probed spec
                     self._close_probe(entry)
             dec = self.admission.admit(spec.tenant,
-                                       predicted_bytes=predicted)
+                                       predicted_bytes=predicted,
+                                       shard_plan=shard_plan)
+            if dec.admitted and dec.mesh_shards:
+                entry["mesh_shards"] = dec.mesh_shards
+                self.registry.add("serve/admission_mesh", 1)
+                self.registry.gauge("mesh/planned_hosts").set(
+                    dec.mesh_shards)
             if not dec.admitted:
                 entry["action"] = "reject"
                 entry["admission"] = dec.reason
@@ -1473,7 +1486,9 @@ class ServeRunner:
                         filename=os.path.abspath(
                             entry["spec"].filename),
                         outfolder=entry["spec"].config.outfolder,
-                        tenant=entry["spec"].tenant or "")
+                        tenant=entry["spec"].tenant or "",
+                        **({"mesh_shards": entry["mesh_shards"]}
+                           if entry.get("mesh_shards") else {}))
                     # mirror of the append's own stamp (same clock,
                     # same 1 ms rounding) — saves a replay per job
                     self._submit_unix.setdefault(

@@ -986,6 +986,33 @@ def test_memplane_copy():
         mod._reset_for_tests()
 
 
+@pytest.mark.parametrize("total_len", [1_000, 200_000, 4_600_000])
+def test_plan_mesh_shards_copy(monkeypatch, total_len):
+    """``plan_mesh_shards`` over one table of components (the reference's
+    capacity model's, both modules' ``predict_run_peak_bytes`` replaced by
+    it): the same plan at every budget between, below and above the
+    per-host figures and at every host cap."""
+    t_mp, r_mp = _obs_modules("memplane")
+    _total, comp = r_mp.predict_run_peak_bytes(total_len)
+
+    def model(*_a, **_k):
+        return sum(comp.values()), dict(comp)
+
+    monkeypatch.setattr(t_mp, "predict_run_peak_bytes", model)
+    monkeypatch.setattr(r_mp, "predict_run_peak_bytes", model)
+    probe = r_mp.plan_mesh_shards(total_len, None, max_hosts=4,
+                                  record=False)
+    alt = sorted(probe["alternatives"].values())
+    budgets = [0, 1, *(int(a) for a in alt), *(int(a) + 1 for a in alt),
+               1 << 40]
+    for budget in budgets:
+        for hosts in (0, 1, 2, 4):
+            assert t_mp.plan_mesh_shards(total_len, None, budget, hosts,
+                                         record=False) == \
+                r_mp.plan_mesh_shards(total_len, None, budget, hosts,
+                                      record=False)
+
+
 def test_linkprobe_copy(monkeypatch):
     from sam2consensus_torch.utils import linkprobe as t_lp
     from sam2consensus_tpu.utils import linkprobe as r_lp

@@ -121,6 +121,11 @@ def test_factor_mesh_and_validate_shards_equal_reference(n):
                 except mod.MeshCapacityError as exc:
                     assert isinstance(exc, ValueError)
                     outs.append(str(exc))
+            # the port names torch.distributed where the reference
+            # names jax.distributed
+            if outs[1] is not None:
+                outs[1] = outs[1].replace("jax.distributed",
+                                          "torch.distributed")
             assert outs[0] == outs[1], (shards, pileup)
     mesh = t_mesh.make_mesh(n, ["cpu"] * 9)
     assert (mesh.shape["dp"], mesh.shape["sp"]) == r_mesh.factor_mesh(n)
@@ -176,7 +181,12 @@ def test_partition_table_equals_reference(pos):
 
 def test_partition_shard_gather_round_trip():
     """Every spec places and gathers back exactly, in block order; the
-    per-host assembly of a process-spanning mesh is refused by name."""
+    per-shard assembly of a process-spanning mesh (``force_assemble`` on
+    one process) places the same pieces, gathers back exactly and bills
+    this process's bytes to ``mesh/shard_bytes/0``: the whole array once
+    when sharded, once a shard when replicated."""
+    from sam2consensus_torch.observability.metrics import pop_run, push_run
+
     mesh = t_mesh.make_mesh(8, CPU8)
     counts = np.arange(8 * 5 * 6, dtype=np.int32).reshape(40, 6)
     for pos in (("dp", "sp"), ("sp", "dp")):
@@ -195,9 +205,20 @@ def test_partition_shard_gather_round_trip():
                               syms)
         rep = shard["site_cov"](counts[:, 0].copy())
         assert all(np.array_equal(r.numpy(), counts[:, 0]) for r in rep)
-    with pytest.raises(ValueError, match="process-spanning"):
-        t_part.shard_to_mesh(counts, mesh, specs["counts"],
-                             force_assemble=True)
+    for name, arr, billed in (("counts", counts, counts.nbytes),
+                              ("site_cov", counts[:, 0].copy(),
+                               8 * counts[:, 0].nbytes)):
+        reg = push_run()
+        try:
+            forced = t_part.shard_to_mesh(arr, mesh, specs[name],
+                                          force_assemble=True)
+            assert reg.value("mesh/shard_bytes/0") == billed
+        finally:
+            pop_run(reg)
+        plain = shard[name](arr)
+        assert all(np.array_equal(f.numpy(), p.numpy())
+                   for f, p in zip(forced, plain))
+        assert np.array_equal(gather[name](forced), arr)
 
 
 # -- the collectives -----------------------------------------------------------

@@ -374,7 +374,10 @@ def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
     if argv[0] == "--shards":
         with pytest.raises(r_mesh.MeshCapacityError) as want:
             r_mesh.validate_shards(2, n_available=1)
-        assert str(exc.value.code) == f"error: {want.value}"
+        # torch.distributed named where the reference names
+        # jax.distributed
+        assert str(exc.value.code) == "error: " + str(want.value).replace(
+            "jax.distributed", "torch.distributed")
         return
     assert str(exc.value.code) == (f"error: {named}: not supported by "
                                    f"the torch backend yet")
@@ -383,15 +386,31 @@ def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
 @pytest.mark.parametrize("env,value", [("S2C_MESH_HOSTS", "2")])
 def test_unported_serve_env_refused_by_name(tmp_path, monkeypatch, env,
                                             value):
+    """``S2C_MESH_HOSTS``, once refused by name, now runs as the
+    reference's: the server reads it into admission's ``mesh_hosts``, a
+    ``serve`` run under it writes the reference's files, and a value that
+    is not an integer fails the start with the reference's text."""
     from sam2consensus_torch import cli
+    from sam2consensus_tpu.serve import ServeRunner as RServeRunner
 
     monkeypatch.setenv(env, value)
-    with pytest.raises(SystemExit, match=f"error: {env} {value}: not "
-                                         f"supported by the torch"):
-        cli.main(["serve", "-i", str(tmp_path / "x.sam"), "--quiet"],
-                 device="cpu")
-    with pytest.raises(ValueError, match=f"{env} {value}: not supported"):
+    r = runner()
+    try:
+        assert r.admission.mesh_hosts == int(value)
+    finally:
+        r.close()
+    path = sim(tmp_path, "x.sam", 81)
+    assert cli.main(["serve", "-i", path, "-o", str(tmp_path / "o"),
+                     "--quiet"], device="cpu") == 0
+    assert read_dir(str(tmp_path / "o")) == jax_cli_dir(
+        [path], str(tmp_path / "ref"))
+    monkeypatch.setenv(env, "lots")
+    with pytest.raises(ValueError) as got:
         runner()
+    monkeypatch.setenv("S2C_JIT_CACHE", "")
+    with pytest.raises(ValueError) as want:
+        RServeRunner(prewarm="off", persistent_cache=False)
+    assert str(got.value) == str(want.value)
 
 
 # -- the batching and count-cache options now run -----------------------------
