@@ -321,7 +321,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    snapshot's mesh section, byte-identical to phase 7; without the
    variable the same job is shed as ``capacity``; (4)
    ``models/consensus.py`` over ``ecoli_scale``'s first slab on the card
-   equals its CPU run.
+   equals its CPU run;
+19. the MXU pileup and the reference's tuner (launch counts set to 0
+   before it; the MXU route is torch ops and a cuBLAS product, no kernel
+   of the repo's): (1) the MXU route (``PileupAccumulator(strategy=
+   "mxu").add`` of an unstaged batch: host plan, pinned copy, slot
+   layout, product, fold) on ``ecoli_scale``'s slab and on
+   ``longread_sv``'s 16,384-wide slab (``--segment-width -1``), exactly
+   the plain scatter's and K1's route's counts, its time (CUDA events)
+   beside K1's route and ``torch.bincount``, E, the blowup, the chunk,
+   the allocator peak and its bound (the product's FLOPs at the float32
+   or TF32 rate, or its bytes over 3.35 TB/s, the larger); (2) ``--pileup
+   mxu`` through ``cli.main`` on ``ecoli_scale``, ``amplicon_deep`` and
+   ``longread_sv``, and ``ecoli_scale --wire delta8``, byte-identical to
+   phase 7's CUDA and CPU runs, ``strategy_used``, wall and allocator
+   peak beside the default's, no K1, K2/K3 as phase 7; (3) phase 8's
+   check on the staged MXU route, packed5 and delta8; (4) ``--fault-inject
+   pileup_dispatch:fatal:0:1`` with fallback under ``mxu`` lands on
+   ``device_scatter``, byte-identical; (5) a served ``--pileup mxu`` job
+   over ``ecoli_scale``, prewarmed, equal to its one-shot run; (6)
+   ``ecoli_scale --shards 4 --pileup mxu`` under dp, sp and dpsp on
+   virtual shards of the card, byte-identical; (7)
+   ``PileupAccumulator(strategy="auto")`` over ``ecoli_scale``'s and
+   ``chr1_scale``'s batches beside ``strategy="pallas"``: each slab's
+   stage, the lock or its lack, the accumulate walls, equal counts (no
+   speed claim; ``--pileup auto`` keeps the host gate, then K1).
 
 Then each kernel is held against its plain version once more at the
 largest shapes the main path gave it (fresh outputs, exact; a difference
@@ -973,10 +997,11 @@ def main_path(tmp: str, card: str, cap: Capture) -> dict:
         ev = {n: sum(s.elapsed_time(e) for s, e in pairs)
               for n, pairs in events.items()}
         launched = {k.name: k.launches - before[k.name] for k in kernels}
-        PHASE7[name] = {"path": path, "flags": flags, "wall": wall,
-                        "launched": launched,
-                        "out": os.path.join(tmp, name + "_cuda")}
         mem = torch.cuda.max_memory_allocated() / 2**20
+        PHASE7[name] = {"path": path, "flags": flags, "wall": wall,
+                        "launched": launched, "peak_mib": mem,
+                        "out": os.path.join(tmp, name + "_cuda"),
+                        "cpu_out": os.path.join(tmp, name + "_cpu")}
         cpu_wall = run_cli(["-i", path, "-o", os.path.join(tmp, name + "_cpu"),
                             *flags, "--decoder", "py", "--pileup", "pallas"],
                            "cpu")
@@ -4770,8 +4795,9 @@ def chr1_scale(path: str, n_reads: int = CHR1_READS, read_len: int = 150,
             for i, s in enumerate(starts.tolist())))
 
 
-def ecoli_batches(path: str):
-    """``ecoli_scale``'s slabs as the native decoder ships them."""
+def ecoli_batches(path: str, segment_width: int = 0):
+    """``ecoli_scale``'s slabs (or another input's, at ``segment_width``)
+    as the native decoder ships them."""
     from sam2consensus_torch.encoder.events import (GenomeLayout,
                                                     resolve_segment_width)
     from sam2consensus_torch.encoder.native_encoder import NativeReadEncoder
@@ -4783,7 +4809,8 @@ def ecoli_batches(path: str):
         layout = GenomeLayout(contigs)
         enc = NativeReadEncoder(layout, on_lines=stream.add_lines,
                                 on_bytes=stream.add_bytes,
-                                segment_width=resolve_segment_width(0))
+                                segment_width=resolve_segment_width(
+                                    segment_width))
         return layout.total_len, list(enc.encode_blocks_from(stream))
 
 
@@ -4811,7 +4838,8 @@ def sharded_counts_and_syncs(card: str, path: str, mesh) -> None:
 
     def layouts():
         return {
-            "dp auto (K1)": ShardedConsensus(m, total_len, "auto"),
+            "dp pallas (K1)": ShardedConsensus(m, total_len, "pallas"),
+            "dp auto (the tuner)": ShardedConsensus(m, total_len, "auto"),
             "dp scatter": ShardedConsensus(m, total_len, "scatter"),
             "sp scatter": PositionShardedConsensus(m, total_len, halo),
             "sp pallas": PositionShardedConsensus(m, total_len, halo,
@@ -4858,7 +4886,7 @@ def sharded_counts_and_syncs(card: str, path: str, mesh) -> None:
                                          b.buckets.values()))
     accs = layouts()
     for what, acc, batch, key in (
-            ("dp K1 route", accs["dp auto (K1)"], big, "pallas_w"),
+            ("dp K1 route", accs["dp pallas (K1)"], big, "pallas_w"),
             ("sp window route", accs["sp scatter"], window, "window_w"),
             ("sp routed route (K1)", accs["sp pallas"], big,
              "routed_pallas_w"),
@@ -5133,7 +5161,7 @@ def mesh_sync_routes(local, path: str) -> dict:
     m = make_mesh(MESH_WORLD * MESH_LOCAL, local)
     out = {}
     for what, acc in (
-            ("dp K1", ShardedConsensus(m, total_len, "auto")),
+            ("dp K1", ShardedConsensus(m, total_len, "pallas")),
             ("sp routed K1", PositionShardedConsensus(m, total_len, halo,
                                                       "pallas")),
             ("dpsp K1", ProductShardedConsensus(m, total_len, halo,
@@ -5480,6 +5508,332 @@ def process_spanning(tmp: str, card: str) -> dict:
         fail(f"phase 18: kernels never launched on the process-spanning "
              f"paths: {missing}")
     return totals
+
+
+# -- phase 19: the MXU pileup and the tuner ----------------------------------
+#: the card's matmul rates the MXU route's product is bounded by (H100 SXM
+#: peak, dense, 700 W): float32 outside the tensor cores, and TF32 when the
+#: process allows it
+FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+
+
+def mxu_route(card: str, label: str, total_len: int, w: int,
+              starts: np.ndarray, codes: np.ndarray) -> None:
+    """19.1: the MXU route on one slab.  The accumulator's
+    (``PileupAccumulator(strategy="mxu").add`` of an unstaged batch: the
+    host plan over the reference's row set, the pinned copy, the slot
+    layout, the product and the fold) where its blowup gate of 16 holds;
+    and the route over the real rows with no gate (the host plan, the
+    copies, ``mxu_pileup.pileup_mxu_compact``), which a slab of few wide
+    rows needs.  Each exactly the plain scatter's and K1's route's counts;
+    the route's time (CUDA events, and its product + fold alone) beside
+    K1's route and ``torch.bincount``, E, the blowup, the chunk, the
+    allocator peak and its bound."""
+    from sam2consensus_torch.encoder.events import SegmentBatch
+    from sam2consensus_torch.ops import mxu_pileup as mx
+    from sam2consensus_torch.ops.pileup import (PileupAccumulator,
+                                                expand_segment_positions,
+                                                pack_codes, padded_total_len,
+                                                real_rows, round_rows_pow2,
+                                                scatter_segments)
+    from sam2consensus_torch.ops.pileup_kernel import K1, accumulate_rows
+
+    dev = torch.device("cuda")
+    tp = mx.TILE_POSITIONS
+    padded = padded_total_len(total_len)
+    n = real_rows(codes)
+    st = torch.from_numpy(np.ascontiguousarray(starts[:n])).to(dev)
+    cd = torch.from_numpy(np.ascontiguousarray(codes[:n])).to(dev)
+    want = scatter_segments(torch.zeros((padded, 6), dtype=torch.int32,
+                                        device=dev), st, cd, total_len)
+    k1 = accumulate_rows(torch.zeros_like(want), st, pack_codes(cd))
+    err = max_err(k1[:total_len], want[:total_len])
+    gated = mx.plan_slots(starts[:min(len(starts), round_rows_pow2(n))], w,
+                          padded, tp, max_blowup=16.0)
+    acc_line = "skewed at the gate of 16: --pileup mxu counts it by the " \
+        "scatter"
+    if gated is not None:
+        acc = PileupAccumulator(total_len, dev, "mxu")
+        k1_before = K1.launches
+        acc.add(SegmentBatch(buckets={w: (starts, codes)},
+                             n_reads=len(starts)))
+        torch.cuda.synchronize()
+        if K1.launches != k1_before or \
+                acc.strategy_used.get(f"mxu_w{w}") != 1:
+            fail(f"phase 19.1: {label}: the accumulator ran "
+                 f"{acc.strategy_used}, K1 launches "
+                 f"{K1.launches - k1_before}")
+        err = max(err, max_err(acc.counts, want[:total_len]))
+        acc_line = (f"E={gated.rows_per_tile} blowup={gated.blowup:.3f} "
+                    f"{acc.strategy_used}")
+        del acc
+
+    def plan():
+        return mx.plan_slots(starts[:n], w, padded, tp,
+                             max_blowup=float("inf"))
+
+    def route(counts):
+        p = plan()
+        slot = torch.from_numpy(p.slot).to(dev)
+        mx.pileup_mxu_compact(
+            counts, torch.from_numpy(np.ascontiguousarray(starts[:n])).to(
+                dev), torch.from_numpy(np.ascontiguousarray(
+                    codes[:n])).to(dev), slot, tile=tp, n_tiles=p.n_tiles,
+            rows_per_tile=p.rows_per_tile, width=w)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = torch.zeros_like(want)
+    route(got)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # the plain scatter's PAD cells sit in its sacrificial row total_len
+    err = max(err, max_err(got[:total_len], want[:total_len]))
+    p = plan()
+    if err:
+        fail(f"phase 19.1: {label}: the MXU route max_abs_err={err}")
+    chunk, rows = mx._chunking(p.rows_per_tile, tp, min(w, tp))
+    ms = time_ms(lambda: route(got), 3)
+    t0 = time.perf_counter()
+    plan()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    slot = torch.from_numpy(p.slot).to(dev)
+    kw = dict(tile=tp, n_tiles=p.n_tiles, rows_per_tile=p.rows_per_tile,
+              width=w)
+    product_ms = time_ms(lambda: mx.pileup_mxu_compact(got, st, cd, slot,
+                                                       **kw), 3)
+    k1_ms = time_ms(lambda: accumulate_rows(k1, st, pack_codes(cd)), 5)
+    plain_ms = time_ms(lambda: scatter_segments(want, st, cd, total_len), 5)
+    pos, code = expand_segment_positions(st, cd)
+    flat = pos * 6 + code
+    lib_ms = time_ms(lambda: torch.bincount(flat, minlength=got.numel()), 5)
+    del pos, code, flat, got, k1, want
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    flops = 2 * p.n_tiles * p.rows_per_tile * tp * 6 * w
+    nbytes = n * (4 + w + 4) + 2 * padded * 6 * 4
+    op_ms = flops / (TF32_FLOPS_PER_S if tf32 else FP32_FLOPS_PER_S) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  19.1 {label} [{card}]: rows={n} width={w} L={total_len}; "
+          f"the accumulator: {acc_line}; the route over the real rows: "
+          f"n_tiles={p.n_tiles} E={p.rows_per_tile} blowup={p.blowup:.3f} "
+          f"chunk={chunk} tiles x {rows} rows (budget "
+          f"{mx.MXU_BUDGET_BYTES >> 20} MiB); max_abs_err={err} (vs the "
+          f"plain scatter and K1's route)")
+    print(f"    MXU route (plan + ship + product + fold, CUDA events) "
+          f"{ms:.3f} ms, of which the host plan {plan_ms:.3f} ms and "
+          f"product + fold {product_ms:.3f} ms; K1 route {k1_ms:.3f} ms; "
+          f"plain scatter {plain_ms:.3f} ms; torch.bincount "
+          f"{lib_ms:.3f} ms; allocator peak "
+          f"{peak / 2**20:.1f} MiB; bound {max(op_ms, byte_ms):.3f} ms "
+          f"({flops / 1e9:.1f} GFLOP at {'TF32' if tf32 else 'float32'}: "
+          f"{op_ms:.3f} ms; {nbytes / 1e6:.1f} MB: {byte_ms:.3f} ms)")
+
+
+def mxu_one_shot(tmp: str, card: str, cap: Capture) -> str:
+    """19.2: ``--pileup mxu`` through ``cli.main`` on CUDA, byte-identical
+    to phase 7's default and CPU runs, no K1, K2/K3 as the default run;
+    ``ecoli_scale`` also under ``--wire delta8``.  Returns the output
+    directory of ``ecoli_scale``'s packed5 run."""
+    from sam2consensus_torch.kernels.build import all_kernels
+
+    kernels = all_kernels()
+    runs = [(name, []) for name in ("ecoli_scale", "amplicon_deep",
+                                    "longread_sv")]
+    runs.append(("ecoli_scale", ["--wire", "delta8"]))
+    outs = {}
+    for name, extra in runs:
+        p7 = PHASE7[name]
+        out = os.path.join(tmp, f"p19_{name}_{len(cap.stats)}")
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.reset_peak_memory_stats()
+        wall = run_cli(["-i", p7["path"], "-o", out, *p7["flags"],
+                        "--decoder", "native", "--pileup", "mxu", *extra],
+                       None)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ex = cap.stats[-1].extra
+        launched = {k.name: k.launches - before[k.name] for k in kernels}
+        same = same_files(out, p7["out"]) and same_files(out, p7["cpu_out"])
+        label = " ".join([name, "--pileup mxu", *extra])
+        print(f"  19.2 {label} [{card}]: strategy_used={ex['pileup']} "
+              f"wall={wall:.3f}s (default {p7['wall']:.3f}s) allocator "
+              f"peak {peak:.1f} MiB (default {p7['peak_mib']:.1f} MiB) "
+              f"pileup enqueue {ex['pileup_sec']:.3f}s launches {launched} "
+              f"byte-identical={same}")
+        if not same:
+            fail(f"phase 19.2: {label} differs from the default and CPU "
+                 f"runs")
+        if name == "ecoli_scale" and \
+                not any(k.startswith("mxu_w") for k in ex["pileup"]):
+            fail(f"phase 19.2: {label}: no slab took the MXU route")
+        if launched["pileup_rows"]:
+            fail(f"phase 19.2: {label}: K1 launched under --pileup mxu")
+        for k in ("insertion_vote", "insertion_table"):
+            if launched[k] != p7["launched"][k]:
+                fail(f"phase 19.2: {label}: {k} launched {launched[k]} "
+                     f"times, the default run {p7['launched'][k]}")
+        outs.setdefault(name, out)
+    return outs["ecoli_scale"]
+
+
+def mxu_sync_free(cap: Capture) -> None:
+    """19.3 (phase 8's check, extended): the staged explicit MXU route
+    (``PileupAccumulator.add`` of a batch staged for ``mxu``: event wait,
+    slot layout, product, fold), packed5 and delta8, makes no host
+    synchronisation and counts what K1's route counts."""
+    _, (counts, starts, packed), _ = cap.calls["K1"]
+    want = torch.zeros_like(counts)
+    from sam2consensus_torch.ops.pileup_kernel import accumulate_rows
+
+    accumulate_rows(want, starts, packed)
+    for wire in ("packed5", "delta8"):
+        acc, batch = staged_batch(counts, starts, packed, "mxu", wire)
+        acc.stage(batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc.add(batch)
+        except RuntimeError as exc:
+            fail(f"phase 19.3: the staged MXU route ({wire}) synchronised "
+                 f"with the host: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        err = max_err(acc.counts, want[:acc.total_len])
+        print(f"  19.3 the staged MXU route ({wire}) under "
+              f"set_sync_debug_mode('error'): no host synchronisation, "
+              f"{acc.strategy_used}, max_abs_err={err}")
+        if err or not any(k.startswith("mxu_w") for k in acc.strategy_used):
+            fail(f"phase 19.3: the staged MXU route ({wire}) counts "
+                 f"differently or skewed: {acc.strategy_used}")
+
+
+def mxu_served(tmp: str, card: str, one_shot: str) -> None:
+    """19.5: a served ``--pileup mxu`` job over ``ecoli_scale``: the
+    auto-prewarm ran the MXU route, and the job's files equal its
+    one-shot run's."""
+    from sam2consensus_torch.io.fasta import write_outputs
+    from sam2consensus_torch.serve import JobSpec, ServeRunner
+
+    out = os.path.join(tmp, "p19_served")
+    cfg = job_config("ecoli_scale", out, "--pileup", "mxu")
+    runner = ServeRunner()
+    try:
+        (res,) = runner.submit_jobs([JobSpec(PHASE7["ecoli_scale"]["path"],
+                                             cfg)])
+        for th in list(runner._prewarm_threads):
+            th.join()
+        shapes = runner.registry.value("compile/prewarm_shapes")
+    finally:
+        runner.close()
+    if not res.ok:
+        fail(f"phase 19.5: the served mxu job failed: {res.error}")
+    write_outputs(res.fastas, cfg.outfolder, cfg.prefix, cfg.nchar,
+                  cfg.thresholds, echo=lambda *a: None)
+    same = same_files(out, one_shot)
+    print(f"  19.5 served ecoli_scale --pileup mxu [{card}]: "
+          f"wall={res.elapsed_sec:.3f}s prewarmed shapes={shapes} "
+          f"strategy_used={res.stats.extra['pileup']} byte-identical={same}")
+    if not same or not shapes:
+        fail("phase 19.5: the served mxu job differs from its one-shot run "
+             "or was not prewarmed")
+
+
+def tuner_on_card(card: str, name: str, path: str) -> None:
+    """19.7: ``PileupAccumulator(strategy="auto")`` (the reference's
+    tuner: scatter against K1) over an input's batches beside
+    ``strategy="pallas"`` over the same batches: each slab's stage, the
+    lock or its lack, the tuner's seconds a megacell and the accumulate
+    walls; the counts must be equal."""
+    from sam2consensus_torch.encoder.events import SegmentBatch
+    from sam2consensus_torch.ops.pileup import PileupAccumulator
+
+    total_len, batches = ecoli_batches(path)
+    walls, accs, stages = {}, {}, []
+    for strategy in ("pallas", "auto", "pallas", "auto"):
+        acc = PileupAccumulator(total_len, torch.device("cuda"), strategy)
+        if strategy == "auto":
+            stages = []
+
+            def logged(n_rows, width, _choose=acc._tuner.choose,
+                       _log=stages):
+                out = _choose(n_rows, width)
+                _log.append((n_rows, width, *out))
+                return out
+
+            acc._tuner.choose = logged
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            acc.add(SegmentBatch(buckets=dict(b.buckets),
+                                 n_reads=b.n_reads))
+        acc.sync()
+        walls.setdefault(strategy, []).append(time.perf_counter() - t0)
+        accs[strategy] = acc
+    err = max_err(accs["auto"].counts, accs["pallas"].counts)
+    tune = accs["auto"].strategy_used.get("autotune")
+    print(f"  19.7 {name} tuner [{card}]: slabs (rows, width, chosen, "
+          f"timed) {stages}; "
+          + (f"locked {tune}" if tune else "no lock (too few slabs to "
+             "finish the trial)")
+          + f"; strategy_used {accs['auto'].strategy_used}; accumulate "
+          f"wall auto {[round(x, 4) for x in walls['auto']]} s vs pallas "
+          f"{[round(x, 4) for x in walls['pallas']]} s; max_abs_err={err}")
+    if err:
+        fail(f"phase 19.7: {name}: the tuner's counts differ from K1's")
+    del accs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mxu_phase(tmp: str, card: str, cap: Capture) -> None:
+    """Phase 19: the MXU pileup and the reference's tuner on the card."""
+    from sam2consensus_torch.kernels.build import all_kernels, reset_launches
+
+    kernels = all_kernels()
+    reset_launches(kernels)
+    eco = PHASE7["ecoli_scale"]
+    total_len, batches = ecoli_batches(eco["path"])
+    w, (starts, codes) = max(batches[0].buckets.items(),
+                             key=lambda kv: len(kv[1][0]))
+    mxu_route(card, "ecoli_scale's slab", total_len, w, starts, codes)
+    total_len, batches = ecoli_batches(PHASE7["longread_sv"]["path"], -1)
+    w, (starts, codes) = max((kv for b in batches
+                              for kv in b.buckets.items()),
+                             key=lambda kv: kv[0])
+    mxu_route(card, f"longread_sv's {w}-wide slab (--segment-width -1)",
+              total_len, w, starts, codes)
+    del batches, starts, codes
+    one_shot = mxu_one_shot(tmp, card, cap)
+    mxu_sync_free(cap)
+    # 19.4: a fault under --pileup mxu demotes to the device scatter
+    ex, launched = fault_run(
+        tmp, card, cap, "ecoli_scale", eco["path"], eco["flags"],
+        "19.4 --pileup mxu fallback + pileup_dispatch:fatal:0:1",
+        ["--pileup", "mxu", "--on-device-error", "fallback",
+         "--fault-inject", "pileup_dispatch:fatal:0:1"],
+        read_dir(eco["out"]))
+    if ex.get("pileup_ladder") != "device_scatter" or \
+            launched["pileup_rows"]:
+        fail(f"phase 19.4: the mxu run landed on {ex.get('pileup_ladder')} "
+             f"with {launched['pileup_rows']} K1 launches")
+    mxu_served(tmp, card, one_shot)
+    # 19.6: --shards 4 --pileup mxu on virtual shards of the card
+    mesh4 = [torch.device("cuda", 0)] * 4
+    for mode in ("dp", "sp", "dpsp"):
+        ex, launched = sharded_run(
+            tmp, card, cap, "ecoli_scale", f"19.6 {mode} --pileup mxu",
+            mesh4, ["--shards", "4", "--shard-mode", mode, "--pileup",
+                    "mxu"], eco["out"], eco["wall"])
+        if ex["shard_mode"] != mode or launched["pileup_rows"]:
+            fail(f"phase 19.6: {mode}: ran {ex['shard_mode']} with "
+                 f"{launched['pileup_rows']} K1 launches")
+    for name in ("ecoli_scale", "chr1_scale"):
+        tuner_on_card(card, name, PHASE7[name]["path"])
+    print(f"  phase 19 launches (counts set to 0 before it) [{card}]: "
+          f"{ {k.name: k.launches for k in kernels} }")
 
 
 # -- phase 9: the C++ decoder against the Python encoder --------------------
@@ -5854,6 +6208,10 @@ def main() -> int:
               f"[{card}]")
         spanning = process_spanning(tmp, card)
         lap("18 process-spanning mesh")
+
+        print(f"phase 19: the MXU pileup and the tuner [{card}]")
+        mxu_phase(tmp, card, cap)
+        lap("19 MXU pileup, tuner")
 
     print(f"kernel timing at main-path shapes [{card}]")
     report = measure(cap, launches, errs, sharded, spanning)

@@ -9,7 +9,8 @@ output-encoding gate and ``--insertion-kernel``, ``_unpack_tail`` with its
 expanders, ``_native_vote`` and ``_assemble``):
 
 1. the pileup strategy (``cfg.pileup``): ``pallas`` counts on the card
-   (``ops.pileup.PileupAccumulator``, K1), ``scatter`` there with the torch
+   (``ops.pileup.PileupAccumulator``, K1), ``mxu`` there by the one-hot
+   tile product (``ops.mxu_pileup``), ``scatter`` there with the torch
    scatter; ``host`` counts on the host
    (``ops.pileup.HostPileupAccumulator``); ``auto`` takes the host counts
    up to the genome length and the input bytes that
@@ -1427,18 +1428,19 @@ class TorchBackend:
     def _make_accumulator(self, layout, records, cfg: RunConfig,
                           stats: BackendStats):
         """The pileup strategy (the JAX backend's choice in ``_run``):
-        ``pallas`` and ``scatter`` the device accumulator (K1, or the
-        torch scatter), ``host`` the host counts, ``auto`` the host counts
-        on a genome and an input within the gate's bounds (recorded with
-        the input's size and the reason), else ``pallas``.  An input whose
+        ``pallas``, ``mxu`` and ``scatter`` the device accumulator (K1, the
+        MXU route, or the torch scatter), ``host`` the host counts,
+        ``auto`` the host counts on a genome and an input within the
+        gate's bounds (recorded with the input's size and the reason),
+        else ``pallas``.  An input whose
         size is not known without decoding it (a plain gzip stream,
         records in memory) goes to the card.  On the CPU device there is
         no link: with the native library the bounds vanish.  The row wire
         is resolved here, once per run (:meth:`_resolve_wire`)."""
         strategy = cfg.pileup
-        if strategy not in ("auto", "pallas", "scatter", "host"):
+        if strategy not in ("auto", "pallas", "mxu", "scatter", "host"):
             raise ValueError(f"--pileup {strategy!r}: the port runs auto, "
-                             f"pallas, scatter and host")
+                             f"pallas, mxu, scatter and host")
         host = strategy == "host"
         if strategy == "auto":
             bound, byte_bound, reason = host_pileup_bound(
@@ -1465,7 +1467,7 @@ class TorchBackend:
             return HostPileupAccumulator(layout.total_len)
         return PileupAccumulator(
             layout.total_len, self.device,
-            "scatter" if strategy == "scatter" else "pallas", wire)
+            "pallas" if strategy == "auto" else strategy, wire)
 
     # -- sharding (parallel/) ------------------------------------------------
     def _resolve_shards(self, cfg: RunConfig) -> int:
@@ -1476,7 +1478,7 @@ class TorchBackend:
         host`` (one device).  Over an initialised process group the list
         is global: every rank's ``mesh_devices`` end to end
         (``parallel.mesh.available_devices``).  A sharded run refuses the
-        host pileup and ``--pileup mxu``."""
+        host pileup."""
         from ..parallel.mesh import available_devices, validate_shards
 
         n_dev = available_devices(self.mesh_devices)
@@ -1490,9 +1492,6 @@ class TorchBackend:
                     "--pileup host is a single-device strategy (the count "
                     "tensor accumulates on the host); drop --shards or "
                     "pick a device pileup strategy")
-            if cfg.pileup not in ("auto", "pallas", "scatter"):
-                raise ValueError(f"--pileup {cfg.pileup}: not supported by "
-                                 f"the torch backend yet")
         return shards
 
     def _start_sharded(self, cfg: RunConfig, layout, shards: int, batches,
@@ -1522,9 +1521,11 @@ class TorchBackend:
         auto`` prices the three layouts from the first slab's shape
         (``parallel.auto``; the link through :func:`_decide_link`, which
         probes only when the link can change the pick) and records the
-        ``shard_mode`` decision.  dp takes ``cfg.pileup`` (K1 under
-        ``auto`` and ``pallas``); sp and dpsp take K1 under ``pallas``
-        only, the torch scatter otherwise, as in the reference.  On a
+        ``shard_mode`` decision.  dp takes ``cfg.pileup``, ``auto`` as K1
+        (the port's resolution of ``--pileup auto``, whose tuner is dp's
+        ``pileup="auto"``); sp and dpsp take K1 under ``pallas`` and the
+        MXU route under ``mxu`` only, the torch scatter otherwise, as in
+        the reference.  On a
         process-spanning mesh the model sees the number of processes, and
         the layout and the row codec are rank 0's (``parallel.mesh.agree``:
         a link probe may differ between processes, and every rank must
@@ -1583,7 +1584,8 @@ class TorchBackend:
             stats.extra["mesh"] = {"hosts": int(n_hosts),
                                    "rank": int(mesh.rank),
                                    "local_shards": list(mesh.local)}
-        routed = "pallas" if cfg.pileup == "pallas" else "scatter"
+        routed = cfg.pileup if cfg.pileup in ("mxu", "pallas") \
+            else "scatter"
         if mode == "sp":
             from ..parallel.sp import PositionShardedConsensus
 
@@ -1600,8 +1602,10 @@ class TorchBackend:
         else:
             from ..parallel.dp import ShardedConsensus
 
-            acc = ShardedConsensus(mesh, total_len, pileup=cfg.pileup,
-                                   wire=wire)
+            acc = ShardedConsensus(
+                mesh, total_len,
+                pileup="pallas" if cfg.pileup == "auto" else cfg.pileup,
+                wire=wire)
         stats.extra["shard_mode"] = mode
         if hasattr(acc, "halo"):
             stats.extra["halo"] = int(acc.halo)

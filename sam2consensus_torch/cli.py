@@ -168,10 +168,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--paranoid", action="store_true",
                    help="re-validate device inputs and outputs every batch "
                         "(index bounds, symbol codes, count invariants)")
-    p.add_argument("--pileup", choices=["auto", "pallas", "scatter", "host"],
+    p.add_argument("--pileup",
+                   choices=["auto", "pallas", "mxu", "scatter", "host"],
                    default="auto",
                    help="pileup strategy: pallas (the CUDA histogram "
-                        "kernel over the decoded rows), scatter (a torch "
+                        "kernel over the decoded rows), mxu (one-hot "
+                        "matrix products over position tiles, a cuBLAS "
+                        "product a chunk of tiles, and a diagonal fold; "
+                        "falls back to scatter on a slab of skewed "
+                        "coverage), scatter (a torch "
                         "index_add_ of the rows' cells), host (count in "
                         "native code as the reads decode, ship the count "
                         "tensor once; the tail then runs where the "
@@ -353,9 +358,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
     """The ``serve`` subcommand's surface: many ``-i`` inputs sharing one
     flag set, run through a persistent warm backend (``serve/``).  Every
     flag of ``sam2consensus_tpu/cli.build_serve_parser`` parses, with
-    its dest, default and choices; the one the port does not run yet
-    (the MXU pileup) is refused by name in :func:`serve_main`
-    (:data:`UNPORTED_SERVE_FLAGS`)."""
+    its dest, default and choices, and runs."""
     p = argparse.ArgumentParser(
         prog="sam2consensus-torch serve",
         description="persistent multi-job serving: one warm torch "
@@ -708,13 +711,6 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: serve flags of the reference's parser that the port does not run yet,
-#: each with a test for "set away from its default": the MXU pileup
-UNPORTED_SERVE_FLAGS = (
-    ("--pileup", "pileup", lambda v: v == "mxu"),
-)
-
-
 def validate_mesh_shards(shards: int, pileup: str, device=None,
                          mesh_devices=None) -> None:
     """The reference's up-front ``--shards`` checks, before any input is
@@ -920,8 +916,7 @@ def serve_main(argv: List[str], device=None, mesh_devices=None) -> int:
     ``--batch``, ``--count-cache``, ``--mem-budget``, ``--incremental``
     without the cache or under ``--journal``, the fleet's, the sessions'
     and the cohort's cross-checks, ``--fault-inject``, an input or a
-    session port); a flag of :data:`UNPORTED_SERVE_FLAGS` set away from
-    its default fails the start by name."""
+    session port)."""
     import copy
 
     from . import observability
@@ -930,11 +925,6 @@ def serve_main(argv: List[str], device=None, mesh_devices=None) -> int:
     args = build_serve_parser().parse_args(argv)
     echo = (lambda *a, **k: None) if args.quiet else print
     observability.configure_logging(args.log_level, args.log_format)
-    for flag, dest, is_set in UNPORTED_SERVE_FLAGS:
-        value = getattr(args, dest)
-        if is_set(value):
-            raise SystemExit(f"error: {flag} {value}: not supported by "
-                             f"the torch backend yet")
     # the one-shot run's --shards checks, before the server warms (a
     # late failure on the first admitted job is a worse error surface)
     validate_mesh_shards(args.shards, args.pileup, device, mesh_devices)

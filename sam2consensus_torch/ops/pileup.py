@@ -137,6 +137,136 @@ def iter_row_slices(n_rows: int, width: int, multiple_of: int = 1):
         yield lo, min(n_rows, lo + step)
 
 
+class PileupAutoTuner:
+    """Copy: the online-autotune state machine of ``--pileup auto`` in the
+    reference (``PileupAccumulator(strategy="auto")`` and dp's
+    ``pileup="auto"``).
+
+    Protocol per slab: ``choose(n_rows, width)`` -> (strategy, timing);
+    execute the slab; then call exactly one of ``report_skew()`` (the
+    kernel's plan fell back) or ``complete(sec_per_cell)`` (the measured
+    per-cell seconds iff ``timing`` was True, else no argument).  ``stats``
+    is a dict once a winner is locked, else None."""
+
+    MAX_SKEW_RETRIES = 3
+
+    def __init__(self, min_cells: int = SCATTER_CELL_BUDGET >> 3,
+                 kernel: str = "mxu"):
+        self.STAGES = (("scatter", False), ("scatter", True),
+                       (kernel, False), (kernel, True))
+        self.kernel = kernel
+        self.min_cells = min_cells
+        self.times: dict = {}
+        self.stats = None
+        self._stage = 0
+        self._warm_shape = None
+        self._skew = 0
+        self._chosen = "scatter"
+        self._timing = False
+        self._advance = False
+
+    @property
+    def winner(self):
+        return self.times.get("winner")
+
+    def _lock(self, winner: str, **extra) -> None:
+        self.times["winner"] = winner
+        self.stats = {
+            "scatter_sec_per_mcell": round(
+                self.times.get("scatter", 0.0) * 1e6, 5),
+            f"{self.kernel}_sec_per_mcell": round(
+                self.times.get(self.kernel, 0.0) * 1e6, 5),
+            "winner": winner, **extra}
+
+    def choose(self, n_rows: int, width: int):
+        self._timing = self._advance = False
+        if self.winner is not None:
+            self._chosen = self.winner
+        elif n_rows * width < self.min_cells:
+            # tiny slab: timing would be noise, cost is negligible
+            self._chosen = "scatter"
+        else:
+            self._chosen, is_timing_stage = self.STAGES[self._stage]
+            shape = (n_rows, width)
+            if not is_timing_stage:
+                self._warm_shape = shape        # warm slab
+                self._advance = True
+            elif shape != self._warm_shape:
+                # shape changed since the warm slab: re-warm, stay in
+                # stage
+                self._warm_shape = shape
+            else:
+                self._timing = self._advance = True
+        return self._chosen, self._timing
+
+    def report_skew(self) -> None:
+        """The kernel plan fell back to scatter on this slab."""
+        if self.winner is not None:
+            return
+        self._timing = self._advance = False
+        self._skew += 1
+        if self._skew >= self.MAX_SKEW_RETRIES:
+            # persistent skew: settle for scatter
+            self._lock("scatter", reason=f"{self.kernel}_skew")
+
+    def complete(self, sec_per_cell=None) -> None:
+        if self.winner is not None:
+            return
+        if self._timing:
+            self.times[self._chosen] = sec_per_cell
+            if "scatter" in self.times and self.kernel in self.times:
+                self._lock(min(("scatter", self.kernel),
+                               key=self.times.get))
+        if self._advance:
+            self._stage += 1
+
+
+def run_tuned_slab(tuner, static_choice: str, n_rows: int, width: int,
+                   plan_kernel, exec_kernel, exec_scatter, block) -> str:
+    """Copy: one slab of the autotune protocol (the reference's shared
+    driver of the single-device and dp accumulators).  ``plan_kernel() ->
+    plan | None`` (None = skew), ``exec_kernel(plan)`` / ``exec_scatter()``
+    run the slab, ``block()`` waits for it (only a timed tuner slab
+    blocks).  Emits the per-slab ``slab`` span, ``pileup/slab_sec/<key>``,
+    ``pileup/slabs`` and, once the tuner locks, the ``pileup/autotune``
+    gauge.  Returns the strategy key actually used."""
+    if tuner is not None:
+        chosen, timing = tuner.choose(n_rows, width)
+    else:
+        chosen, timing = static_choice, False
+    t0 = time.perf_counter()           # before host planning: the kernel
+    plan = None                        # number must be end-to-end
+    skewed = False
+    if chosen != "scatter":
+        plan = plan_kernel()
+        if plan is None:               # skew (padding blowup): scatter
+            skewed = True
+            if tuner is not None:
+                tuner.report_skew()
+                timing = False
+    if plan is not None:
+        exec_kernel(plan)
+        key = chosen
+    else:
+        exec_scatter()
+        key = "scatter"
+    if tuner is not None and not skewed:
+        if timing:
+            block()
+            tuner.complete((time.perf_counter() - t0) / (n_rows * width))
+        else:
+            tuner.complete()
+    dt = time.perf_counter() - t0
+    obs.tracer().complete("slab", t0, strategy=key, n_rows=n_rows,
+                          width=width, skewed=skewed, timed=timing)
+    reg = obs.metrics()
+    reg.observe(f"pileup/slab_sec/{key}", dt)
+    reg.add("pileup/slabs", 1)
+    if tuner is not None and tuner.stats is not None:
+        reg.gauge("pileup/autotune").set_info(dict(tuner.stats))
+    return key
+
+
 def scatter_segments(counts: torch.Tensor, starts: torch.Tensor,
                      codes: torch.Tensor, sacrificial: int) -> torch.Tensor:
     """The ``--pileup scatter`` strategy, in place: one ``index_add_`` of
@@ -229,7 +359,8 @@ def canonical_panel_shapes(panel_len: int, wave_jobs: int,
         segment_width=segment_width)
 
 
-def prewarm_pileup(total_len: int, shapes, device, counts=None) -> int:
+def prewarm_pileup(total_len: int, shapes, device, counts=None,
+                   strategy: str = "pallas") -> int:
     """The serve prewarm (the reference's ``prewarm_scatter``): there is
     no JIT to warm, so it loads the kernel extension
     (``kernels.build.extension``, counted ``compile/persist_*`` by
@@ -244,8 +375,12 @@ def prewarm_pileup(total_len: int, shapes, device, counts=None) -> int:
     counts (K1 skips code 15; the plain version drops PAD cells), so they
     stay zero.  ``counts``, a caller's ``[padded, 6]`` int32 tensor,
     takes the scratch tensor's place (a check that it stays zero).  On
-    the CPU the plain version runs.  Returns the number of shapes
-    launched."""
+    the CPU the plain version runs.  ``strategy="mxu"`` (an explicit
+    ``--pileup mxu`` job's prewarm) runs the MXU route instead
+    (``mxu_pileup.pileup_mxu_compact``) at each shape's width, over one
+    tile of eight all-PAD rows: it loads cuBLAS and its workspace, and the
+    rows one-hot to zero.  Returns the number of shapes launched."""
+    from . import mxu_pileup
     from .pileup_kernel import accumulate_rows
 
     dev = torch.device(device)
@@ -260,10 +395,19 @@ def prewarm_pileup(total_len: int, shapes, device, counts=None) -> int:
     for rows, width in sorted(set((int(r), int(w)) for r, w in shapes)):
         if width % 2 or rows <= 0:
             continue
+        if strategy == "mxu":
+            rows = 8
         starts = torch.zeros(rows, dtype=torch.int32, device=dev)
         codes = torch.full((rows, width), PAD_CODE, dtype=torch.uint8,
                            device=dev)
-        accumulate_rows(counts, starts, pack_codes(codes))
+        if strategy == "mxu":
+            mxu_pileup.pileup_mxu_compact(
+                counts, starts, codes,
+                torch.arange(rows, dtype=torch.int32, device=dev),
+                tile=mxu_pileup.TILE_POSITIONS, n_tiles=1,
+                rows_per_tile=rows, width=width)
+        else:
+            accumulate_rows(counts, starts, pack_codes(codes))
         n += 1
     del counts
     return n
@@ -279,16 +423,37 @@ def real_rows(codes: np.ndarray) -> int:
     return tail_lo + (int(nz2[-1]) + 1 if len(nz2) else 0)
 
 
+class HostRows(NamedTuple):
+    """One bucket's real rows as they cross the link: ``arrays`` (int32
+    starts and raw uint8 codes, or a delta8 slab's lanes), ``meta`` (a
+    delta8 slab's, else None); beside them, for the reference's slab
+    protocol, ``n_rows`` (the rows it plans over: the real rows rounded up
+    to a power of two within the bucket, PAD rows at start 0 past the real
+    ones), ``starts`` (those rows' host starts), ``mxu`` (the MXU slot
+    plan made on the host: None when not planned or skewed) and ``slot``
+    (its slots of the real rows, which cross beside them)."""
+    arrays: tuple
+    meta: Optional[tuple]
+    n_rows: int
+    starts: np.ndarray
+    mxu: Optional[object] = None
+    slot: Optional[np.ndarray] = None
+
+
 class StagedRows(NamedTuple):
     """One bucket's real rows on the card, as the prefetch thread staged
     them: ``operands``, the tensors that crossed (int32 starts ``[n]`` and
     raw uint8 codes ``[n, W]``, or a delta8 slab's six lanes), allocated
     on the copy stream; ``ready``, recorded there after the copies;
     ``meta``, a delta8 slab's ``(width, sentinel, u16)``
-    (``wire.device.decode_slab``), None for raw rows."""
+    (``wire.device.decode_slab``), None for raw rows; ``host``, the
+    bucket's :class:`HostRows` (its planning fields), and ``slot``, the
+    MXU slot vector on the card when the host planned one."""
     operands: tuple
     ready: torch.cuda.Event
     meta: Optional[tuple] = None
+    host: Optional[HostRows] = None
+    slot: Optional[torch.Tensor] = None
 
 
 class _PinnedSlot:
@@ -330,23 +495,39 @@ class PileupAccumulator:
 
     ``strategy``: ``pallas`` packs each bucket's rows into nibbles and
     runs K1 (``ops.pileup_kernel.accumulate_rows``, its plain version on
-    the CPU), ``scatter`` runs :func:`scatter_segments` on the raw codes.
+    the CPU), ``scatter`` runs :func:`scatter_segments` on the raw codes,
+    ``mxu`` the one-hot tile product (``ops.mxu_pileup``) over the slots
+    the host planned (:func:`~.mxu_pileup.plan_slots` at the reference's
+    ``max_blowup`` of 16 for an explicit ``mxu``), falling back to the
+    scatter on a skewed slab, and ``auto`` the reference's online
+    autotune (:class:`PileupAutoTuner`: scatter against K1 on a CUDA
+    device, against the MXU route on the CPU), whose timed slabs wait for
+    the card.  ``mxu`` and ``auto`` run the reference's slab protocol
+    (:func:`run_tuned_slab`) over its row set: the real rows rounded up
+    to a power of two (the PAD rows past the real ones plan into tile 0
+    and count nothing, so only the real rows and their slots cross), and
+    ``strategy_used`` gets the reference's ``mxu_blowup`` (the run's
+    padded over real rows) and ``autotune`` keys.
     ``wire``: the rows cross as they are (``packed5``, the run's default
     codec; on the card they are packed there) or, under ``delta8``,
     canonicalised and encoded (``wire.codec``) and unpacked on the device
     (``wire.device.decode_slab``); a slab that would not shrink goes raw.
+    A strategy that plans slots plans on the canonical rows, in the order
+    the device decodes them.
 
-    CUDA: :meth:`stage` (on the decode prefetch thread) trims, encodes and
-    ships each bucket through two pinned slots on a copy stream;
-    :meth:`add` (on the consumer) waits for the copies on its own stream,
-    unpacks a delta8 slab and counts, with no host synchronisation.  An
-    unstaged batch is staged by ``add`` itself first.  CPU: ``stage`` does
-    nothing, and ``add`` runs the same steps on host tensors.  The count
-    tensor is updated in place; ``counts`` is the ``[total_len, 6]`` view.
-    ``strategy_used`` counts ``<strategy>_w<W>`` a counted bucket and
-    ``wire_delta8`` a delta8 slab; ``account`` is the link bill.
-    ``strategy`` and ``wire`` are read per bucket, so the ladder can switch
-    them on a live accumulator; :meth:`set_counts` seeds the counts (a
+    CUDA: :meth:`stage` (on the decode prefetch thread) trims, encodes,
+    plans an explicit ``mxu`` bucket and ships each bucket (and its slots)
+    through two pinned slots on a copy stream; :meth:`add` (on the
+    consumer) waits for the copies on its own stream, unpacks a delta8
+    slab and counts, with no host synchronisation outside ``auto``'s timed
+    slabs.  An unstaged batch is staged by ``add`` itself first.  CPU:
+    ``stage`` does nothing, and ``add`` runs the same steps on host
+    tensors.  The count tensor is updated in place; ``counts`` is the
+    ``[total_len, 6]`` view.  ``strategy_used`` counts
+    ``<strategy>_w<W>`` a counted bucket and ``wire_delta8`` a delta8
+    slab; ``account`` is the link bill.  ``strategy`` and ``wire`` are
+    read per bucket, so the ladder can switch them on a live accumulator
+    (and drop the tuner); :meth:`set_counts` seeds the counts (a
     checkpoint resume) and :meth:`counts_host` fetches them.
     """
 
@@ -357,9 +538,10 @@ class PileupAccumulator:
                  wire: str = "packed5"):
         from ..wire import WireAccount
 
-        if strategy not in ("pallas", "scatter"):
+        if strategy not in ("pallas", "mxu", "scatter", "auto"):
             raise ValueError(f"pileup strategy {strategy!r}: the device "
-                             f"accumulator runs pallas and scatter")
+                             f"accumulator runs pallas, mxu, scatter and "
+                             f"auto")
         self.total_len = total_len
         self.device = torch.device(device)
         self.strategy = strategy
@@ -367,6 +549,14 @@ class PileupAccumulator:
         self.strategy_used: dict = {}
         self.account = WireAccount()
         self.padded_len = padded_total_len(total_len)
+        # the MXU occupancy over the run (padded rows over real rows)
+        self._mxu_rows_real = 0
+        self._mxu_rows_padded = 0
+        # the reference's tuner races scatter against its accelerator's
+        # kernel: K1 on the card, the MXU route on the CPU
+        self._tuner = PileupAutoTuner(
+            kernel="pallas" if self.device.type == "cuda" else "mxu") \
+            if strategy == "auto" else None
         # the count tensor's allocation boundary: an ``oom`` rule here
         # models memory exhaustion at allocation (CAPACITY)
         fault_check("mem_alloc")
@@ -384,16 +574,46 @@ class PileupAccumulator:
             # prefetch thread may be staging the next batch
             self._stage_lock = threading.Lock()
 
-    def _host_rows(self, starts: np.ndarray, codes: np.ndarray):
-        """A bucket's real rows as they cross the link, ``(arrays, meta)``
-        (``StagedRows.meta``), billed to ``account``; None when the bucket
-        has no real row."""
+    def _plans_mxu(self) -> bool:
+        """True when a bucket's count may need MXU slots (so its rows are
+        planned on their canonical order)."""
+        return self.strategy == "mxu" or \
+            getattr(self._tuner, "kernel", None) == "mxu"
+
+    def _plan_mxu(self, starts: np.ndarray, width: int):
+        """The reference's ``plan_mxu``: slots over the planning rows, or
+        None on skew (an explicit ``mxu`` tolerates a blowup of 16, the
+        tuner the module's 4; the tuner's timing phase plans on the pow2
+        grid)."""
+        from . import mxu_pileup
+
+        return mxu_pileup.plan_slots(
+            np.asarray(starts), width, self.padded_len,
+            mxu_pileup.TILE_POSITIONS,
+            max_blowup=(16.0 if self.strategy == "mxu"
+                        else mxu_pileup.MAX_BLOWUP),
+            coarse=(self._tuner is not None and self._tuner.winner is None))
+
+    def _host_rows(self, starts: np.ndarray, codes: np.ndarray
+                   ) -> Optional[HostRows]:
+        """A bucket's real rows as they cross the link (:class:`HostRows`),
+        billed to ``account``; None when the bucket has no real row.  An
+        explicit ``mxu`` bucket is planned here, on the host."""
         from ..wire import encode_wire_slab
+        from ..wire.codec import canonicalize_rows
         from ..wire.device import wire_lane
 
+        if self.wire == "delta8" and self._plans_mxu():
+            # the slots index the rows in the order the device decodes
+            # them (the reference plans after canonicalize_rows too)
+            starts, codes = canonicalize_rows(starts, codes)
         n = real_rows(codes)
         if n == 0:
             return None
+        n_rows = min(len(starts), round_rows_pow2(n))
+        plan = self._plan_mxu(starts[:n_rows], codes.shape[1]) \
+            if self.strategy == "mxu" else None
+        host_starts = starts[:n_rows]
         starts, codes = starts[:n], codes[:n]
         slab = encode_wire_slab(self.wire, starts, codes, self.account)
         if slab is None:
@@ -406,16 +626,21 @@ class PileupAccumulator:
             codec = "delta8"
         self.account.add(codec, sum(a.nbytes for a in arrays), n,
                          codes.shape[1])
-        return arrays, meta
+        slot = None
+        if plan is not None:
+            slot = plan.slot[:n]
+            self.account.add_operand(slot.nbytes)
+        return HostRows(arrays, meta, n_rows, host_starts, plan, slot)
 
     def stage(self, batch: SegmentBatch) -> None:
         """Ship the batch's real rows to the card (CUDA only): trim (and
-        encode under delta8), copy into the next pinned slot, copy to the
-        device ``non_blocking`` on the copy stream and record an event
-        there; the results land in ``batch.staged`` (``None`` for a bucket
-        with no real row).  Runs on the decode prefetch thread, or on the
-        consumer for a batch that arrives unstaged (both at once, so a
-        lock serialises the stagings: two threads never fill one slot)."""
+        encode under delta8, and plan an explicit ``mxu`` bucket's slots),
+        copy into the next pinned slot, copy to the device
+        ``non_blocking`` on the copy stream and record an event there; the
+        results land in ``batch.staged`` (``None`` for a bucket with no
+        real row).  Runs on the decode prefetch thread, or on the consumer
+        for a batch that arrives unstaged (both at once, so a lock
+        serialises the stagings: two threads never fill one slot)."""
         if self.device.type != "cuda":
             return
         fault_check("device_put")
@@ -429,9 +654,14 @@ class PileupAccumulator:
                 slot = self._slots[self._next_slot]
                 self._next_slot = (self._next_slot + 1) % len(self._slots)
                 slot.wait()
-                batch.staged[w] = self._ship(slot, slot.fill(rows[0]),
-                                             rows[1])
-                nbytes += sum(a.nbytes for a in rows[0])
+                arrays = rows.arrays if rows.slot is None \
+                    else (*rows.arrays, rows.slot)
+                staged = self._ship(slot, slot.fill(arrays), rows.meta)
+                ops = staged.operands
+                batch.staged[w] = staged._replace(
+                    operands=ops[:len(rows.arrays)], host=rows,
+                    slot=None if rows.slot is None else ops[-1])
+                nbytes += sum(a.nbytes for a in arrays)
         # the staged rows on the card, released with the batch
         memplane.track_obj("wire_staging", batch, nbytes)
 
@@ -460,7 +690,9 @@ class PileupAccumulator:
             fault_check("device_put")
             rows = self._host_rows(starts, codes)
             if rows is not None:
-                self._count(tuple(map(torch.from_numpy, rows[0])), rows[1])
+                self._count(tuple(map(torch.from_numpy, rows.arrays)),
+                            rows.meta, rows, None if rows.slot is None
+                            else torch.from_numpy(rows.slot))
 
     def _consume(self, rows: StagedRows, stream) -> None:
         """The consumer's part of a staged bucket: a device-side wait for
@@ -469,13 +701,16 @@ class PileupAccumulator:
         stream.wait_event(rows.ready)
         # allocated on the copy stream, used here: the caching allocator
         # must not hand their memory out again before this stream is done
-        for t in rows.operands:
+        for t in (*rows.operands, *(() if rows.slot is None
+                                    else (rows.slot,))):
             t.record_stream(stream)
-        self._count(rows.operands, rows.meta)
+        self._count(rows.operands, rows.meta, rows.host, rows.slot)
 
-    def _count(self, operands: tuple, meta) -> None:
+    def _count(self, operands: tuple, meta, host: HostRows,
+               slot: Optional[torch.Tensor]) -> None:
         """Count one bucket's rows: ``operands`` raw ``(starts, codes)``,
-        or a delta8 slab's lanes with its ``meta``."""
+        or a delta8 slab's lanes with its ``meta``; ``host`` and ``slot``
+        feed the slab protocol of ``mxu`` and ``auto``."""
         from ..wire.device import decode_slab
         from .pileup_kernel import accumulate_rows
 
@@ -484,6 +719,9 @@ class PileupAccumulator:
         else:
             starts, codes = decode_slab(*operands, *meta)
             self._note("wire_delta8")
+        if self.strategy in ("mxu", "auto"):
+            self._count_tuned(starts, codes, host, slot)
+            return
         t0 = time.perf_counter()
         if self.strategy == "scatter":
             scatter_segments(self._counts, starts, codes, self.total_len)
@@ -498,6 +736,55 @@ class PileupAccumulator:
         reg = obs.metrics()
         reg.observe(f"pileup/slab_sec/{self.strategy}", dt)
         reg.add("pileup/slabs", 1)
+
+    def _count_tuned(self, starts: torch.Tensor, codes: torch.Tensor,
+                     host: HostRows, slot: Optional[torch.Tensor]) -> None:
+        """``mxu`` and ``auto``: one slab of the reference's protocol
+        (:func:`run_tuned_slab`) over ``host.n_rows`` planning rows, of
+        which the ``n`` real ones are counted."""
+        from . import mxu_pileup
+        from .pileup_kernel import accumulate_rows
+
+        n, w = codes.shape
+        kernel = self._tuner.kernel if self._tuner is not None \
+            else self.strategy
+
+        def plan_kernel():
+            if kernel == "pallas":
+                from ..parallel.base import kernel_width_ok
+
+                return True if kernel_width_ok(w) else None
+            if self._tuner is None:
+                return host.mxu            # planned with the rows
+            return self._plan_mxu(host.starts, w)
+
+        def exec_kernel(plan):
+            if kernel == "pallas":
+                accumulate_rows(self._counts, starts, pack_codes(codes))
+                return
+            mxu_slot = slot if slot is not None else torch.as_tensor(
+                plan.slot[:n], device=self.device)
+            if self.strategy == "mxu" or (self._tuner is not None
+                                          and self._tuner.winner == "mxu"):
+                # the occupancy of the run's committed MXU slabs
+                self._mxu_rows_real += n
+                self._mxu_rows_padded += plan.n_tiles * plan.rows_per_tile
+                self.strategy_used["mxu_blowup"] = round(
+                    self._mxu_rows_padded / self._mxu_rows_real, 3)
+            mxu_pileup.pileup_mxu_compact(
+                self._counts, starts, codes, mxu_slot,
+                tile=mxu_pileup.TILE_POSITIONS, n_tiles=plan.n_tiles,
+                rows_per_tile=plan.rows_per_tile, width=w)
+
+        def exec_scatter():
+            scatter_segments(self._counts, starts, codes, self.total_len)
+
+        key = run_tuned_slab(self._tuner, self.strategy, host.n_rows, w,
+                             plan_kernel, exec_kernel, exec_scatter,
+                             self.sync)
+        if self._tuner is not None and self._tuner.stats is not None:
+            self.strategy_used["autotune"] = self._tuner.stats
+        self._note(f"{key}_w{w}")
 
     def _note(self, key: str) -> None:
         self.strategy_used[key] = self.strategy_used.get(key, 0) + 1

@@ -14,10 +14,8 @@ process boundary; ``counts_host`` and the vote return the global value on
 every process, as the reference's do.
 
 The host helpers (:func:`block_for`, :func:`split_wide_rows`,
-:func:`real_row_mask`, :func:`route_to_slots`, :func:`record_slab`) are
-copies, pinned by ``tests/test_torch_copies.py``.  The reference's
-``plan_mxu_grids`` belongs to the MXU pileup, which the port does not run
-yet.
+:func:`real_row_mask`, :func:`plan_mxu_grids`, :func:`route_to_slots`,
+:func:`record_slab`) are copies, pinned by ``tests/test_torch_copies.py``.
 """
 
 from __future__ import annotations
@@ -93,6 +91,63 @@ def real_row_mask(starts: np.ndarray, codes: np.ndarray) -> np.ndarray:
     return real
 
 
+def plan_mxu_grids(s_local: np.ndarray, reals: np.ndarray, w: int,
+                   local_len: int, max_blowup: float = 16.0):
+    """Copy: per-unit MXU slot plans over a shared local space with one E
+    (the sp and dpsp routed MXU routes).  ``s_local`` ``[D, R]`` local
+    starts of a routed slot grid whose unit ``d`` holds ``reals[d]`` real
+    rows first; the pad slots all map to tile 0's rank-``E`` slot, which
+    ``rows_per_tile = E + 1`` reserves (identical all-PAD rows: their
+    collisions are harmless).  Returns ``(slots [D, R], e1, n_tiles)`` or
+    None on padding blowup."""
+    from ..ops import mxu_pileup
+    from ..ops.pileup import round_rows_grid
+
+    tile = mxu_pileup.TILE_POSITIONS
+    nt = -(-local_len // tile)
+    d_units = s_local.shape[0]
+    hists = []
+    emax = 1
+    for d in range(d_units):
+        tile_of = s_local[d, : reals[d]] // tile
+        per_tile = np.bincount(tile_of, minlength=nt)
+        hists.append((tile_of, per_tile))
+        emax = max(emax, int(per_tile.max(initial=1)))
+    e = round_rows_grid(emax)
+    total_real = max(1, int(reals.sum()))
+    if d_units * nt * (e + 1) / total_real > max_blowup:
+        return None
+    slots = np.full(s_local.shape, e, dtype=np.int32)
+    for d, (tile_of, per_tile) in enumerate(hists):
+        slots[d, : reals[d]] = mxu_pileup.assign_slots(
+            tile_of, per_tile, e + 1)
+    return slots, e + 1, nt
+
+
+def mxu_grid_plans(s_local: np.ndarray, reals: np.ndarray, w: int,
+                   local_len: int) -> Optional[list]:
+    """The routed MXU route's plans of a slot grid (``s_local`` ``[D,
+    R]`` local starts, ``reals`` ``[D]`` real rows first in each unit):
+    :func:`plan_mxu_grids` a slice of ``ops.pileup.iter_row_slices(R, w)``,
+    every slice planned before any is counted (a skew on a later slice
+    must not leave earlier slices counted), as ``[(lo, hi, slots, e1,
+    n_tiles)]``; None, the whole bucket to the scatter, for an odd width
+    (it widens under the nibble wire) or a skewed slice."""
+    from ..ops.pileup import iter_row_slices
+
+    if w % 2:
+        return None
+    plans = []
+    for lo, hi in iter_row_slices(s_local.shape[1], w):
+        planned = plan_mxu_grids(np.ascontiguousarray(s_local[:, lo:hi]),
+                                 np.clip(reals - lo, 0, hi - lo), w,
+                                 local_len)
+        if planned is None:
+            return None
+        plans.append((lo, hi, *planned))
+    return plans
+
+
 def route_to_slots(targets: np.ndarray, n_targets: int, r: int,
                    starts: np.ndarray, codes: np.ndarray,
                    pin_starts: np.ndarray):
@@ -124,6 +179,20 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     if t.device.type == "cuda":
         obs.metrics().add("wire/d2h_bytes", out.nbytes)
     return out
+
+
+def count_mxu(local: torch.Tensor, starts: torch.Tensor,
+              codes: torch.Tensor, slot: torch.Tensor, n_tiles: int,
+              rows_per_tile: int) -> None:
+    """Count one shard's rows into ``local`` in place by the MXU route
+    (``ops.mxu_pileup.pileup_mxu_compact``) over their slots in a layout
+    of ``n_tiles`` tiles of ``rows_per_tile`` rows; ``starts`` are in
+    ``local``'s coordinates."""
+    from ..ops import mxu_pileup
+
+    mxu_pileup.pileup_mxu_compact(
+        local, starts, codes, slot, tile=mxu_pileup.TILE_POSITIONS,
+        n_tiles=n_tiles, rows_per_tile=rows_per_tile, width=codes.shape[1])
 
 
 def count_rows(local: torch.Tensor, starts: torch.Tensor,
@@ -223,6 +292,29 @@ class ShardedCountsBase:
         return [decode_slab(*(lane[i] for lane in lanes), slab.width,
                             slab.sentinel, u16) if i in self.mesh.local
                 else None for i in range(self.n)]
+
+    def put_slots(self, slots: np.ndarray) -> List[Optional[torch.Tensor]]:
+        """Ship an MXU slot vector beside :meth:`put_rows`' rows, in the
+        same ``n`` runs (``None`` for a shard another process owns), billed
+        as a kernel operand."""
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        self.account.add_operand(slots.nbytes)
+        return self._shard_fns["row_starts"](slots)
+
+    def mxu_count(self, local: List[Optional[torch.Tensor]], plans: list,
+                  s_local: np.ndarray, c_grid: np.ndarray, w: int) -> None:
+        """Count a routed grid (``s_local`` ``[D, R]``, ``c_grid`` ``[D, R,
+        W]``, unit ``d`` the flat shard ``d``) into the shards' ``local``
+        tensors by the MXU route, a slice of :func:`mxu_grid_plans` at a
+        time: the slice's rows and slots shipped, each owned shard's
+        counted."""
+        for lo, hi, slots, e1, nt in plans:
+            rows = self.put_rows(
+                np.ascontiguousarray(s_local[:, lo:hi]).reshape(-1),
+                np.ascontiguousarray(c_grid[:, lo:hi]).reshape(-1, w))
+            slot = self.put_slots(slots.reshape(-1))
+            for i, (st, cd) in self.owned(rows):
+                count_mxu(local[i], st, cd, slot[i], nt, e1)
 
     def zeros(self, length: int) -> List[Optional[torch.Tensor]]:
         """One ``[length, 6]`` int32 zero tensor a shard, on its device

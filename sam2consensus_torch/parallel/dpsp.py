@@ -5,8 +5,10 @@ Port of ``sam2consensus_tpu/parallel/dpsp.py``.  Reads split evenly into
 only ``n_sp`` macro blocks of ``B_sp = padded_len / n_sp`` positions
 (``base.route_to_slots``).  Shard ``(d, s)`` counts run ``d``'s rows for
 macro block ``s`` into a local ``[B_sp + H + 1, 6]`` tensor (K1 under
-``--pileup pallas`` for the widths the reference's kernel route takes,
-else the torch scatter); one ``shift`` over ``sp`` moves each halo to the
+``--pileup pallas`` for the widths the reference's kernel route takes, the
+MXU route under ``--pileup mxu`` as sp's routed one, over
+``base.mxu_grid_plans``, else the torch scatter); one ``shift`` over
+``sp`` moves each halo to the
 next macro block within its dp run; then one ``reduce_scatter`` over
 ``dp`` sums the runs and leaves shard ``(d, s)`` sub-block ``d`` of macro
 block ``s``: global block ``s * n_dp + d``, the ``("sp", "dp")`` position
@@ -22,8 +24,8 @@ import numpy as np
 from ..encoder.events import SegmentBatch
 from ..ops.pileup import round_rows_grid
 from .base import (ShardedCountsBase, count_rows, kernel_width_ok,
-                   real_row_mask, record_slab, route_to_slots,
-                   split_wide_rows)
+                   mxu_grid_plans, real_row_mask, record_slab,
+                   route_to_slots, split_wide_rows)
 from .collectives import reduce_scatter, shift
 
 __all__ = ["ProductShardedConsensus"]
@@ -31,8 +33,8 @@ __all__ = ["ProductShardedConsensus"]
 
 class ProductShardedConsensus(ShardedCountsBase):
     """Streaming dp x sp accumulate over a 2-D ``TorchMesh``.
-    ``strategy_used`` counts ``dpsp_w<W>`` (scatter) or ``dpsp_pallas_w<W>``
-    (K1) a bucket."""
+    ``strategy_used`` counts ``dpsp_w<W>`` (scatter), ``dpsp_pallas_w<W>``
+    (K1) or ``dpsp_mxu_w<W>`` a bucket."""
 
     def __init__(self, mesh, total_len: int, halo: int = 1 << 16,
                  pileup: str = "scatter", wire: str = "packed5"):
@@ -50,7 +52,7 @@ class ProductShardedConsensus(ShardedCountsBase):
             raise ValueError(
                 f"macro position block {self.block_sp} smaller than halo "
                 f"{halo}: use the DP pipeline for genomes this small")
-        self.pileup = "pallas" if pileup == "pallas" else "scatter"
+        self.pileup = pileup if pileup in ("mxu", "pallas") else "scatter"
         self.strategy_used: dict = {}
         self.rows_shipped = 0
         self.rows_real = 0
@@ -102,20 +104,29 @@ class ProductShardedConsensus(ShardedCountsBase):
                 s_routed[d], c_routed[d] = route_to_slots(
                     macro[lo:hi], n_sp, r, starts[lo:hi], codes[lo:hi],
                     pins)
-            s_local = (s_routed - pins[None, :, None]).astype(np.int32)
-            kernel = self.pileup == "pallas" and kernel_width_ok(w)
             # flat shard order (d, s) is the grid's own order
-            rows = self.put_rows(s_local.reshape(-1),
-                                 c_routed.reshape(-1, w))
-            self.rows_shipped += self.n * r
+            s_local = (s_routed - pins[None, :, None]).astype(
+                np.int32).reshape(self.n, r)
+            c_local = c_routed.reshape(self.n, r, w)
             local = self.zeros(block_sp + halo + 1)
-            for i, (st, cd) in self.owned(rows):
-                count_rows(local[i], st, cd, kernel, block_sp + halo)
+            plans = mxu_grid_plans(s_local, counts_dm.reshape(-1), w,
+                                   block_sp + halo + 1) \
+                if self.pileup == "mxu" else None
+            if plans is not None:
+                self.mxu_count(local, plans, s_local, c_local, w)
+                key = f"dpsp_mxu_w{w}"
+            else:
+                kernel = self.pileup == "pallas" and kernel_width_ok(w)
+                rows = self.put_rows(s_local.reshape(-1),
+                                     c_local.reshape(-1, w))
+                for i, (st, cd) in self.owned(rows):
+                    count_rows(local[i], st, cd, kernel, block_sp + halo)
+                key = f"dpsp_pallas_w{w}" if kernel else f"dpsp_w{w}"
+            self.rows_shipped += self.n * r
             acc = [None if t is None else t[:block_sp] for t in local]
             shift(self.mesh, [None if t is None else
                               t[block_sp:block_sp + halo] for t in local],
                   ("sp",), out=acc)
             reduce_scatter(self.mesh, acc, ("dp",), out=self.blocks)
-            key = f"dpsp_pallas_w{w}" if kernel else f"dpsp_w{w}"
             self.strategy_used[key] = self.strategy_used.get(key, 0) + 1
             record_slab(key, t0, len(starts), w)

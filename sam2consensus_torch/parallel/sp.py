@@ -23,7 +23,11 @@ rows' starts, as in the reference:
 The routed count runs K1 (``ops.pileup_kernel.accumulate_rows`` over the
 local tensor, which drops nothing a routed row can reach) under ``--pileup
 pallas`` for the widths the reference's kernel route takes
-(``base.kernel_width_ok``), else the torch scatter, whose PAD cells land in
+(``base.kernel_width_ok``), the MXU route (``ops.mxu_pileup``) under
+``--pileup mxu`` for even widths, over slots planned a slice of
+``ops.pileup.iter_row_slices`` by ``base.plan_mxu_grids`` (every slice is
+planned before any is counted, and one skewed slice sends the whole
+bucket to the scatter), else the torch scatter, whose PAD cells land in
 the sacrificial row ``B + H`` past the halo.  The window strategy always
 scatters.  ``rows_shipped`` / ``rows_real`` count the row slots sent
 against the rows received.
@@ -39,8 +43,8 @@ from ..constants import NUM_SYMBOLS, PAD_CODE, SP_WINDOW_CAP
 from ..encoder.events import SegmentBatch
 from ..ops.pileup import round_rows_grid
 from .base import (ShardedCountsBase, block_for, count_rows,
-                   kernel_width_ok, real_row_mask, record_slab,
-                   route_to_slots, split_wide_rows)
+                   kernel_width_ok, mxu_grid_plans, real_row_mask,
+                   record_slab, route_to_slots, split_wide_rows)
 from .collectives import ALL, all_reduce, shift
 
 __all__ = ["PositionShardedConsensus", "block_for"]
@@ -48,8 +52,8 @@ __all__ = ["PositionShardedConsensus", "block_for"]
 
 class PositionShardedConsensus(ShardedCountsBase):
     """Streaming position-sharded accumulate over a ``TorchMesh``.
-    ``strategy_used`` counts ``window_w<W>``, ``routed_w<W>`` (scatter) or
-    ``routed_pallas_w<W>`` (K1) a bucket."""
+    ``strategy_used`` counts ``window_w<W>``, ``routed_w<W>`` (scatter),
+    ``routed_pallas_w<W>`` (K1) or ``routed_mxu_w<W>`` a bucket."""
 
     #: copy: the largest window the window strategy materialises a shard
     WINDOW_CAP = SP_WINDOW_CAP
@@ -62,7 +66,7 @@ class PositionShardedConsensus(ShardedCountsBase):
             raise ValueError(
                 f"position block {self.block} smaller than halo {halo}: "
                 "use the DP pipeline for genomes this small")
-        self.pileup = "pallas" if pileup == "pallas" else "scatter"
+        self.pileup = pileup if pileup in ("mxu", "pallas") else "scatter"
         self.strategy_used: dict = {}
         self.rows_shipped = 0
         self.rows_real = 0
@@ -106,17 +110,24 @@ class PositionShardedConsensus(ShardedCountsBase):
         s_grid, c_grid = route_to_slots(dev, n, r, starts, codes,
                                         np.arange(n) * block)
         s_local = (s_grid - (np.arange(n) * block)[:, None]).astype(np.int32)
-        kernel = self.pileup == "pallas" and kernel_width_ok(w)
-        rows = self.put_rows(s_local.reshape(-1), c_grid.reshape(-1, w))
-        self.rows_shipped += n * r
         local = self.zeros(block + halo + 1)
-        for i, (st, cd) in self.owned(rows):
-            count_rows(local[i], st, cd, kernel, block + halo)
+        plans = mxu_grid_plans(s_local, per_dev, w, block + halo + 1) \
+            if self.pileup == "mxu" else None
+        if plans is not None:
+            self.mxu_count(local, plans, s_local, c_grid, w)
+            key = f"routed_mxu_w{w}"
+        else:
+            kernel = self.pileup == "pallas" and kernel_width_ok(w)
+            rows = self.put_rows(s_local.reshape(-1), c_grid.reshape(-1, w))
+            for i, (st, cd) in self.owned(rows):
+                count_rows(local[i], st, cd, kernel, block + halo)
+            key = f"routed_pallas_w{w}" if kernel else f"routed_w{w}"
+        self.rows_shipped += n * r
         for i, blk in self.owned(self.blocks):
             blk.add_(local[i][:block])
         shift(self.mesh, [None if t is None else t[block:block + halo]
                           for t in local], ALL, out=self.blocks)
-        return f"routed_pallas_w{w}" if kernel else f"routed_w{w}"
+        return key
 
     def add(self, batch: SegmentBatch) -> None:
         from ..resilience.faultinject import fault_check

@@ -13,10 +13,13 @@ trace events (``resilience/demotion``, ``resilience/emergency_checkpoint``,
 
 Accumulation rungs (top = fastest, bottom = most survivable)::
 
-    device kernel (K1, --pileup pallas; a sharded accumulator's K1)
-      └─> device scatter  (the same accumulator: strategy "scatter",
-            │              wire "packed5"; the port's --pileup scatter;
-            │              a sharded one keeps its layout, pileup "scatter")
+    device kernel (K1, --pileup pallas; the MXU route, --pileup mxu; the
+    │              tuner of a PileupAccumulator(strategy="auto") or of dp's
+    │              pileup="auto"; a sharded accumulator's kernel)
+      └─> device scatter  (the same accumulator: strategy "scatter", no
+            │              tuner, wire "packed5"; the port's --pileup
+            │              scatter; a sharded one keeps its layout, pileup
+            │              "scatter")
             └─> host pileup  (HostPileupAccumulator.set_counts of
                               counts_host(); no device at all)
 
@@ -154,12 +157,16 @@ def record_job_demotion(registry, reason: str) -> None:
 
 def pileup_level(acc) -> str:
     """Name the accumulation rung ``acc`` currently sits on (a sharded
-    accumulator's, ``parallel/*``, by its ``pileup``)."""
+    accumulator's, ``parallel/*``, by its ``pileup``): the reference's
+    names, ``device_scatter`` only without a tuner."""
     from ..ops.pileup import HostPileupAccumulator
 
     if isinstance(acc, HostPileupAccumulator):
         return "host"
-    return f"device_{getattr(acc, _strategy_attr(acc))}"
+    strat = getattr(acc, _strategy_attr(acc))
+    if strat == "scatter" and getattr(acc, "_tuner", None) is None:
+        return "device_scatter"
+    return f"device_{strat}"
 
 
 def _strategy_attr(acc) -> str:
@@ -175,12 +182,16 @@ def demote_pileup(acc, total_len: int) -> Tuple[Optional[object], str]:
 
     if isinstance(acc, HostPileupAccumulator):
         return None, ""
-    # rung 1: pin the kernel off.  The wire codec pins off with it: a
-    # failure at the wire_encode / decode boundary must cost ONE rung.  A
-    # sharded accumulator keeps its layout and drops K1 (its ``pileup``)
+    # rung 1: pin the kernel off, the tuner with it.  The wire codec pins
+    # off too: a failure at the wire_encode / decode boundary must cost ONE
+    # rung.  A sharded accumulator keeps its layout and drops its kernel
+    # (its ``pileup``)
     attr = _strategy_attr(acc)
-    if getattr(acc, attr) != "scatter" or acc.wire != "packed5":
+    if getattr(acc, attr) != "scatter" \
+            or getattr(acc, "_tuner", None) is not None \
+            or acc.wire != "packed5":
         setattr(acc, attr, "scatter")
+        acc._tuner = None
         acc.wire = "packed5"
         return acc, "device_scatter"
     # rung 2: off the device (a sharded accumulator's blocks gathered);

@@ -29,7 +29,9 @@ thread.  The load-bearing pieces:
   slab shapes, on a thread behind the first job's decode, bound to the
   SERVER registry: it loads the kernel extension there (counted
   ``compile/persist_*``) and runs the pack and K1 once per shape over
-  all-PAD rows (``compile/prewarm_shapes``).
+  all-PAD rows (``compile/prewarm_shapes``); an ``--pileup mxu`` job's
+  prewarm runs the MXU route instead, over one tile of eight all-PAD rows
+  a shape.
 
 The survivability layer, opt-in and orthogonal to the warm path, is the
 reference's: the journal (``journal_dir``; per-job checkpoints, restart
@@ -701,24 +703,28 @@ class ServeRunner:
             pass
 
     # -- prewarm ---------------------------------------------------------
-    def prewarm(self, total_len: int, shapes) -> int:
-        """Run the default pileup route for ``shapes`` (``(rows,
-        width)`` pairs) against a genome of ``total_len`` positions, into
-        the server's registry (``ops.pileup.prewarm_pileup``).
-        Idempotent per (total_len, shape)."""
+    def prewarm(self, total_len: int, shapes, strategy: str = "pallas"
+                ) -> int:
+        """Run the default pileup route (or, ``strategy="mxu"``, the MXU
+        route) for ``shapes`` (``(rows, width)`` pairs) against a genome
+        of ``total_len`` positions, into the server's registry
+        (``ops.pileup.prewarm_pileup``).  Idempotent per (total_len,
+        shape, route)."""
         from ..ops.pileup import prewarm_pileup
 
+        route = "mxu" if strategy == "mxu" else "pallas"
         todo = [s for s in shapes
-                if (total_len, tuple(s)) not in self._prewarmed]
+                if (total_len, tuple(s), route) not in self._prewarmed]
         if not todo:
             return 0
         server_obs = obs.RunObservability(
             tracer=obs.tracer(), registry=self.registry,
             ledger=obs.DecisionLedger())
         with obs.bind_run_to_thread(server_obs):
-            n = prewarm_pileup(total_len, todo, self.backend.device)
+            n = prewarm_pileup(total_len, todo, self.backend.device,
+                               strategy=route)
         for s in todo:
-            self._prewarmed.add((total_len, tuple(s)))
+            self._prewarmed.add((total_len, tuple(s), route))
         self.registry.add("compile/prewarm_shapes", n)
         logger.info("prewarmed %d pileup shape(s) for L=%d", n,
                     total_len)
@@ -733,7 +739,7 @@ class ServeRunner:
 
         if self.prewarm_mode != "auto":
             return
-        if spec.config.pileup not in ("scatter", "pallas"):
+        if spec.config.pileup not in ("scatter", "pallas", "mxu"):
             # --pileup auto resolves per job inside the backend (host
             # vs device by the placement gate) — a host-routed job
             # launches nothing to warm, so auto-prewarm only engages
@@ -741,7 +747,7 @@ class ServeRunner:
             # no-op here reads as "prewarm is broken".
             logger.info(
                 "prewarm skipped: --pileup %s (auto-prewarm engages "
-                "for explicit device pileups scatter/pallas; use "
+                "for explicit device pileups scatter/pallas/mxu; use "
                 "ServeRunner.prewarm() for manual shape control)",
                 spec.config.pileup)
             return
@@ -756,7 +762,7 @@ class ServeRunner:
             for shape in shapes:
                 if self._prewarm_stop.is_set():
                     return
-                self.prewarm(total_len, [shape])
+                self.prewarm(total_len, [shape], spec.config.pileup)
 
         t = threading.Thread(target=_worker, name="serve-prewarm",
                              daemon=True)
@@ -790,9 +796,6 @@ class ServeRunner:
                         n_available=available_devices(
                             self.backend.mesh_devices),
                         pileup=spec.config.pileup)
-        if spec.config.pileup == "mxu":
-            raise ValueError("--pileup mxu: not supported by the torch "
-                             "backend yet")
         if self.journal is not None:
             # journal mode injects a per-job checkpoint_dir, and BAM
             # inputs do not support checkpoint resume yet — failing the

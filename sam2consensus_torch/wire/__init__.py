@@ -49,6 +49,14 @@ class WireAccount:
         reg.add(f"wire/slabs/{codec}", 1)
         reg.add("wire/h2d_bytes", int(nbytes))
 
+    def add_operand(self, nbytes: int) -> None:
+        """A kernel operand that crossed beside the rows (the MXU slot
+        vector): host-to-device bytes, not row-wire bytes."""
+        from .. import observability as obs
+
+        self.bytes += int(nbytes)
+        obs.metrics().add("wire/h2d_bytes", int(nbytes))
+
     def extra(self) -> dict:
         """The ``stats.extra`` keys: ``h2d_bytes``, ``wire_rows_bytes``,
         ``wire_packed5_bytes``, ``wire_slabs`` and

@@ -286,6 +286,41 @@ def test_pileup_helpers():
     assert t_pileup.TILE_POSITIONS == r_mxu.TILE_POSITIONS
 
 
+@pytest.mark.parametrize("name", [
+    "TILE_POSITIONS", "MAX_BLOWUP", "TILE_CHUNK"])
+def test_mxu_constants(name):
+    from sam2consensus_torch.ops import mxu_pileup as t_mxu
+
+    assert getattr(t_mxu, name) == getattr(r_mxu, name)
+
+
+@pytest.mark.parametrize("attr", [
+    "TilePlan", "_plan_prelude", "plan_tiles", "SlotPlan", "assign_slots",
+    "plan_slots"])
+def test_mxu_planner_copies(attr):
+    """The MXU pileup's host planning is the reference's code."""
+    from sam2consensus_torch.ops import mxu_pileup as t_mxu
+
+    assert _src(getattr(t_mxu, attr), "sam2consensus_torch") == \
+        _src(getattr(r_mxu, attr), "sam2consensus_tpu")
+
+
+@pytest.mark.parametrize("attr", ["PileupAutoTuner", "run_tuned_slab"])
+def test_autotune_copies(attr):
+    """The autotuner's state machine and its shared slab driver are the
+    reference's code."""
+    assert _src(getattr(t_pileup, attr), "sam2consensus_torch") == \
+        _src(getattr(r_pileup, attr), "sam2consensus_tpu")
+
+
+def test_plan_mxu_grids_copy():
+    from sam2consensus_torch.parallel import base as t_pbase
+    from sam2consensus_tpu.parallel import base as r_pbase
+
+    assert _src(t_pbase.plan_mxu_grids, "sam2consensus_torch") == \
+        _src(r_pbase.plan_mxu_grids, "sam2consensus_tpu")
+
+
 def test_threshold_and_vote_helpers():
     ts = [0.25, 1 / 3, 0.999999, 1.0, 5e-324, 2.5]
     _same(t_cutoff.encode_thresholds(ts), r_cutoff.encode_thresholds(ts))
@@ -1299,11 +1334,9 @@ def test_predict_job_peak_bytes_wraps_the_port_model():
 def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
-    aside: ``backend``).  The deliberate difference: the flag value of the
-    part the port does not run yet (the MXU pileup) is refused by name at
-    server start (``cli.UNPORTED_SERVE_FLAGS``), never ignored; fleet
-    mode, the session flags, the cohort flags and the sharding flags
-    run."""
+    aside: ``backend``), and runs: the MXU pileup, fleet mode, the session
+    flags, the cohort flags and the sharding flags; nothing is refused by
+    name."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
 
@@ -1317,16 +1350,7 @@ def test_cli_serve_flags():
     t_def, r_def = dict(t_p._defaults), dict(r_p._defaults)
     assert t_def.pop("backend") == "torch" and r_def.pop("backend") == "jax"
     assert t_def == r_def
-    refused = {f for f, _d, _s in t_cli.UNPORTED_SERVE_FLAGS}
-    assert refused <= {s for a in t_p._actions for s in a.option_strings}
-    assert not refused & {"--batch", "--batch-window", "--count-cache",
-                          "--incremental", "--worker-id", "--lease-ttl",
-                          "--ingest-port", "--stability-waves",
-                          "--revote-debounce", "--ingest-max-body",
-                          "--ingest-timeout", "--ingest-max-pending",
-                          "--cohort-manifest", "--cohort-wave",
-                          "--cohort-summary", "--shards", "--shard-mode"}
-    assert refused == {"--pileup"}
+    assert not hasattr(t_cli, "UNPORTED_SERVE_FLAGS")
 
 
 def _cache_state(mod, n_rows, tag):

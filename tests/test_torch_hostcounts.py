@@ -551,5 +551,6 @@ def test_backend_host_paths_equal_device_path(monkeypatch, text, fill):
 
 
 def test_backend_rejects_an_unported_strategy():
-    with pytest.raises(ValueError, match="auto, pallas, scatter and host"):
-        _run(TEXT, pileup="mxu")
+    with pytest.raises(ValueError,
+                       match="auto, pallas, mxu, scatter and host"):
+        _run(TEXT, pileup="bogus")

@@ -5,8 +5,9 @@ Two worker processes join one ``torch.distributed`` gloo group (a
 ["cpu", "cpu"]``, so the mesh holds 4 global shards: rank ``r`` owns flat
 indices ``2r`` and ``2r + 1``.  On the fixture of the reference's
 ``tools/multihost_dryrun.py`` worker, every rank runs the dp, sp (``halo``
-64) and dpsp layouts (the torch scatter and K1's plain version; dp also
-under delta8; sp's window route on a sorted slice of a longer genome) and
+64) and dpsp layouts (the torch scatter, K1's plain version and the MXU
+route, whose E and skew verdict every rank derives alike; dp also under
+delta8; sp's window route on a sorted slice of a longer genome) and
 a whole ``TorchBackend.run`` at ``shards=4`` under each ``--shard-mode``.
 The parent test holds every rank's counts, vote, dash totals and tail
 statistics against the JAX package's single-device oracle, and every
@@ -49,12 +50,15 @@ WORLD = 2
 LOCAL = ["cpu", "cpu"]
 #: the accumulator layouts each rank runs: (name, class, keyword args)
 LAYOUTS = (("dp", "dp", dict(pileup="scatter")),
-           ("dp_k1", "dp", dict(pileup="auto")),
-           ("dp_delta8", "dp", dict(pileup="auto", wire="delta8")),
+           ("dp_k1", "dp", dict(pileup="pallas")),
+           ("dp_delta8", "dp", dict(pileup="pallas", wire="delta8")),
+           ("dp_mxu", "dp", dict(pileup="mxu")),
            ("sp", "sp", dict(halo=64)),
            ("sp_k1", "sp", dict(halo=64, pileup="pallas")),
+           ("sp_mxu", "sp", dict(halo=64, pileup="mxu")),
            ("dpsp", "dpsp", dict(halo=64)),
-           ("dpsp_k1", "dpsp", dict(halo=64, pileup="pallas")))
+           ("dpsp_k1", "dpsp", dict(halo=64, pileup="pallas")),
+           ("dpsp_mxu", "dpsp", dict(halo=64, pileup="mxu")))
 SHARD_MODES = ("auto", "dp", "sp", "dpsp")
 #: every worker's deadline (seconds), shared by the pair
 DEADLINE = 180.0
@@ -441,6 +445,7 @@ def test_layout_routes_and_mesh_counters(reports, leg):
             assert any(k.startswith("routed") for k in keys)
         assert any(("pallas" in k) == leg.endswith(("_k1", "_delta8"))
                    for k in keys), keys
+        assert any("mxu" in k for k in keys) == leg.endswith("_mxu"), keys
         assert got["hosts"] == 2 and got["shards"] == 4
         assert got["shard_bytes"] > 0 and got["other_shard_bytes"] == 0
         assert got["gather_bytes"] > 0

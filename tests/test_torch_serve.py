@@ -5,12 +5,12 @@ device="cpu")``: a served queue writes the FASTA bytes of ``--backend
 jax`` one-shot runs of the same inputs (plain, gzip and BAM SAM, two
 thresholds, ``--py2-compat``; with and without decode-ahead), publishes
 ``serve/overlap_sec`` on the jobs it decoded ahead, demotes only a
-faulting job, survives a failed job, refuses checkpoint jobs, incremental
-jobs without the count cache and every serve flag the port does not run
-yet by name, runs the batching and count-cache options it does run (each
+faulting job, survives a failed job, refuses checkpoint jobs and
+incremental jobs without the count cache, runs the batching and count-cache options it does run (each
 queue's bytes equal to the JAX package's ``ServeRunner`` on the same
 queue and flags), and without a named device needs CUDA.  The prewarm runs the pileup route over all-PAD
-rows without counting anything.  Admission control (queue bound, tenant
+rows without counting anything (an ``--pileup mxu`` job's, the MXU
+route).  Admission control (queue bound, tenant
 quota, ``--mem-budget``, degraded-tenant pinning) and the decode-ahead
 fault site behave as the reference's.
 """
@@ -297,7 +297,6 @@ def test_failed_job_does_not_kill_the_server(tmp_path):
                              "per-reference count cache"),
     (dict(shards=2), r"--shards 2 exceeds the 1 available device\(s\)"),
     (dict(shard_mode="dp"), None),
-    (dict(pileup="mxu"), "--pileup mxu: not supported by the torch"),
 ])
 def test_serve_rejects_jobs_up_front(tmp_path, cfg, match):
     """A job the server cannot run is refused at admission, before
@@ -346,18 +345,16 @@ def test_env_metrics_out_suffixed_per_job(tmp_path, monkeypatch):
 UNPORTED = [
     (["--shards", "2"], "--shards 2"),
     (["--shard-mode", "dp"], "--shard-mode dp"),
-    (["--pileup", "mxu"], "--pileup mxu"),
 ]
 
 
 @pytest.mark.parametrize("argv,named", UNPORTED,
                          ids=[u[0][0] + "=" + u[0][-1] for u in UNPORTED])
 def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
-    """``--pileup mxu`` is refused by name at server start.  The sharding
-    flags run now: ``--shards 2`` over the one-device CPU mesh fails the
-    start with the reference's ``MeshCapacityError`` text, and
-    ``--shard-mode dp`` serves a job byte-identical to ``--backend
-    jax``'s one-shot run."""
+    """The flags once refused by name run now: ``--shards 2`` over the
+    one-device CPU mesh fails the start with the reference's
+    ``MeshCapacityError`` text, and ``--shard-mode dp`` serves a job
+    byte-identical to ``--backend jax``'s one-shot run."""
     from sam2consensus_torch import cli
     from sam2consensus_tpu.parallel import mesh as r_mesh
 
@@ -371,16 +368,43 @@ def test_unported_serve_flag_refused_by_name(tmp_path, argv, named):
     with pytest.raises(SystemExit) as exc:
         cli.main(["serve", "-i", str(tmp_path / "x.sam"), "-o",
                   str(tmp_path / "o"), "--quiet", *argv], device="cpu")
-    if argv[0] == "--shards":
-        with pytest.raises(r_mesh.MeshCapacityError) as want:
-            r_mesh.validate_shards(2, n_available=1)
-        # torch.distributed named where the reference names
-        # jax.distributed
-        assert str(exc.value.code) == "error: " + str(want.value).replace(
-            "jax.distributed", "torch.distributed")
-        return
-    assert str(exc.value.code) == (f"error: {named}: not supported by "
-                                   f"the torch backend yet")
+    with pytest.raises(r_mesh.MeshCapacityError) as want:
+        r_mesh.validate_shards(2, n_available=1)
+    # torch.distributed named where the reference names jax.distributed
+    assert str(exc.value.code) == "error: " + str(want.value).replace(
+        "jax.distributed", "torch.distributed")
+
+
+@pytest.mark.parametrize("extra", [[], ["--wire", "delta8"],
+                                   ["--shards", "1", "-c", "0.25"]])
+def test_served_mxu_queue_equals_jax_one_shot(tmp_path, extra):
+    """``serve --pileup mxu``: each job of the queue writes the bytes of
+    its ``--backend jax --pileup mxu`` one-shot run."""
+    from sam2consensus_torch import cli
+
+    paths = [sim(tmp_path, f"m{k}.sam", 90 + k) for k in range(2)]
+    argv = ["--pileup", "mxu", *extra]
+    assert cli.main(["serve", *sum((["-i", p] for p in paths), []), "-o",
+                     str(tmp_path / "o"), "--quiet", "--prewarm", "off",
+                     *argv], device="cpu") == 0
+    assert read_dir(str(tmp_path / "o")) == jax_cli_dir(
+        paths, str(tmp_path / "ref"), extra=argv)
+
+
+def test_served_mxu_job_runs_the_mxu_route(tmp_path):
+    """A ``JobSpec`` at ``pileup="mxu"`` is admitted, counts by the MXU
+    route and renders the JAX package's one-shot bytes."""
+    from sam2consensus_torch.serve import JobSpec
+
+    path = sim(tmp_path, "m.sam", 95)
+    r = runner()
+    try:
+        (res,) = r.submit_jobs([JobSpec(path, TConfig(pileup="mxu"))])
+    finally:
+        r.close()
+    assert res.ok
+    assert any(k.startswith("mxu_w") for k in res.stats.extra["pileup"])
+    assert rendered(res) == jax_cold(path, pileup="mxu")
 
 
 @pytest.mark.parametrize("env,value", [("S2C_MESH_HOSTS", "2")])
@@ -656,6 +680,7 @@ def test_runner_prewarm_counts_shapes_in_server_registry(tmp_path):
 
 
 @pytest.mark.parametrize("pileup,engaged", [("pallas", True),
+                                            ("mxu", True),
                                             ("scatter", True),
                                             ("auto", False),
                                             ("host", False)])

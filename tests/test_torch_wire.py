@@ -294,8 +294,8 @@ def test_accumulator_counts_equal_jax(strategy, wire):
 
 
 def test_accumulator_rejects_an_unknown_strategy():
-    with pytest.raises(ValueError, match="pallas and scatter"):
-        t_pileup.PileupAccumulator(100, "cpu", "mxu")
+    with pytest.raises(ValueError, match="pallas, mxu, scatter and auto"):
+        t_pileup.PileupAccumulator(100, "cpu", "bogus")
 
 
 @pytest.fixture
