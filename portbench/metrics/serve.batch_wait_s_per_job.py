@@ -1,0 +1,15 @@
+"""serve.batch_wait_s_per_job: the serving thread's wait for decoded
+batches (the port's ``batch_wait`` span), in seconds a job of the
+profiled queue: the span's ``user_annotation`` events in the device
+trace, summed."""
+
+SPAN = "batch_wait"
+
+
+def read(w):
+    p = w.profile
+    if p is None or not p.jobs:
+        return None
+    durs = [e["dur"] for e in p.events
+            if e.get("cat") == "user_annotation" and e.get("name") == SPAN]
+    return sum(durs) / 1e6 / len(p.jobs) if durs else None

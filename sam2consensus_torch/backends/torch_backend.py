@@ -80,11 +80,14 @@ Observability is the JAX backend's (``jax_backend.py:594-1822``): the run's
 own tracer, registry and decision ledger (``observability.start_run``);
 the reference's spans (``decode`` on every ``next`` of the batch stream,
 ``stage``, ``pileup_dispatch`` a batch, ``accumulate`` and, when tracing,
-its ``accumulate_sync`` barrier, ``insertions``, ``vote``, ``render``) and
-``phase/*_sec`` counters; its decisions (``link_constants``,
-``tail_placement``, ``wire_codec``, ``capacity``, ``epilogue``,
-``host_pileup_bound``, ``decode_threads``, ``longread_layout``) and gauges
-(``dispatch/*``, ``wire/codec``, ``pipeline/overlap``); the memory plane
+its ``accumulate_sync`` barrier, ``insertions``, ``vote``, ``render``),
+the port's own leaves for the device trace (``batch_wait``, the serving
+thread's wait for a decoded batch, and ``tail``; see
+``observability.devtrace``) and ``phase/*_sec`` counters; its decisions
+(``link_constants``, ``tail_placement``, ``wire_codec``, ``capacity``,
+``epilogue``, ``host_pileup_bound``, ``decode_threads``,
+``longread_layout``) and gauges (``dispatch/*``, ``wire/codec``,
+``pipeline/overlap``); the memory plane
 (``observability.memplane``); and ``finish_run``'s trace, metrics JSONL
 and manifest.
 """
@@ -629,9 +632,10 @@ class _Prefetcher:
     staging stops for the run.  Any other exception (strict decode errors,
     contract errors of the staging itself) is re-raised in the consumer at
     the point of consumption with its type and message unchanged, and the
-    producer stops.  A stager whose ``stage_fn`` was rebound to None (the
-    ladder's host rung) lets batches pass unstaged.  ``close()`` stops the
-    producer when the consumer leaves early.
+    producer stops.  The consumer's wait for each batch is a
+    ``batch_wait`` span.  A stager whose ``stage_fn`` was rebound to None
+    (the ladder's host rung) lets batches pass unstaged.  ``close()``
+    stops the producer when the consumer leaves early.
     """
 
     _DONE = object()
@@ -728,8 +732,13 @@ class _Prefetcher:
         self._thread.join()
 
     def __iter__(self):
+        # the consumer's wait for a decoded (and staged) batch: a leaf
+        # span on the serving thread, so a profile names the card's idle
+        # time while the producer decodes
+        span = obs.tracer().span
         while True:
-            batch = self._q.get()
+            with span("batch_wait"):
+                batch = self._q.get()
             if batch is self._DONE:
                 self._thread.join()
                 if self._exc is not None:
@@ -1026,11 +1035,12 @@ class TorchBackend:
         Returns ``(fastas, acc)``; ``acc`` may have been tail-demoted."""
         tr = obs.tracer()
         reg = obs.metrics()
-        t0 = time.perf_counter()
-        acc, (syms, ins_syms, contig_sums, site_cov, ins, dash_counts) = \
-            self._tail_resilient(acc, cfg, layout, encoder, stats, policy,
-                                 ckpt_cb)
-        stats.extra["tail_sec"] = time.perf_counter() - t0
+        with tr.span("tail"):
+            t0 = time.perf_counter()
+            acc, (syms, ins_syms, contig_sums, site_cov, ins,
+                  dash_counts) = self._tail_resilient(
+                acc, cfg, layout, encoder, stats, policy, ckpt_cb)
+            stats.extra["tail_sec"] = time.perf_counter() - t0
         stats.extra["pileup"] = dict(acc.strategy_used)
         if isinstance(acc, HostPileupAccumulator):
             stats.extra["counts_uploads"] = acc.uploads

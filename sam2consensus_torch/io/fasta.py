@@ -2,13 +2,16 @@
 
 File naming, record joining, optional wrapping and the per-file messages
 follow the reference (``sam2consensus.py:411-424``), so output directories
-compare byte-identical.
+compare byte-identical.  The port adds one span: ``write_outputs`` is a
+``fasta_write`` span (``observability.devtrace``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List
+
+from .. import observability as obs
 
 
 @dataclass
@@ -34,17 +37,18 @@ def write_outputs(fastas: Dict[str, List[FastaRecord]], outfolder: str,
                   echo=print) -> List[str]:
     """One ``{ref}__{prefix}.fasta`` per reference; returns paths written."""
     paths = []
-    for reference, records in fastas.items():
-        outnameprefix = reference + "__" + prefix
-        path = outfolder + outnameprefix + ".fasta"
-        with open(path, "w") as fh:
-            fh.write(render_file(records, nchar))
-        paths.append(path)
-        pcts = [str(int(t * 100)) + "%" for t in thresholds]
-        if len(thresholds) == 1:
-            echo("Consensus sequence at " + pcts[0] + " saved for "
-                 + reference + " in: " + path)
-        else:
-            echo("Consensus sequences at " + ",".join(pcts) + " saved for "
-                 + reference + " in: " + path)
+    with obs.tracer().span("fasta_write"):
+        for reference, records in fastas.items():
+            outnameprefix = reference + "__" + prefix
+            path = outfolder + outnameprefix + ".fasta"
+            with open(path, "w") as fh:
+                fh.write(render_file(records, nchar))
+            paths.append(path)
+            pcts = [str(int(t * 100)) + "%" for t in thresholds]
+            if len(thresholds) == 1:
+                echo("Consensus sequence at " + pcts[0] + " saved for "
+                     + reference + " in: " + path)
+            else:
+                echo("Consensus sequences at " + ",".join(pcts)
+                     + " saved for " + reference + " in: " + path)
     return paths

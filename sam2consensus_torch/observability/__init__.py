@@ -5,6 +5,11 @@ surface):
 
 * :mod:`.trace` — thread-safe hierarchical spans (free when disabled,
   device-complete ``sync`` on exit);
+* :mod:`.devtrace` — the bridge: every tracer here is a
+  :class:`~.devtrace.DeviceTracer`, whose spans, while a
+  ``torch.profiler`` window records, are also ``record_function`` ranges
+  (``user_annotation`` events on the clock of the card's kernels), so the
+  card's idle gaps in a profile are named after the host work under them;
 * :mod:`.metrics` — the process-current registry of counters, gauges and
   histograms; the ``stats.extra`` keys are a view of it
   (:func:`publish_stats_extra`);
@@ -28,6 +33,18 @@ Usage, backend side::
     finally:
         observability.finish_run(robs, meta={"backend": "torch"})
 
+The leaf-span rule: no span that bridges encloses another on the same
+thread in a served job's path, because a profile's reader names a gap
+after the longest host event over it, and an enclosing span would name
+every gap.  The serving thread's leaves are ``batch_wait`` (the wait for
+a decoded batch, backends/torch_backend.py), ``pileup_dispatch``,
+``tail``, ``render``, ``ahead_wait`` (the wait for the next job's
+decode-ahead thread) and ``finalize`` (the runner's after-job work,
+serve/runner.py), and ``fasta_write`` (io/fasta.py).  Two nestings stand
+outside the served K1 path: ``fasta_write`` inside ``finalize`` on the
+journaled commit path, and ``counts_upload`` inside ``tail`` on the host
+pileup path.
+
 Deep call sites (the accumulators, the link probe, the decoders) reach
 the current run's instruments through :func:`tracer`, :func:`metrics`
 and :func:`ledger`.  Between runs they fall back to process-wide
@@ -49,6 +66,7 @@ from . import ledger as _ledger
 from . import manifest as _manifest
 from . import memplane as _memplane
 from . import metrics as _metrics
+from .devtrace import DeviceTracer
 from .export import (read_metrics_jsonl, write_chrome_trace,
                      write_metrics_jsonl)
 from .ledger import DecisionLedger, DecisionRecord
@@ -56,8 +74,8 @@ from .metrics import MetricsRegistry
 from .trace import Tracer
 
 __all__ = [
-    "Tracer", "MetricsRegistry", "RunObservability", "PHASES",
-    "DecisionLedger", "DecisionRecord",
+    "Tracer", "DeviceTracer", "MetricsRegistry", "RunObservability",
+    "PHASES", "DecisionLedger", "DecisionRecord",
     "start_run", "finish_run", "prepare_run", "bind_run_to_thread",
     "current_run", "tracer", "metrics", "ledger",
     "record_decision", "finalize_decisions", "last_manifest",
@@ -72,7 +90,7 @@ PHASES = ("decode", "stage", "pileup_dispatch", "accumulate",
 
 #: the always-available fallback tracer; disabled, so every span call
 #: outside a run is the shared no-op
-_disabled_tracer = Tracer(enabled=False)
+_disabled_tracer = DeviceTracer(enabled=False)
 _tracer_stack: List[Tracer] = [_disabled_tracer]
 _stack_lock = threading.Lock()
 _tracer_tls = threading.local()
@@ -151,7 +169,7 @@ def prepare_run(trace_out: Optional[str] = None,
 
         config = dataclasses.asdict(config) \
             if dataclasses.is_dataclass(config) else None
-    return RunObservability(tracer=Tracer(enabled=bool(enabled)),
+    return RunObservability(tracer=DeviceTracer(enabled=bool(enabled)),
                             registry=MetricsRegistry(),
                             trace_out=trace_out, metrics_out=metrics_out,
                             ledger=DecisionLedger(), config=config)

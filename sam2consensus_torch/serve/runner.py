@@ -1650,7 +1650,11 @@ class ServeRunner:
             if ahead is not None and ahead_for == i:
                 join_t = self.stall_timeout \
                     if self.stall_timeout is not None else self.job_timeout
-                self._join_ahead(ahead, join_t)
+                # the serving thread's wait for the next job's decode:
+                # a leaf span (the card idles under it), outside
+                # elapsed_sec
+                with ahead.robs.tracer.span("ahead_wait"):
+                    self._join_ahead(ahead, join_t)
                 if ahead.thread.is_alive():
                     # the decode-ahead thread itself is wedged: disown
                     # it and fail only its job
@@ -2021,6 +2025,17 @@ class ServeRunner:
                       spec: JobSpec, queue_wait: float,
                       echo_suffix: str = "",
                       journal_lifecycle: bool = True) -> None:
+        """Everything after a job's run attempt, as one ``finalize`` span
+        (outside ``elapsed_sec``): a leaf on the serving thread but for the
+        ``fasta_write`` of a journaled commit."""
+        with obs.tracer().span("finalize"):
+            self._finalize_job_body(entry, res, robs, spec, queue_wait,
+                                    echo_suffix, journal_lifecycle)
+
+    def _finalize_job_body(self, entry: dict, res: JobResult, robs,
+                           spec: JobSpec, queue_wait: float,
+                           echo_suffix: str = "",
+                           journal_lifecycle: bool = True) -> None:
         """Everything after a job's run attempt, shared by the serial
         loop and the batch scheduler (serve/scheduler.py) so the two
         paths cannot drift: metrics subset + rung/manifest capture,

@@ -534,6 +534,9 @@ PORT_ONLY = {
     # epilogue); the port's CPU device accumulator runs the fused tail's
     # plain versions, whose epilogue is on the (CPU) device
     "epilogue/device_tails": "the fused tail's epilogue on the CPU",
+    # the port's leaf spans for the device trace (observability/devtrace)
+    "batch_wait": "the consumer's wait for a decoded batch, a port span",
+    "tail": "the tail around its vote and insertions, a port span",
 }
 #: and the reverse, for the same reason
 JAX_ONLY["epilogue/host_tails"] = "the reference's CPU tail is native"
