@@ -488,7 +488,7 @@ def _record_decode_decision(cfg, records, threads: int, parallel: bool,
     rate = rate_mbps * 1e6
     cores = os.cpu_count() or 1
     inputs = {"threads": int(threads),
-              "requested": int(getattr(cfg, "decode_threads", 1)),
+              "requested": getattr(cfg, "decode_threads", 1),
               "cores": int(cores), "parallel": bool(parallel),
               "rate_mbps_per_core": round(rate_mbps, 2),
               "rung": "fused" if fuse else "slab"}
@@ -577,12 +577,16 @@ def mesh_device_list(device: torch.device, mesh_devices=None) -> list:
     return devices
 
 
-def _spans_processes(stats: BackendStats) -> bool:
+def _spans_processes(stats: BackendStats, cfg: RunConfig) -> bool:
     """The run's mesh spans processes: more than one shard over an
-    initialised process group of more than one rank."""
+    initialised process group of more than one rank.  A job decoded
+    before its run resolves the shards (a decode-ahead job, a packed
+    member) reads ``--shards`` itself: any count but 1 spans the ranks
+    there, as 0 is every device of the ranks' global list."""
     from ..parallel.mesh import process_group
 
-    return stats.extra.get("shards", 1) > 1 and process_group()[0] > 1
+    shards = stats.extra.get("shards", getattr(cfg, "shards", 0))
+    return shards != 1 and process_group()[0] > 1
 
 
 def _timed(batches, stats: BackendStats):
@@ -1734,7 +1738,7 @@ class TorchBackend:
 
     @staticmethod
     def _make_encoder(layout, records, cfg: RunConfig, stats: BackendStats,
-                      acc=None):
+                      acc=None, sharers: int = 1):
         """Pick the host decode path (the JAX backend's ``_make_encoder``:
         a BAM stream's own encoder, else the parallel or the serial
         branch, counting as it decodes when ``acc`` holds host counts);
@@ -1746,6 +1750,8 @@ class TorchBackend:
         ``bad_sink``.  ``--paranoid`` keeps the row path (no fused count)
         so batches can be re-validated, and it and ``--checkpoint-dir``
         keep the serial decoder (ordered batches and stream offsets).
+        ``sharers``: the jobs decoding at once on the server's CPUs, which
+        a served job's host-sized worker count divides among them.
 
         A serve job decoded ahead (``serve.runner``'s ``_PredecodedJob``,
         ``is_predecoded``) arrives as a ready encoder and its batches
@@ -1771,14 +1777,17 @@ class TorchBackend:
             if native_encoder.available():
                 stats.extra["decoder"] = "native"
                 # one thread budget: the shard workers, the BGZF inflate
-                # pool and the native vote
-                threads = resolve_decode_threads(cfg)
+                # pool and the native vote; a served job's default sizes
+                # it from the host and the plain file's body (serial for
+                # an input that does not byte-shard)
+                threads = resolve_decode_threads(
+                    cfg, records.body_bytes_total(), sharers)
                 # a process-spanning mesh routes rows by their place in
                 # each batch: every rank must decode the same batches, so
                 # the shard workers' completion order is not taken there
                 parallel = (threads > 1 and not cfg.checkpoint_dir
                             and not cfg.paranoid
-                            and not _spans_processes(stats))
+                            and not _spans_processes(stats, cfg))
                 stats.extra["decode_threads"] = threads if parallel else 1
                 stats.extra["decode_rung"] = "fused" if fuse else "slab"
                 _record_decode_decision(cfg, records, threads, parallel,
@@ -1793,7 +1802,12 @@ class TorchBackend:
                         strict=cfg.strict, on_lines=records.add_lines,
                         on_bytes=records.add_bytes, segment_width=seg_w,
                         bad_sink=bad_sink)
-                    return enc, enc.encode_input(records)
+                    batches = enc.encode_input(records)
+                    # the workers the rung took: fewer shards than
+                    # threads on a short body, a clamp on a huge genome
+                    stats.extra["decode_threads"] = \
+                        enc.counters["ingest_mode"]["threads"]
+                    return enc, batches
                 enc = native_encoder.NativeReadEncoder(
                     layout, maxdel=cfg.maxdel, strict=cfg.strict,
                     on_lines=records.add_lines, on_bytes=records.add_bytes,

@@ -408,7 +408,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--insertion-kernel", dest="ins_kernel",
                    choices=["auto", "scatter", "pallas"], default="auto")
     p.add_argument("--decode-threads", dest="decode_threads", type=int,
-                   default=1)
+                   default=None,
+                   help="as the one-shot flag (0 = all cores); not given, "
+                        "a plain SAM file of 2 MiB or more decodes on "
+                        "min(4, (usable CPUs - 2) // jobs decoding at "
+                        "once) shard workers, serial below 2")
     p.add_argument("--decoder", choices=["auto", "native", "py"],
                    default="auto")
     p.add_argument("--shard-mode", dest="shard_mode",

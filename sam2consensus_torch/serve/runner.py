@@ -325,6 +325,9 @@ class _DecodeAhead:
                 stats = BackendStats()
                 encoder, gen = self._backend._make_encoder(
                     layout, stream, self.spec.config, stats, None)
+                if getattr(encoder, "counters", {}).get(
+                        "ingest_mode", {}).get("rung") == "shards":
+                    reg.add("serve/ahead_shard_jobs", 1)
                 with self._lock:
                     self._open = None
                     self._intervals.append((t_open, time.perf_counter()))
@@ -2062,6 +2065,9 @@ class ServeRunner:
             # server-level aggregation for the health snapshot (the
             # per-job numbers live in each job's own registry)
             self.registry.add("serve/bad_records", res.bad_records)
+        if "serve/ahead_shard_jobs" in res.metrics:
+            self.registry.add("serve/ahead_shard_jobs",
+                              res.metrics["serve/ahead_shard_jobs"])
         res.rungs = rladder.job_rungs(snap)
         res.manifest = obs.last_manifest() if res.ok else None
         if self.worker_id and res.manifest is not None:
@@ -2167,8 +2173,9 @@ class ServeRunner:
                     in_bytes = 0
                 self.ratecard.observe_job(
                     snap, res.elapsed_sec, input_bytes=in_bytes,
-                    decode_cores=max(
-                        1, int(getattr(cfg, "decode_threads", 1) or 1)),
+                    decode_cores=max(1, int(
+                        (res.stats.extra if res.stats is not None
+                         else {}).get("decode_threads") or 1)),
                     packed=snap["counters"].get("serve/batched", 0) > 0,
                     lifecycle=lifecycle)
             except Exception as exc:

@@ -426,7 +426,7 @@ class BatchScheduler:
                 with ThreadPoolExecutor(
                         max_workers=workers,
                         thread_name_prefix="serve-batch-decode") as ex:
-                    futs = {ex.submit(self._decode_member, m): m
+                    futs = {ex.submit(self._decode_member, m, workers): m
                             for m in members}
                     pending: List[_Member] = []
                     while futs:
@@ -679,7 +679,7 @@ class BatchScheduler:
              for m in members])
 
     # -- phases ------------------------------------------------------------
-    def _decode_member(self, m: _Member) -> None:
+    def _decode_member(self, m: _Member, sharers: int = 1) -> None:
         """Decode one member fully (bounded: members passed the size
         gate), instruments thread-bound so phase seconds, quarantine
         counters and strict errors all land in the member's own job.
@@ -687,7 +687,9 @@ class BatchScheduler:
         stripped — packed members replay whole on a crash: the
         journal-injected per-job checkpoint home stays empty (serial
         decode with stream-consistent snapshots is the checkpoint
-        contract, and the members are small by the eligibility gate)."""
+        contract, and the members are small by the eligibility gate).
+        ``sharers``: the pool's workers, among which a member's
+        host-sized decode workers divide the server's CPUs."""
         from ..backends.base import BackendStats
         from ..config import resolve_decode_threads
         from ..encoder.events import GenomeLayout
@@ -730,7 +732,8 @@ class BatchScheduler:
                 # acc=None: never the fused host count (the member's
                 # rows go to the shared accumulator), and no torch call
                 encoder, gen = runner.backend._make_encoder(
-                    m.layout, handle.stream, m.cfg, BackendStats(), None)
+                    m.layout, handle.stream, m.cfg, BackendStats(), None,
+                    sharers)
                 m.encoder = encoder
                 # decode clock starts AFTER open/encoder construction,
                 # mirroring the serial path's _timed_iter discipline —

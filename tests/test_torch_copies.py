@@ -1334,19 +1334,21 @@ def test_predict_job_peak_bytes_wraps_the_port_model():
 def test_cli_serve_flags():
     """Every flag of the reference's serve parser parses in the port's,
     with its dest, default, choices and type (the port's own defaults
-    aside: ``backend``), and runs: the MXU pileup, fleet mode, the session
-    flags, the cohort flags and the sharding flags; nothing is refused by
-    name."""
+    aside: ``backend``, and ``--decode-threads``, None: a served job's
+    decode workers sized from the host), and runs: the MXU pileup, fleet
+    mode, the session flags, the cohort flags and the sharding flags;
+    nothing is refused by name."""
     from sam2consensus_torch import cli as t_cli
     from sam2consensus_tpu import cli as r_cli
 
-    def table(parser):
-        return sorted((s, a.dest, a.default, a.choices, a.type,
+    def table(parser, own=None):
+        return sorted((s, a.dest, own.get(s, a.default) if own
+                       else a.default, a.choices, a.type,
                        a.nargs, type(a).__name__)
                       for a in parser._actions for s in a.option_strings)
 
     t_p, r_p = t_cli.build_serve_parser(), r_cli.build_serve_parser()
-    assert table(t_p) == table(r_p)
+    assert table(t_p) == table(r_p, own={"--decode-threads": None})
     t_def, r_def = dict(t_p._defaults), dict(r_p._defaults)
     assert t_def.pop("backend") == "torch" and r_def.pop("backend") == "jax"
     assert t_def == r_def
