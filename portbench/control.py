@@ -22,6 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from portbench.harness import judge, manifest  # noqa: E402
 from portbench.harness.main import JobRecord, pool_cache  # noqa: E402
+from portbench.reference import consensus as rc  # noqa: E402
 from portbench.traffic import pool as tpool  # noqa: E402
 
 
@@ -34,19 +35,20 @@ def readings(cell_name: str, seed: int, control=None):
                           pool_cache(cell.name))()
     answers = judge.expected_all(samples, flags, control)
     with tempfile.TemporaryDirectory(prefix="portbench-control-") as work:
-        jobs, folders = [], []
-        for k, (s, files) in enumerate(zip(samples, answers)):
+        jobs, outputs = [], []
+        for k, (s, called) in enumerate(zip(samples, answers)):
+            files = rc.render(s.name, called)
             folder = os.path.join(work, s.name)
             os.makedirs(folder)
             for name, data in files.items():
                 with open(os.path.join(folder, name), "wb") as fh:
                     fh.write(data)
-            fastas, prefix = judge.records(files)
+            fastas = judge.records(files)
             jobs.append(JobRecord(sample=k, ok=True, elapsed=0.0, extra={},
                                   decode_sec=0.0, fastas=fastas,
-                                  prefix=prefix))
-            folders.append(folder)
-        checks = judge.judge(jobs, samples, folders, flags)
+                                  prefix=s.name))
+            outputs.append((k, s.name, judge.on_disk(folder)))
+        checks = judge.judge(jobs, samples, outputs, flags)
     return {"workload": cell_name, "seed": seed, "control": control,
             "samples": len(samples), "correct": judge.passed(checks),
             "seconds": time.perf_counter() - t, "checks": checks}

@@ -1,16 +1,22 @@
 """One run of one cell: set-up, the measured window, the judgement, the
 readers, and the result line.
 
-The window drives ``sam2consensus_torch.serve.runner.ServeRunner.
-submit_jobs`` in a closed loop: one queue of the cell's ``queue_jobs``
-samples after another, each queue's FASTA files written as ``serve``
-writes them, until ``--seconds`` have passed.  ``read_mbases_per_s`` is
-the aligned read bases of every job of those queues over the time from
-the window's start to the last queue's end.  With ``--trace 1`` the
-second queue runs under ``torch.profiler``, and the cell's per-layer
-metrics are read in place of its end-to-end ones: the readers of spans
-and counters over the jobs outside the profiled queue, those of the
-device trace over that queue.  The host's own readings around the window
+The window serves one queue of the cell's ``queue_jobs`` samples after
+another, in a closed loop, until ``--seconds`` have passed, on a
+``ServeRunner`` started with the cell's ``server`` arguments.  On the
+``jobs`` route a queue is ``ServeRunner.submit_jobs``, each job's FASTA
+files written as ``serve`` writes them; on the ``cohort`` route it is one
+``CohortRunner`` over the queue's inputs, which writes its members' files
+itself.  A sample a queue holds more than once is a further input of its
+own name, linked to the sample's file.  With ``--trace 0`` the card's
+operations are recorded over the whole window (``trace.card_time``,
+started once ``setup_s`` is read), and ``device_ms_per_gbase`` is the
+card's busy time over the aligned read bases of every job of those
+queues; the host's rate over the window goes to standard error.  With
+``--trace 1`` the second queue runs under ``torch.profiler``, and the
+cell's per-layer metrics are read in place of its end-to-end ones: the
+readers of spans, counters and the host's rate over the jobs outside the
+profiled queue, those of the device trace over that queue.  The host's own readings around the window
 (``host.py``) go to standard error.
 """
 
@@ -26,10 +32,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 from . import guard, host, judge, manifest
-from .trace import profiled
+from .trace import card_time, profiled
 
 #: the queue of the window that runs under the profiler with --trace 1
 PROFILED_QUEUE = 1
@@ -60,6 +67,7 @@ class Window:
     samples: list
     jobs: List[JobRecord]       # the window's, but the profiled queue's
     seconds: float
+    unprofiled_s: float         # the window's, but the profiled queue's
     profile: Optional[object]
     peak_bytes: int
     card: dict
@@ -145,47 +153,82 @@ def run(argv, t_start: float, device: Optional[str] = None) -> int:
         from sam2consensus_torch.io.fasta import write_outputs
         from sam2consensus_torch.serve.runner import JobSpec, ServeRunner
 
-        runner = ServeRunner(device=None if cuda else dev.type)
+        runner = ServeRunner(device=None if cuda else dev.type,
+                             **cell.server)
         t_server = time.perf_counter() - t_start
         samples = waiting()
         t_pool = time.perf_counter() - t_start
         yard_before = host.yardsticks()
         outputs = os.path.join(work, "outputs")
-        folders, specs = [], []
-        for s in samples:
-            folder = os.path.join(outputs, s.name)
-            jargs = build_serve_parser().parse_args(
-                ["-i", s.path, "-o", folder, *config["flags"]])
-            jargs.filename = s.path
-            jargs.prefix = ""
-            cfg = config_from_args(jargs)
-            folders.append(folder)
-            specs.append(JobSpec(s.path, cfg, job_id=s.name))
-
         qjobs, npool = int(traffic["queue_jobs"]), len(samples)
         quiet = lambda *a, **k: None  # noqa: E731
 
-        def one_queue(q: int) -> List[JobRecord]:
-            idx = queue_of(q, qjobs, npool)
-            results = runner.submit_jobs([specs[k] for k in idx])
-            out = []
-            for k, res in zip(idx, results):
-                spec = specs[k]
-                if res.ok:
-                    write_outputs(res.fastas, spec.config.outfolder,
-                                  spec.config.prefix, spec.config.nchar,
-                                  spec.config.thresholds, echo=quiet)
-                extra = res.stats.extra if res.stats is not None else {}
-                out.append(JobRecord(
-                    sample=k, ok=res.ok, elapsed=res.elapsed_sec,
-                    extra={key: extra.get(key) for key in (
-                        "decode_sec", "stage_sec", "tail_sec",
-                        "assemble_sec", "h2d_bytes", "pileup_path")},
-                    decode_sec=float(res.metrics.get("phase/decode_sec",
-                                                     0.0)),
-                    fastas=res.fastas if res.ok else None,
-                    prefix=spec.config.prefix))
-            return out
+        def config_of(path: str, folder: str):
+            jargs = build_serve_parser().parse_args(
+                (["-i", path] if path else [])
+                + ["-o", folder, *config["flags"]])
+            jargs.filename, jargs.prefix = path, ""
+            return config_from_args(jargs)
+
+        def record(k: int, res, prefix: str) -> JobRecord:
+            extra = res.stats.extra if res.stats is not None else {}
+            return JobRecord(
+                sample=k, ok=res.ok, elapsed=res.elapsed_sec,
+                extra={key: extra.get(key) for key in (
+                    "decode_sec", "stage_sec", "tail_sec",
+                    "assemble_sec", "h2d_bytes", "pileup_path")},
+                decode_sec=float(res.metrics.get("phase/decode_sec", 0.0)),
+                fastas=res.fastas if res.ok else None, prefix=prefix)
+
+        if cell.route == "jobs":
+            folders = [os.path.join(outputs, s.name) for s in samples]
+            specs = [JobSpec(s.path, config_of(s.path, f), job_id=s.name)
+                     for s, f in zip(samples, folders)]
+
+            def one_queue(q: int) -> List[JobRecord]:
+                idx = queue_of(q, qjobs, npool)
+                results = runner.submit_jobs([specs[k] for k in idx])
+                out = []
+                for k, res in zip(idx, results):
+                    spec = specs[k]
+                    if res.ok:
+                        write_outputs(res.fastas, spec.config.outfolder,
+                                      spec.config.prefix, spec.config.nchar,
+                                      spec.config.thresholds, echo=quiet)
+                    out.append(record(k, res,
+                                      judge.prefix_of(samples[k].path)))
+                return out
+        else:
+            from sam2consensus_torch.serve.cohort import CohortRunner
+
+            shared = os.path.join(outputs, "cohort")
+            base = config_of("", shared)
+            copies = os.path.join(work, "inputs")
+            os.makedirs(copies)
+
+            def input_of(k: int, c: int) -> str:
+                """Sample ``k``'s file, or its ``c``-th further input in a
+                queue: a link of its own name."""
+                s = samples[k]
+                return s.path if c == 0 else os.path.join(
+                    copies, f"{s.name}_{c}.sam")
+
+            for c in range(1, -(-qjobs // npool)):
+                for k in range(npool):
+                    os.symlink(samples[k].path, input_of(k, c))
+
+            def one_queue(q: int) -> List[JobRecord]:
+                idx = queue_of(q, qjobs, npool)
+                paths = [input_of(k, idx[:j].count(k))
+                         for j, k in enumerate(idx)]
+                cohort = CohortRunner(runner, paths, base)
+                cohort.run()
+                if len(cohort.results) != len(paths):
+                    raise RuntimeError(
+                        f"the cohort gave {len(cohort.results)} results "
+                        f"for {len(paths)} inputs")
+                return [record(k, res, judge.prefix_of(path))
+                        for k, path, res in zip(idx, paths, cohort.results)]
 
         # warm-up: one queue of the cell's own samples, so every shape
         # the window meets is built and the allocator has grown
@@ -196,34 +239,38 @@ def run(argv, t_start: float, device: Optional[str] = None) -> int:
             torch.cuda.synchronize()
             setup_peak = torch.cuda.max_memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        before = host.snapshot()
-        t0 = time.perf_counter()
-        setup_s = t0 - t_start
-        jobs: List[JobRecord] = []
-        unprofiled: List[JobRecord] = []
-        walls: List[float] = []
-        decodes: List[float] = []
-        profile = None
-        q = 1
-        while True:
-            if args.trace and q - 1 == PROFILED_QUEUE:
-                with profiled(cuda) as held:
+        setup_s = time.perf_counter() - t_start
+        # --trace 0 on the card: the card's own clock over the whole
+        # window, started (CUPTI's start-up) once set-up is read
+        clocked = cuda and not args.trace
+        with card_time() if clocked else nullcontext() as clock:
+            before = host.snapshot()
+            t0 = time.perf_counter()
+            jobs: List[JobRecord] = []
+            unprofiled: List[JobRecord] = []
+            walls: List[float] = []
+            decodes: List[float] = []
+            profile = None
+            q = 1
+            while True:
+                if args.trace and q - 1 == PROFILED_QUEUE:
+                    with profiled(cuda) as held:
+                        part = one_queue(q)
+                    profile = held.profile
+                    profile.jobs = part
+                else:
                     part = one_queue(q)
-                profile = held.profile
-                profile.jobs = part
-            else:
-                part = one_queue(q)
-                unprofiled.extend(part)
-            jobs.extend(part)
-            t_end = time.perf_counter()
-            walls.append(t_end - (t0 + sum(walls)))
-            decodes.append(sum(j.decode_sec for j in part))
-            q += 1
-            if t_end - t0 >= args.seconds and (
-                    not args.trace or profile is not None):
-                break
-        window_s = t_end - t0
-        after = host.snapshot()
+                    unprofiled.extend(part)
+                jobs.extend(part)
+                t_end = time.perf_counter()
+                walls.append(t_end - (t0 + sum(walls)))
+                decodes.append(sum(j.decode_sec for j in part))
+                q += 1
+                if t_end - t0 >= args.seconds and (
+                        not args.trace or profile is not None):
+                    break
+            window_s = t_end - t0
+            after = host.snapshot()
         peak = 0
         if cuda:
             peak = torch.cuda.max_memory_allocated(dev)
@@ -233,12 +280,23 @@ def run(argv, t_start: float, device: Optional[str] = None) -> int:
         gc.collect()
 
         t_ref = time.perf_counter()
-        checks = judge.judge(jobs, samples, folders, config["flags"])
+        if cell.route == "jobs":
+            found = [(k, samples[k].name, judge.on_disk(folders[k]))
+                     for k in sorted({j.sample for j in jobs})]
+        else:
+            groups = judge.by_prefix(judge.on_disk(shared))
+            found = [(k, prefix, groups.pop(prefix, {})) for k, prefix in
+                     sorted({(j.sample, j.prefix) for j in jobs})]
+            found += [(None, prefix, files)
+                      for prefix, files in groups.items()]
+        checks = judge.judge(jobs, samples, found, config["flags"])
         t_ref = time.perf_counter() - t_ref
         yard_after = host.yardsticks()
         bases = sum(samples[j.sample].aligned_bases for j in jobs)
         w = Window(cell=cell, samples=samples, jobs=unprofiled,
                    seconds=window_s,
+                   unprofiled_s=window_s - (walls[PROFILED_QUEUE]
+                                            if profile is not None else 0.0),
                    profile=profile, peak_bytes=peak, card=card)
         metrics: Dict[str, dict] = {}
         if args.trace:
@@ -247,11 +305,14 @@ def run(argv, t_start: float, device: Optional[str] = None) -> int:
                 if value is not None:
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         else:
-            values = {"read_mbases_per_s": bases / window_s / 1e6,
-                      "setup_s": setup_s}
+            values = {"setup_s": setup_s}
+            if clock is not None and clock.busy_s:
+                values["device_ms_per_gbase"] = clock.busy_s * 1e3 / (
+                    bases / 1e9)
             for m in cell.end_to_end:
-                metrics[m["name"]] = {"value": values[m["name"]],
-                                      "unit": m["unit"]}
+                if m["name"] in values:
+                    metrics[m["name"]] = {"value": values[m["name"]],
+                                          "unit": m["unit"]}
         found = guard.forbidden()
         if found:
             print("portbench: the run loaded " + ", ".join(found)
@@ -282,7 +343,12 @@ def run(argv, t_start: float, device: Optional[str] = None) -> int:
                  f"{max(s.seconds['reads'] for s in samples):.3f} s, its "
                  f"file {max(s.seconds['file'] for s in samples):.3f} s")
               + f"; warm-up "
-              f"{t_warm:.3f} s), reference {t_ref:.3f} s, card "
+              f"{t_warm:.3f} s), {bases / window_s / 1e6:.2f} Mbases/s "
+              + (f"(the card busy {clock.busy_s:.4f} s: "
+                 + ", ".join(f"{k} {v:.4f}"
+                             for k, v in sorted(clock.kinds.items()))
+                 + ") " if clocked else "")
+              + f"reference {t_ref:.3f} s, card "
               f"{card['name']} (power limit {card['power_limit']})",
               file=sys.stderr)
         print("portbench: queue walls (s) " + " ".join(

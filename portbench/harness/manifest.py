@@ -1,10 +1,26 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
-A cell's traffic mix is ``portbench/workloads/<traffic>.json`` (its
-configuration's name, the mix's parameters, its ``why`` and its control),
-a configuration is the ``file`` its entry names, and a per-layer metric is
-read by ``portbench/metrics/<name>.py``: a later cell, configuration or
-metric is a new file and a new entry, never an edit."""
+A cell's traffic mix is ``portbench/workloads/<traffic>.json``: its
+configuration's name, the mix's parameters (``traffic``: reads a sample,
+the pool of distinct samples, samples a queue), its ``why``, its control,
+and how the window serves a queue:
+
+* ``server``: keyword arguments of ``ServeRunner`` (``{"batch": "auto"}``
+  packs jobs into batches); none, the server at its defaults;
+* ``route``: ``"jobs"`` (the default) submits a queue's samples as jobs
+  (``submit_jobs``) and writes each job's files; ``"cohort"`` runs the
+  queue as one cohort (``CohortRunner``, which needs ``batch``) with the
+  configuration's flags as its base config, and the cohort writes every
+  member's files into one folder under the member's own prefix; the
+  cohort runs at ``CohortRunner``'s defaults.
+
+A configuration is the ``file`` its entry names: its genome (one contig of
+``length``, or a panel: ``contigs`` loci named by ``contig_name`` with
+lengths from ``contig_length``), its library (``amplicon``, ``shotgun`` or
+``capture``), variants, errors and flags (``traffic/generate.py``).  A
+per-layer metric is read by ``portbench/metrics/<name>.py``.  So a later
+cell, configuration or metric, a panel and the cohort route included, is
+a new file and a new entry, never an edit."""
 
 from __future__ import annotations
 
@@ -17,6 +33,8 @@ from typing import Callable, List
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 HERE = os.path.join(ROOT, "portbench")
+#: how a queue is served (a traffic mix's ``route``)
+ROUTES = ("jobs", "cohort")
 
 
 @dataclasses.dataclass
@@ -28,6 +46,8 @@ class Cell:
     control: str             # the control's name (reference/controls.py)
     end_to_end: List[dict]   # this cell's end-to-end metrics
     per_layer: List[dict]    # this cell's per-layer metrics
+    server: dict = dataclasses.field(default_factory=dict)
+    route: str = "jobs"      # or "cohort"
 
 
 def load_benchmark() -> dict:
@@ -58,9 +78,14 @@ def cell(name: str) -> Cell:
     e2e_names = {m["name"] for m in e2e}
     per = [m for m in bench["per_layer"] if _reports(m, name)
            and m["moves"] in e2e_names]
+    route = mix.get("route", "jobs")
+    if route not in ROUTES:
+        raise ValueError(f"traffic {entry['traffic']!r}: route {route!r} "
+                         f"is none of {ROUTES}")
     return Cell(name=name, chips=int(entry["chips"]), config=config,
                 traffic=mix["traffic"], control=mix["control"],
-                end_to_end=e2e, per_layer=per)
+                end_to_end=e2e, per_layer=per, server=mix.get("server", {}),
+                route=route)
 
 
 def reader(metric: str) -> Callable:

@@ -1,5 +1,6 @@
 """The device trace of a stretch of the window: ``torch.profiler`` over
-it, exported as a Chrome trace and read back as events."""
+it, exported as a Chrome trace and read back as events; and the card's
+busy time over a whole window (:func:`card_time`)."""
 
 from __future__ import annotations
 
@@ -99,6 +100,59 @@ def device_idle_share(events: list):
     return busy / 1e3, window / 1e3, 1.0 - busy / window
 
 
+def exported(prof) -> list:
+    """The events of a finished ``torch.profiler`` run, by way of its
+    Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            data = json.load(fh)
+    finally:
+        os.unlink(path)
+    return data.get("traceEvents", data) if isinstance(data, dict) else data
+
+
+def device_kind(name: str) -> str:
+    """The Chrome trace's category of a device operation, by its name."""
+    for head, kind in (("Memcpy", "gpu_memcpy"), ("Memset", "gpu_memset")):
+        if name.startswith(head):
+            return kind
+    return "kernel"
+
+
+@contextmanager
+def card_time():
+    """Record the card's operations over the body, and nothing of the
+    host's; yields a holder whose ``busy_s`` is set after: the union of
+    the device's kernel, copy and set intervals, in seconds.  The
+    profiler starts (CUPTI's start-up) before the body, so the body is
+    timed as it runs.  ``kinds`` holds each kind of operation's summed
+    seconds.  The events are read from the profiler in memory: a whole
+    window's Chrome trace runs to some hundreds of megabytes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    holder = type("Holder", (), {"busy_s": None, "kinds": None})()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        yield holder
+        torch.cuda.synchronize()
+    # with no host activity recorded the device's events are its
+    # kernels, copies and sets alone
+    ops = [(e.start_ns(), e.end_ns(), e.name())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    holder.kinds = {}
+    for a, b, name in ops:
+        kind = device_kind(name)
+        holder.kinds[kind] = holder.kinds.get(kind, 0.0) + (b - a) / 1e9
+    holder.busy_s = sum(b - a for a, b in merged(
+        sorted((a, b) for a, b, _ in ops))) / 1e9
+
+
 @contextmanager
 def profiled(cuda: bool):
     """Profile the body; yields a holder whose ``profile`` is set after."""
@@ -113,13 +167,4 @@ def profiled(cuda: bool):
         yield holder
         if cuda:
             torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            data = json.load(fh)
-    finally:
-        os.unlink(path)
-    holder.profile = Profile(data.get("traceEvents", data)
-                             if isinstance(data, dict) else data)
+    holder.profile = Profile(exported(prof))

@@ -14,9 +14,15 @@ or under the minimum depth, written as the fill character; a reference
 with no coverage, or whose consensus holds nothing but gaps, writes no
 record.
 
-Input: the reads as the benchmark made them (0-based POS, CIGAR table and
-index, SEQ bytes), the same records its SAM and BAM files hold.  Output:
-``{file name: bytes}`` as the tool writes them.
+Each reference sequence (contig) is called on its own, as the tool calls
+it: one ``{contig}__{name}.fasta`` a contig with a record, its header
+giving that contig's coverage and length.  An insertion at a contig's
+end, with no base of the contig after it, is not emitted.
+
+Input: the reads as the benchmark made them (the contigs, each read's
+contig and 0-based POS on it, CIGAR table and index, SEQ bytes), the same
+records its SAM and BAM files hold.  Output: ``{file name: bytes}`` as the
+tool writes them.
 
 ``count_cap`` and ``insertions`` exist for the controls
 (``reference/controls.py``); the reference itself runs with neither.
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import re
 from collections import Counter
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -107,10 +113,14 @@ def _walk(cigar: str):
     return out
 
 
-def pileup(contig_len: int, pos: np.ndarray, cigars: Sequence[str],
-           cigar_id: np.ndarray, seq: np.ndarray, maxdel: Optional[int]):
-    """``([L, 6] int64 counts, Counter of (position, motif))``."""
-    counts = np.zeros(contig_len * 6, dtype=np.int64)
+def pileup(genome_len: int, pos: np.ndarray, cigars: Sequence[str],
+           cigar_id: np.ndarray, seq: np.ndarray, maxdel: Optional[int],
+           lo: np.ndarray, hi: np.ndarray):
+    """``([L, 6] int64 counts, Counter of (position, motif))`` over the
+    flat genome, ``pos`` on it.  Each read lies in ``[lo, hi)``, its
+    contig's stretch of the flat genome; an insertion keyed at its
+    contig's end is left out."""
+    counts = np.zeros(genome_len * 6, dtype=np.int64)
     motifs: Counter = Counter()
     pending: List[np.ndarray] = []
     held = 0
@@ -125,10 +135,11 @@ def pileup(contig_len: int, pos: np.ndarray, cigars: Sequence[str],
         count_gaps = maxdel is None or gaps <= maxdel
         span = sum(n for kind, _, _, n in ops if kind in "MD")
         p0 = pos[rows]
-        if span and (p0.min() < 0 or p0.max() + span > contig_len):
-            raise IndexError(f"a read with CIGAR {cig} leaves the contig")
-        for lo in range(0, rows.size, BLOCK_READS):
-            r = rows[lo:lo + BLOCK_READS]
+        if span and ((p0 < lo[rows]).any()
+                     or (p0 + span > hi[rows]).any()):
+            raise IndexError(f"a read with CIGAR {cig} leaves its contig")
+        for b in range(0, rows.size, BLOCK_READS):
+            r = rows[b:b + BLOCK_READS]
             p = pos[r]
             p6 = p[:, None] * 6
             for kind, q, off, n in ops:
@@ -141,8 +152,9 @@ def pileup(contig_len: int, pos: np.ndarray, cigars: Sequence[str],
                 elif kind == "D" and count_gaps:
                     idx = p6 + ((off + np.arange(n)) * 6)[None, :]
                 elif kind == "I":
-                    for pi, m in zip((p + off).tolist(),
-                                     seq[r, q:q + n].tolist()):
+                    inside = p + off < hi[r]
+                    for pi, m in zip((p + off)[inside].tolist(),
+                                     seq[r[inside], q:q + n].tolist()):
                         motifs[(pi, bytes(m))] += 1
                     continue
                 else:
@@ -155,7 +167,7 @@ def pileup(contig_len: int, pos: np.ndarray, cigars: Sequence[str],
                     pending, held = [], 0
     if pending:
         counts += np.bincount(np.concatenate(pending), minlength=counts.size)
-    return counts.reshape(contig_len, 6), motifs
+    return counts.reshape(genome_len, 6), motifs
 
 
 def insertion_columns(motifs: Counter, count_cap: Optional[int] = None):
@@ -176,57 +188,86 @@ def insertion_columns(motifs: Counter, count_cap: Optional[int] = None):
     return out
 
 
-def consensus(name: str, contig: str, contig_len: int, pos, cigars,
-              cigar_id, seq, thresholds: List[float], min_depth: int = 1,
-              fill: str = "-", maxdel: Optional[int] = 150,
-              count_cap: Optional[int] = None,
-              insertions: bool = True) -> Dict[str, bytes]:
-    """The FASTA files of one sample: ``{file name: bytes}``."""
-    counts, motifs = pileup(contig_len, pos, cigars, cigar_id, seq, maxdel)
+#: a record: (threshold in percent, header coverage, length, sequence)
+Record = Tuple[str, str, int, str]
+
+
+def calls(contigs: Sequence[Tuple[str, int]], contig_id: np.ndarray, pos,
+          cigars, cigar_id, seq, thresholds: List[float],
+          min_depth: int = 1, fill: str = "-",
+          maxdel: Optional[int] = 150, count_cap: Optional[int] = None,
+          insertions: bool = True) -> Dict[str, List[Record]]:
+    """Each contig's records, for the contigs that have one; ``pos`` is on
+    each read's own contig (``contig_id``)."""
+    lens = np.array([n for _, n in contigs], dtype=np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    lo = offs[contig_id]
+    hi = lo + lens[contig_id]
+    total = int(lens.sum())
+    counts, motifs = pileup(total, pos + lo, cigars, cigar_id, seq, maxdel,
+                            lo, hi)
     if count_cap is not None:
         counts = np.minimum(counts, count_cap)
     cov = counts.sum(1)
-    if cov.sum() == 0:
-        return {}
     ins = insertion_columns(motifs, count_cap) if insertions else {}
-    ins_pos = np.array(sorted(p for p in ins if p < contig_len),
-                       dtype=np.int64)
-    records = []
+    ins_pos = np.array(sorted(ins), dtype=np.int64)
+    called = {}
     for t in thresholds:
-        chars = np.full(contig_len, ord(fill), dtype=np.uint8)
-        for lo in range(0, contig_len, BLOCK_POS):
-            c = counts[lo:lo + BLOCK_POS]
-            cv = cov[lo:lo + BLOCK_POS]
+        chars = np.full(total, ord(fill), dtype=np.uint8)
+        for b in range(0, total, BLOCK_POS):
+            c = counts[b:b + BLOCK_POS]
+            cv = cov[b:b + BLOCK_POS]
             masks = vote(c, t * cv.astype(np.float64))
             ok = (cv > 0) & (cv >= min_depth)
-            chars[lo:lo + BLOCK_POS][ok] = CALL[masks[ok]]
-        sumcov = int(cov.sum())
-        extra_at, extra = [], []
-        for p in ins_pos.tolist():
-            cv = int(cov[p])
-            if cv == 0 or cv < min_depth:
-                continue
-            cols = ins[p].copy()
-            cols[:, 0] = cv - cols[:, 1:].sum(1)
-            masks = vote(cols, np.full(cols.shape[0], t * float(cv)))
-            for m in masks.tolist():
-                ch = CALL[m]
-                if ch == ord("-"):
-                    continue
-                extra_at.append(p + 1)
-                extra.append(ch)
-                sumcov += cv
-        s = np.insert(chars, np.array(extra_at, dtype=np.int64),
-                      np.array(extra, dtype=np.uint8)).tobytes().decode()
-        stripped = len(s) - s.count("-")
-        if stripped == 0:
+            chars[b:b + BLOCK_POS][ok] = CALL[masks[ok]]
+        called[t] = chars
+    out: Dict[str, List[Record]] = {}
+    for (contig, n), o in zip(contigs, offs.tolist()):
+        if cov[o:o + n].sum() == 0:
             continue
-        pct = str(int(t * 100))
-        header = (">" + name + "|c" + pct + " reference:" + contig
-                  + " coverage:" + str(round(float(sumcov) / float(len(s)), 2))
-                  + " length:" + str(stripped)
-                  + " consensus_threshold:" + pct + "%")
-        records.append(header + "\n" + s)
-    if not records:
-        return {}
-    return {f"{contig}__{name}.fasta": ("\n".join(records) + "\n").encode()}
+        here = ins_pos[np.searchsorted(ins_pos, o):
+                       np.searchsorted(ins_pos, o + n)]
+        records = []
+        for t in thresholds:
+            sumcov = int(cov[o:o + n].sum())
+            extra_at, extra = [], []
+            for p in here.tolist():
+                cv = int(cov[p])
+                if cv == 0 or cv < min_depth:
+                    continue
+                cols = ins[p].copy()
+                cols[:, 0] = cv - cols[:, 1:].sum(1)
+                masks = vote(cols, np.full(cols.shape[0], t * float(cv)))
+                for m in masks.tolist():
+                    ch = CALL[m]
+                    if ch == ord("-"):
+                        continue
+                    extra_at.append(p - o + 1)
+                    extra.append(ch)
+                    sumcov += cv
+            s = np.insert(called[t][o:o + n],
+                          np.array(extra_at, dtype=np.int64),
+                          np.array(extra, dtype=np.uint8)).tobytes().decode()
+            stripped = len(s) - s.count("-")
+            if stripped == 0:
+                continue
+            records.append((str(int(t * 100)),
+                            str(round(float(sumcov) / float(len(s)), 2)),
+                            stripped, s))
+        if records:
+            out[contig] = records
+    return out
+
+
+def render(name: str, called: Dict[str, List[Record]]) -> Dict[str, bytes]:
+    """The FASTA files of one sample named ``name``: ``{file name:
+    bytes}``."""
+    files = {}
+    for contig, records in called.items():
+        text = "\n".join(
+            ">" + name + "|c" + pct + " reference:" + contig + " coverage:"
+            + cov + " length:" + str(n) + " consensus_threshold:" + pct
+            + "%\n" + s for pct, cov, n, s in records)
+        files[f"{contig}__{name}.fasta"] = (text + "\n").encode()
+    return files
+

@@ -90,8 +90,8 @@ def test_every_entry_is_found_by_name(bench):
         assert cell.control in controls.CONTROLS
         names = {m["name"] for m in cell.per_layer}
         assert names, w["name"]
-        assert {m["name"] for m in cell.end_to_end} >= {"setup_s",
-                                                         "read_mbases_per_s"}
+        assert {m["name"] for m in cell.end_to_end} >= {
+            "setup_s", "device_ms_per_gbase"}
     for m in bench["per_layer"]:
         assert callable(manifest.reader(m["name"]))
         assert set(m.get("workloads", cells)) <= cells

@@ -1,7 +1,7 @@
 """The plain reference against the port's CPU run, at a small size: both
-read the same SAM files, the port through its
-warm server on every pileup route the CPU has; and each control differs
-from the reference where its cell needs it to."""
+read the same SAM files (a capture panel's among them), the port through
+its warm server on every pileup route the CPU has; and each control
+differs from the reference where its cell needs it to."""
 
 import json
 import os
@@ -11,15 +11,22 @@ import pytest
 from portbench.harness import judge, manifest
 from portbench.reference import consensus as rc
 from portbench.reference import controls, flags
+from portbench.tests.test_portbench_run import (PANEL, panel_config,
+                                                reference_files)
 from portbench.traffic import pool
 
 SIZES = [("sarscov2_artic_v3", None, 20000),
          ("sarscov2_artic_v3", None, 3000),
          ("ecoli_k12_wgs", 200_000, 6000),
-         ("ecoli_k12_wgs", 200_000, 12000)]
+         ("ecoli_k12_wgs", 200_000, 12000),
+         ("angiosperms353_capture", 24, 6000)]
 
 
 def config(name, length):
+    """A configuration; ``length`` shortens a genome, or takes a panel's
+    first loci (the draft capture panel, a fixture beside this file)."""
+    if name == "angiosperms353_capture":
+        return panel_config(dict(contigs=length), PANEL["library"])
     with open(os.path.join(manifest.HERE, "configs", name + ".json")) as fh:
         cfg = json.load(fh)
     if length:
@@ -61,11 +68,11 @@ def served(tmp_path_factory):
 
 def test_reference_equals_the_port(served):
     cases, specs, results = served
-    assert len(results) == 16
+    assert len(results) == 4 * len(SIZES)
     for (s, cfg, route), spec, res in zip(cases, specs, results):
         assert res.ok, res.error
-        got = judge.render(res.fastas, spec.config.prefix)
-        want = judge.expected(s, cfg["flags"])
+        got = judge.render(res.fastas, judge.prefix_of(s.path))
+        want = reference_files(s, cfg["flags"])
         assert got == want, (s.path, route)
         assert want, s.path
 
@@ -73,7 +80,7 @@ def test_reference_equals_the_port(served):
 def test_outputs_hold_insertions_and_ambiguity(served):
     cases, _, _ = served
     s, cfg, _ = cases[0]
-    fasta = judge.expected(s, cfg["flags"])
+    fasta = reference_files(s, cfg["flags"])
     seq = list(fasta.values())[0].decode().split("\n")[1]
     # the 9 bp insertion outweighs the 6 bp deletion
     assert len(seq) == s.contig_len + 9
@@ -94,6 +101,7 @@ def test_controls_change_the_bytes(served, control, cap):
         if cap:
             opts["count_cap"] = cap
         r = pool.reads(s)
-        ctl = rc.consensus(r.name, r.contig, r.contig_len, r.pos, r.cigars,
-                           r.cigar_id, r.seq, **opts)
-        assert ctl != judge.expected(s, cfg["flags"]), (s.path, control)
+        ctl = rc.render(r.name, rc.calls(r.contigs, r.contig_id, r.pos,
+                                         r.cigars, r.cigar_id, r.seq,
+                                         **opts))
+        assert ctl != reference_files(s, cfg["flags"]), (s.path, control)

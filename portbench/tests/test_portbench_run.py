@@ -12,11 +12,25 @@ import time
 import numpy as np
 import pytest
 
-from portbench.harness import manifest
+from portbench.harness import judge, manifest
+from portbench.reference import consensus as rc
 
 SMALL = dict(reads_per_sample=6000, pool=2, queue_jobs=2)
 GENOME = 150_000
+#: the capture panel the tests use: the draft Angiosperms353 configuration
+#: and cohort mix that were run on the card, kept here as fixtures
+FIXTURES = os.path.dirname(os.path.abspath(__file__))
+#: the draft capture panel at the tests' size: 24 loci (0-2 of them not
+#: recovered a sample), a queue of 4 members from a pool of 2, on each
+#: route
+PANEL = dict(genome=dict(contigs=24), library=dict(unrecovered_max=2))
+PANEL_MIX = dict(reads_per_sample=4000, pool=2, queue_jobs=4)
+PANEL_CELLS = {"panel.jobs": {}, "panel.cohort": {"route": "cohort",
+                                                  "server": {"batch": "auto"}}}
 
+
+#: end-to-end metrics read off the card's clock alone
+CARD_ONLY = {"device_ms_per_gbase"}
 
 def shrink(flags=None):
     """``manifest.cell`` at the tests' size: a shorter genome and a
@@ -34,14 +48,53 @@ def shrink(flags=None):
     return small
 
 
+def panel_config(genome=None, library=None):
+    """The draft capture configuration, its genome and library updated by
+    ``genome`` and ``library``."""
+    with open(os.path.join(FIXTURES, "angiosperms353_capture.json")) as fh:
+        cfg = json.load(fh)
+    cfg["genome"].update(genome or {})
+    cfg["library"].update(library or {})
+    return cfg
+
+
+def reference_files(sample, config_flags, control=None):
+    """The reference's files for a pool sample under its own name."""
+    return rc.render(sample.name,
+                     judge.expected_calls(sample, config_flags, control))
+
+
+def with_panel(real=None):
+    """``manifest.cell`` that also knows the :data:`PANEL_CELLS`: the
+    draft mix (``capture_cohort.json`` beside this file) over the draft
+    panel at the tests' size, on the route each names."""
+    real = real or manifest.cell
+
+    def cell(name):
+        if name not in PANEL_CELLS:
+            return real(name)
+        with open(os.path.join(FIXTURES, "capture_cohort.json")) as fh:
+            mix = json.load(fh)
+        mix.update(route="jobs", server={})
+        mix.update(PANEL_CELLS[name])
+        base = real("ecoli_wgs.sam")
+        return manifest.Cell(
+            name=name, chips=1, config=panel_config(**PANEL),
+            traffic=dict(mix["traffic"], **PANEL_MIX),
+            control=mix["control"], end_to_end=base.end_to_end,
+            per_layer=base.per_layer, server=mix["server"],
+            route=mix["route"])
+    return cell
+
+
 REHEARSE = """
 import json, sys, time
 t = time.perf_counter()
 sys.path.insert(0, {root!r})
 from portbench.harness import guard, manifest
 from portbench.harness.main import run
-from portbench.tests.test_portbench_run import shrink
-manifest.cell = shrink()
+from portbench.tests.test_portbench_run import shrink, with_panel
+manifest.cell = with_panel(shrink())
 rc = run({argv!r}, t, device="cpu")
 print(json.dumps({{"rc": rc, "forbidden": guard.forbidden(),
                   "top": sorted({{m.split(".")[0] for m in sys.modules}})}}))
@@ -62,7 +115,10 @@ def rehearse(cell, trace, tmp_path, seconds=1.0):
 
 @pytest.mark.parametrize("cell,trace", [("ecoli_wgs.sam", 0),
                                         ("ecoli_wgs.sam", 1),
-                                        ("artic_deep.sam", 0)])
+                                        ("artic_deep.sam", 0),
+                                        ("panel.jobs", 0),
+                                        ("panel.cohort", 0),
+                                        ("panel.cohort", 1)])
 def test_cpu_rehearsal(cell, trace, tmp_path):
     result, tail, err = rehearse(cell, trace, tmp_path)
     assert tail["rc"] == 0
@@ -74,12 +130,18 @@ def test_cpu_rehearsal(cell, trace, tmp_path):
     assert list(result)[-1] == "checks"
     assert {"correct", "attempted", "failed", "metrics",
             "device"} <= set(result)
-    cellinfo = manifest.cell(cell)
+    if cell in PANEL_CELLS:
+        # every member of every queue run, the window's and the
+        # profiled queue's alike
+        assert result["attempted"] % PANEL_MIX["queue_jobs"] == 0
+        assert result["attempted"] >= PANEL_MIX["queue_jobs"]
+    cellinfo = with_panel()(cell)
     want = {m["name"] for m in (cellinfo.per_layer if trace
                                 else cellinfo.end_to_end)}
     assert set(result["metrics"]) <= want
     if not trace:
-        assert set(result["metrics"]) == want
+        # the card's clock reads nothing off the CPU
+        assert set(result["metrics"]) == want - CARD_ONLY
     for m in result["metrics"].values():
         assert m["value"] > 0
     # the checks are the last lines of standard error
@@ -145,7 +207,7 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
 def broken_run(monkeypatch, capsys, cell="ecoli_wgs.sam", flags=None):
     from portbench.harness.main import run
 
-    monkeypatch.setattr(manifest, "cell", shrink(flags))
+    monkeypatch.setattr(manifest, "cell", with_panel(shrink(flags)))
     rc = run(["--workload", cell, "--seed", str(2 ** 31 + 3), "--seconds",
               "0.5", "--trace", "0"], time.perf_counter(), device="cpu")
     out = capsys.readouterr().out.strip().splitlines()
@@ -153,8 +215,9 @@ def broken_run(monkeypatch, capsys, cell="ecoli_wgs.sam", flags=None):
     return json.loads(out[-1])
 
 
-def test_fault_an_answer_altered(monkeypatch, capsys):
-    """One consensus character changed where the port renders it."""
+def alter_answers(monkeypatch):
+    """One consensus character changed where the port renders each
+    contig's first record."""
     from sam2consensus_torch.backends.torch_backend import TorchBackend
 
     real = TorchBackend._assemble
@@ -168,9 +231,40 @@ def test_fault_an_answer_altered(monkeypatch, capsys):
         return fastas
 
     monkeypatch.setattr(TorchBackend, "_assemble", altered)
+
+
+def test_fault_an_answer_altered(monkeypatch, capsys):
+    """One consensus character changed where the port renders it."""
+    alter_answers(monkeypatch)
     result = broken_run(monkeypatch, capsys)
     assert result["correct"] is False
     assert result["checks"]["wrong_jobs"]["value"] == result["attempted"]
+
+
+def test_fault_an_answer_altered_in_a_cohort(monkeypatch, capsys):
+    """The same on the cohort route over a panel: every member's records
+    and the files the cohort wrote for it are wrong."""
+    alter_answers(monkeypatch)
+    result = broken_run(monkeypatch, capsys, cell="panel.cohort")
+    assert result["correct"] is False
+    assert result["checks"]["wrong_jobs"]["value"] == result["attempted"]
+    assert result["checks"]["wrong_files"]["value"] > 0
+
+
+def test_fault_a_member_renamed_in_a_cohort(monkeypatch, capsys):
+    """The port names each member's files and headers by a wrong rule of
+    its own (a unique name, not the input's basename): the judge expects
+    the tool's names, worked out from the inputs, so every member is
+    wrong."""
+    import sam2consensus_torch.config as port_config
+
+    real = port_config.default_prefix
+    monkeypatch.setattr(port_config, "default_prefix",
+                        lambda path: real(path) + "x")
+    result = broken_run(monkeypatch, capsys, cell="panel.cohort")
+    assert result["correct"] is False
+    assert result["checks"]["wrong_jobs"]["value"] == result["attempted"]
+    assert result["checks"]["wrong_files"]["value"] > 0
 
 
 def test_fault_the_state_unchanged(monkeypatch, capsys):
@@ -208,7 +302,8 @@ def test_fault_half_the_batch_left_out(monkeypatch, capsys):
 
 
 @pytest.mark.card
-def test_one_short_run_on_the_card(tmp_path):
+@pytest.mark.parametrize("trace", [0, 1])
+def test_one_short_run_on_the_card(trace, tmp_path):
     """A short real run on the card (skips without one)."""
     import torch
 
@@ -217,9 +312,13 @@ def test_one_short_run_on_the_card(tmp_path):
     out = subprocess.run(
         [sys.executable, os.path.join(manifest.HERE, "run.py"),
          "--workload", "ecoli_wgs.sam", "--seed", str(2 ** 31 + 77),
-         "--seconds", "3", "--trace", "1"], capture_output=True, text=True,
-        cwd=manifest.ROOT, timeout=900)
+         "--seconds", "3", "--trace", str(trace)], capture_output=True,
+        text=True, cwd=manifest.ROOT, timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"] is True
-    assert result["device"]["busy_s"] > 0
+    if trace:
+        assert result["device"]["busy_s"] > 0
+    else:
+        assert set(result["metrics"]) == {"device_ms_per_gbase", "setup_s"}
+        assert result["metrics"]["device_ms_per_gbase"]["value"] > 0

@@ -55,9 +55,23 @@ def test_each_is_an_entry_of_the_benchmark():
     for metric in SPANS:
         m = per[metric]
         assert (m["unit"], m["better"], m["source"], m["moves"]) == \
-            ("s", "lower", "program_span", "read_mbases_per_s")
+            ("s", "lower", "program_span", "device_ms_per_gbase")
         assert m["workloads"] == ["artic_deep.sam", "ecoli_wgs.sam"]
         assert callable(manifest.reader(metric))
     for cell in ("artic_deep.sam", "ecoli_wgs.sam"):
         assert set(SPANS) <= {m["name"] for m in
                               manifest.cell(cell).per_layer}
+
+
+def test_host_rate_over_the_unprofiled_queues():
+    read = manifest.reader("serve.read_mbases_per_s")
+    samples = [SimpleNamespace(aligned_bases=3e6),
+               SimpleNamespace(aligned_bases=1e6)]
+    jobs = [SimpleNamespace(sample=0), SimpleNamespace(sample=1),
+            SimpleNamespace(sample=0)]
+    w = SimpleNamespace(samples=samples, jobs=jobs, unprofiled_s=2.0)
+    assert read(w) == pytest.approx(3.5)
+    assert read(SimpleNamespace(samples=samples, jobs=[],
+                                unprofiled_s=2.0)) is None
+    assert read(SimpleNamespace(samples=samples, jobs=jobs,
+                                unprofiled_s=0.0)) is None

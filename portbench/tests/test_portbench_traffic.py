@@ -80,7 +80,8 @@ def test_deep_sample_passes_2048_in_a_lane(tmp_path):
     p = pool.make_sample(cfg, {"reads_per_sample": 250000}, 11, 0,
                          str(tmp_path))
     s = pool.reads(p)
+    whole = np.zeros(s.pos.shape[0], dtype=np.int64)
     counts, _ = rc.pileup(s.contig_len, s.pos, s.cigars, s.cigar_id, s.seq,
-                          150)
+                          150, whole, whole + s.contig_len)
     assert counts.max() > 2048
     assert 1000 < counts.sum(1).mean() < 1500

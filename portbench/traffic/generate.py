@@ -10,7 +10,13 @@ the ones a real record carries (names, flags, mates, qualities, tags),
 which :mod:`.sam` writes out.  The reference consensus
 reads the same :class:`Sample` (``reference/consensus.py``).
 
-Two library kinds:
+A configuration's genome is one contig (``length``) or a panel of
+``contigs`` loci, each drawn from the genome's seed: its length from a
+log-normal ``contig_length`` within its bounds, its name from the
+``contig_name`` rule.  A read lies on one contig; its POS is on that
+contig.
+
+Three library kinds:
 
 * ``amplicon``: tiled amplicons with log-normal yields and a few dropped
   per sample; a share of the fragments is a whole amplicon whose primer
@@ -18,7 +24,14 @@ Two library kinds:
   rest are tagmented pieces inside one amplicon;
 * ``shotgun``: uniform fragments with a normal insert size; a share of
   the reads is soft-clipped at its 3' end, as ``bwa mem`` clips adapter
-  read-through.
+  read-through;
+* ``capture``: hybridisation capture of a panel of loci, as target-capture
+  phylogenomics sequences them: log-normal yields per locus, a few loci
+  not recovered per sample, pairs with a normal insert size anywhere over
+  a locus, reaching up to ``overhang_max`` bases past either end into
+  flanking sequence, which the read soft-clips as an aligner clips
+  intron or off-target bases against an exon-only target; the sample
+  diverges from the targets by SNPs and indels drawn per locus.
 
 A read's aligned part maps through the sample's haplotype back to the
 reference: where it crosses a variant indel or carries a sequencing indel
@@ -29,7 +42,7 @@ aligned part becomes a soft clip, as an aligner would write it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,8 +56,8 @@ class Sample:
     """One sample's aligned reads, in the order they are written."""
 
     name: str
-    contig: str
-    contig_len: int
+    contig: str              # the genome's name (a panel's: the panel's)
+    contig_len: int          # the flat genome: every contig's length
     pos: np.ndarray          # int64, 0-based leftmost aligned position
     cigars: List[str]        # the distinct CIGARs
     cigar_id: np.ndarray     # int64, each read's index into ``cigars``
@@ -57,6 +70,8 @@ class Sample:
     tile: np.ndarray         # int64, read-name fields
     x: np.ndarray
     y: np.ndarray
+    contigs: List[Tuple[str, int]]   # each contig's name and length
+    contig_id: np.ndarray    # int64, each read's index into ``contigs``
 
     @property
     def n_reads(self) -> int:
@@ -68,12 +83,34 @@ def _rng(*key: int) -> np.random.Generator:
         [int(k) & 0xFFFFFFFFFFFFFFFF for k in key]))
 
 
+def contigs(cfg: dict) -> List[Tuple[str, int]]:
+    """The genome's contigs, as ``(name, length)`` in the order they are
+    laid end to end: the one contig, or the panel's loci drawn from the
+    genome's seed."""
+    g = cfg["genome"]
+    if "contigs" not in g:
+        return [(g["name"], int(g["length"]))]
+    dist = g["contig_length"]
+    rng = _rng(g["seed"], 1)
+    lens = np.clip(np.round(rng.lognormal(np.log(dist["median"]),
+                                          dist["sigma"], g["contigs"])),
+                   dist["min"], dist["max"]).astype(np.int64)
+    return [(g["contig_name"].format(i=i), int(n))
+            for i, n in enumerate(lens.tolist())]
+
+
+def offsets(lens) -> np.ndarray:
+    """Each contig's first position in the flat genome."""
+    return np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+
+
 def genome(cfg: dict) -> np.ndarray:
-    """The configuration's reference sequence: ASCII ACGT at its GC share,
-    from its own seed (the same in every run)."""
+    """The configuration's reference sequence, its contigs end to end:
+    ASCII ACGT at its GC share, from its own seed (the same in every
+    run)."""
     g = cfg["genome"]
     rng = _rng(g["seed"])
-    u = rng.random(g["length"], dtype=np.float32)
+    u = rng.random(sum(n for _, n in contigs(cfg)), dtype=np.float32)
     gc = g["gc"]
     # A, C, G, T with P(C) = P(G) = gc / 2
     edges = np.array([(1 - gc) / 2, 0.5, 0.5 + gc / 2], dtype=np.float32)
@@ -110,13 +147,21 @@ def haplotype(ref: np.ndarray, cfg: dict, rng, allowed=None):
     rng.shuffle(sites)
     del_at = dict(zip(sites[:len(dels)].tolist(), dels))
     ins_at = dict(zip(sites[len(dels):].tolist(), inss))
+    return _with_variants(ref, v, rng, del_at, ins_at)
+
+
+def _with_variants(ref: np.ndarray, v: dict, rng, del_at: dict,
+                   ins_at: dict):
+    """:func:`haplotype`'s result for indels at the given sites (sizes by
+    site), with SNPs drawn away from them."""
+    L = ref.shape[0]
     if "snps" in v:
         n_snp = int(v["snps"])
     else:
         n_snp = int(rng.poisson(L * v["snps_per_kbp"] / 1000.0))
     snp = np.unique(rng.integers(0, L, n_snp))
     near = np.zeros(L, dtype=bool)
-    for s in sites.tolist():
+    for s in set(del_at) | set(ins_at):
         near[max(0, s - 12):s + 20] = True
     snp = snp[~near[snp]]
     sample_ref = ref.copy()
@@ -192,6 +237,80 @@ def _fragments_shotgun(cfg, rng, hap_len, n_frag):
     flen = flen.astype(np.int64)
     fs = (rng.random(n_frag) * (hap_len - flen)).astype(np.int64)
     return fs, fs + flen, np.zeros(n_frag, dtype=np.int64)
+
+
+def _capture_haplotype(ref, cfg, rng, lens):
+    """The sample's haplotype over a panel, as :func:`haplotype` gives it,
+    with ``overhang_max`` bases of flanking sequence (reference
+    coordinate -1) on each side of every locus; and ``[n, 2]`` haplotype
+    intervals of the loci.  Indels fall at ``indels_per_kbp`` over the
+    loci, ``indel_margin`` from a locus's ends and ``indel_spacing``
+    apart, their sizes drawn from ``indel_sizes``."""
+    v = cfg["variants"]
+    lens = np.asarray(lens, dtype=np.int64)
+    offs = offsets(lens)
+    sizes = np.asarray(v["indel_sizes"], dtype=np.int64)
+    margin = int(v["indel_margin"])
+    if margin <= sizes.max():
+        raise ValueError("indel_margin must exceed the largest indel")
+    room = np.clip(lens - 2 * margin, 0, None)
+    n = int(rng.poisson(room.sum() * v["indels_per_kbp"] / 1000.0))
+    locus = rng.choice(lens.shape[0], n, p=room / room.sum())
+    at = np.sort(offs[locus] + margin
+                 + (rng.random(n) * room[locus]).astype(np.int64))
+    keep: List[int] = []
+    for s in at.tolist():
+        if not keep or s - keep[-1] >= v["indel_spacing"]:
+            keep.append(s)
+    size = sizes[rng.integers(0, sizes.shape[0], len(keep))].tolist()
+    is_del = (rng.random(len(keep)) < 0.5).tolist()
+    del_at = {s: k for s, k, d in zip(keep, size, is_del) if d}
+    ins_at = {s: k for s, k, d in zip(keep, size, is_del) if not d}
+    hap, hap_ref, ref2hap = _with_variants(ref, v, rng, del_at, ins_at)
+
+    pad = int(cfg["library"]["overhang_max"])
+    starts = ref2hap[offs]
+    ends = ref2hap[offs + lens - 1] + 1
+    shift = pad * (2 * np.arange(lens.shape[0], dtype=np.int64) + 1)
+    idx = np.arange(hap.shape[0], dtype=np.int64)
+    moved = idx + shift[np.searchsorted(starts, idx, side="right") - 1]
+    flanked = BASES[rng.integers(0, 4, hap.shape[0] + 2 * pad
+                                 * lens.shape[0])]
+    flanked[moved] = hap
+    flanked_ref = np.full(flanked.shape[0], -1, dtype=np.int64)
+    flanked_ref[moved] = hap_ref
+    real = ref2hap >= 0
+    ref2hap = ref2hap.copy()
+    ref2hap[real] = moved[ref2hap[real]]
+    bounds = np.stack([starts + shift, ends + shift], axis=1)
+    return flanked, flanked_ref, ref2hap, bounds
+
+
+def _fragments_capture(cfg, rng, bounds, n_frag):
+    """Per fragment: haplotype start, end, and its locus.  A read of the
+    pair keeps at least ``read length - overhang_max`` bases on its
+    locus; a fragment starts anywhere that allows."""
+    lib = cfg["library"]
+    rl = cfg["reads"]["length"]
+    n = bounds.shape[0]
+    w = rng.lognormal(0.0, lib["yield_sigma"], n)
+    n_drop = int(rng.integers(0, lib["unrecovered_max"] + 1))
+    if n_drop:
+        w[rng.choice(n, n_drop, replace=False)] = 0.0
+    k = np.repeat(np.arange(n), rng.multinomial(n_frag, w / w.sum()))
+    hs = bounds[k, 0]
+    span = bounds[k, 1] - hs
+    keep = rl - int(lib["overhang_max"])
+    if (span < keep).any():
+        raise ValueError("a locus is shorter than a read keeps on it")
+    flen = np.clip(np.round(rng.normal(lib["insert_mean"], lib["insert_sd"],
+                                       n_frag)),
+                   rl, np.minimum(4 * rl, span + 2 * (rl - keep)))
+    flen = flen.astype(np.int64)
+    lo = keep - rl
+    hi = span - keep - (flen - rl)
+    fs = hs + lo + (rng.random(n_frag) * (hi - lo + 1)).astype(np.int64)
+    return fs, fs + flen, k
 
 
 def _cigar_of(refc: np.ndarray, clip_l: int, clip_r: int):
@@ -308,29 +427,45 @@ def sample(cfg: dict, traffic: dict, seed: int, index: int,
     rng = _rng(seed, index, 0x5A)
     rl = cfg["reads"]["length"]
     lib = cfg["library"]
-    allowed = None
-    if lib["kind"] == "amplicon":
-        amp = amplicon_windows(cfg)
-        p = lib["primer_length"]
-        # variant indels away from the primers and the amplicons' overlaps
-        allowed = [(int(s) + p + 120, int(e) - p - 120) for s, e in amp]
-    hap, hap_ref, ref2hap = haplotype(ref, cfg, rng, allowed)
+    tigs = contigs(cfg)
+    lens = np.array([n for _, n in tigs], dtype=np.int64)
     n_frag = int(traffic["reads_per_sample"]) // 2
-    if lib["kind"] == "amplicon":
-        fs, fe, pclip = _fragments_amplicon(cfg, rng, ref2hap, n_frag)
-    else:
-        fs, fe, pclip = _fragments_shotgun(cfg, rng, hap.shape[0], n_frag)
-    # read 1 forward from the fragment's start, read 2 reverse to its end
     n = 2 * n_frag
+    if lib["kind"] == "capture":
+        hap, hap_ref, ref2hap, bounds = _capture_haplotype(ref, cfg, rng,
+                                                           lens)
+        fs, fe, locus = _fragments_capture(cfg, rng, bounds, n_frag)
+        contig_id = locus.repeat(2)
+    else:
+        allowed = None
+        if lib["kind"] == "amplicon":
+            amp = amplicon_windows(cfg)
+            p = lib["primer_length"]
+            # variant indels away from the primers and the amplicons'
+            # overlaps
+            allowed = [(int(s) + p + 120, int(e) - p - 120) for s, e in amp]
+        hap, hap_ref, ref2hap = haplotype(ref, cfg, rng, allowed)
+        if lib["kind"] == "amplicon":
+            fs, fe, pclip = _fragments_amplicon(cfg, rng, ref2hap, n_frag)
+        else:
+            fs, fe, pclip = _fragments_shotgun(cfg, rng, hap.shape[0],
+                                               n_frag)
+        contig_id = np.zeros(n, dtype=np.int64)
+    # read 1 forward from the fragment's start, read 2 reverse to its end
     start = np.empty(n, dtype=np.int64)
     start[0::2] = fs
     start[1::2] = fe - rl
     reverse = np.zeros(n, dtype=bool)
     reverse[1::2] = True
-    clip_l = np.zeros(n, dtype=np.int64)
-    clip_r = np.zeros(n, dtype=np.int64)
-    clip_l[0::2] = pclip
-    clip_r[1::2] = pclip
+    if lib["kind"] == "capture":
+        # the bases past a locus's ends: flanking sequence, soft-clipped
+        clip_l = np.clip(bounds[contig_id, 0] - start, 0, None)
+        clip_r = np.clip(start + rl - bounds[contig_id, 1], 0, None)
+    else:
+        clip_l = np.zeros(n, dtype=np.int64)
+        clip_r = np.zeros(n, dtype=np.int64)
+        clip_l[0::2] = pclip
+        clip_r[1::2] = pclip
     if lib["kind"] == "shotgun":
         # adapter read-through: a soft clip at the read's 3' end
         cl = rng.random(n) < lib["clip_share"]
@@ -404,6 +539,8 @@ def sample(cfg: dict, traffic: dict, seed: int, index: int,
         if cigar_id[i] == len(cigars):
             cigars.append(text)
 
+    # positions on the read's own contig
+    pos -= offsets(lens)[contig_id]
     # mates: each read's partner is its neighbour in the pair
     mate = np.arange(n) ^ 1
     mpos = pos[mate]
@@ -422,5 +559,6 @@ def sample(cfg: dict, traffic: dict, seed: int, index: int,
         contig_len=int(ref.shape[0]), pos=pos[perm], cigars=cigars,
         cigar_id=cigar_id[perm], seq=seq[perm],
         qual=qual[perm], flag=flag[perm], mate_pos=mpos[perm],
-        tlen=tlen[perm], nm=nm[perm], tile=rtile, x=rx, y=ry)
+        tlen=tlen[perm], nm=nm[perm], tile=rtile, x=rx, y=ry,
+        contigs=tigs, contig_id=contig_id[perm])
 

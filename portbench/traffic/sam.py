@@ -1,4 +1,6 @@
-"""A :class:`~.generate.Sample` as SAM text, as ``bwa mem`` writes it."""
+"""A :class:`~.generate.Sample` as SAM text, as ``bwa mem`` writes it: one
+``@SQ`` a contig, each read on its own contig, its mate on the same
+(``=``)."""
 
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ QNAME = b"A00817:211:HGV7KDSXY:1:"
 
 def header(s: Sample) -> bytes:
     return (f"@HD\tVN:1.6\tSO:unsorted\n"
-            f"@SQ\tSN:{s.contig}\tLN:{s.contig_len}\n"
-            f"@RG\tID:{s.name}\tSM:{s.name}\tPL:ILLUMINA\n"
+            + "".join(f"@SQ\tSN:{name}\tLN:{n}\n" for name, n in s.contigs)
+            + f"@RG\tID:{s.name}\tSM:{s.name}\tPL:ILLUMINA\n"
             f"@PG\tID:bwa\tPN:bwa\tVN:0.7.17-r1188\tCL:bwa mem -t 8 "
             f"ref.fa {s.name}_R1.fastq.gz {s.name}_R2.fastq.gz\n"
             ).encode("ascii")
@@ -34,7 +36,7 @@ def write(s: Sample, path: str) -> int:
     """Write the SAM file; returns its size in bytes."""
     names, cidx = s.cigars, s.cigar_id
     ctab, clen = table([c.encode("ascii") for c in names])
-    rname = s.contig.encode("ascii")
+    rtab, rlen = table([name.encode("ascii") for name, _ in s.contigs])
     size = 0
     with open(path, "wb") as fh:
         h = header(s)
@@ -48,7 +50,8 @@ def write(s: Sample, path: str) -> int:
             body = pack_rows([
                 QNAME, digits(s.tile[lo:hi]), b":", digits(s.x[lo:hi]), b":",
                 digits(s.y[lo:hi]), b"\t", digits(s.flag[lo:hi]),
-                b"\t" + rname + b"\t", digits(s.pos[lo:hi] + 1), b"\t60\t",
+                b"\t", (rtab[s.contig_id[lo:hi]], rlen[s.contig_id[lo:hi]]),
+                b"\t", digits(s.pos[lo:hi] + 1), b"\t60\t",
                 (ctab[k], clen[k]), b"\t=\t", digits(s.mate_pos[lo:hi] + 1),
                 b"\t", digits(s.tlen[lo:hi]), b"\t", fixed(s.seq[lo:hi]),
                 b"\t", fixed(s.qual[lo:hi]), b"\tNM:i:", digits(nm),
